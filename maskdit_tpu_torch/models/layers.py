@@ -1,0 +1,282 @@
+"""Building-block layers for the masked DiT.
+
+Counterpart of maskdit_tpu/models/layers.py, itself a port of the
+reference components in models/maskdit.py: TimestepEmbedder (:27-65),
+LabelEmbedder (:68-81), DiTBlock (:170-192), DecoderLayer (:195-213),
+FinalLayer (:216-234), PatchEmbed (timm) and the fixed 2D sin-cos
+positional embeddings (:595-642).
+
+Module and parameter names are the reference's, so a released ``.pt``
+state dict and a JAX tree passed through ``utils.port.state_dict_from_flax``
+both load with ``load_state_dict``. The adaLN 6-way modulation keeps the
+reference chunk order (shift_msa, scale_msa, gate_msa, shift_mlp,
+scale_mlp, gate_mlp).
+
+Numerics, as in the JAX package: parameters are fp32; each Linear runs in
+the compute dtype (input, weight and bias cast to it, as flax
+``Dense(dtype=...)`` does); LayerNorm statistics and softmax are fp32.
+Weights are initialised as the reference does; a checkpoint replaces them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from maskdit_tpu_torch.ops.flash_batched import packed_attention
+
+
+class Linear(nn.Linear):
+    """nn.Linear with fp32 parameters that computes in ``compute_dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation; the JAX package writes this
+    formula out to match exactly this torch function."""
+    return F.gelu(x, approximate="tanh")
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """adaLN shift/scale application (reference: maskdit.py:19-20)."""
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def layer_norm_no_affine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm without affine, fp32 statistics, biased variance
+    (nn.LayerNorm(elementwise_affine=False, eps=1e-6), reference :177)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal timestep embeddings in [cos | sin] order, fp32
+    (reference: TimestepEmbedder.timestep_embedding, maskdit.py:41-60)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def get_2d_sincos_pos_embed(
+    embed_dim: int, grid_size: int, cls_token: bool = False, extra_tokens: int = 1
+) -> np.ndarray:
+    """Fixed 2D sin-cos positional embedding table (numpy, fp64 internally).
+
+    Bit-for-bit the same values as the reference
+    (get_2d_sincos_pos_embed, maskdit.py:595-642).
+    """
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0)  # (2, H, W), w first
+    grid = grid.reshape([2, 1, grid_size, grid_size])
+
+    def emb_1d(dim: int, pos: np.ndarray) -> np.ndarray:
+        assert dim % 2 == 0
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    assert embed_dim % 2 == 0
+    emb = np.concatenate(
+        [emb_1d(embed_dim // 2, grid[0]), emb_1d(embed_dim // 2, grid[1])], axis=1
+    )
+    if cls_token and extra_tokens > 0:
+        emb = np.concatenate([np.zeros([extra_tokens, embed_dim]), emb], axis=0)
+    return emb.astype(np.float32)
+
+
+class TimestepEmbedder(nn.Module):
+    """Freq embed (256-d) -> Linear -> SiLU -> Linear (reference: :27-65)."""
+
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.frequency_embedding_size = frequency_embedding_size
+        self.dtype = dtype
+        self.mlp = nn.Sequential(
+            Linear(frequency_embedding_size, hidden_size, compute_dtype=dtype),
+            nn.SiLU(),
+            Linear(hidden_size, hidden_size, compute_dtype=dtype),
+        )
+        for lin in (self.mlp[0], self.mlp[2]):
+            nn.init.normal_(lin.weight, std=0.02)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        t_freq = timestep_embedding(t, self.frequency_embedding_size)
+        return self.mlp(t_freq.to(self.dtype))
+
+
+class LabelEmbedder(nn.Module):
+    """Linear (no bias) on one-hot / soft label vectors (reference: :68-81).
+
+    A Linear on one-hot rather than an embedding table makes the CFG null
+    class exactly the zero vector (y = 0 rows embed to 0).
+    """
+
+    def __init__(self, num_classes: int, hidden_size: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.embedding_table = Linear(num_classes, hidden_size, bias=False,
+                                      compute_dtype=dtype)
+        nn.init.normal_(self.embedding_table.weight, std=0.02)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        return self.embedding_table(y)
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + linear projection: timm PatchEmbed's stride-p conv as a
+    reshape and one matmul.
+
+    The weight keeps the conv layout (D, C, p, p) under the reference's key
+    ``proj.weight``. As in the JAX version, the product takes inputs and
+    weight rounded to the compute dtype, accumulates and adds the bias in
+    fp32, and rounds the sum to the compute dtype.
+    """
+
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
+        # the reference initialises the conv like a Linear (maskdit.py:349-352)
+        nn.init.xavier_uniform_(self.proj.weight.view(embed_dim, -1))
+        nn.init.zeros_(self.proj.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(f"input {h}x{w} not divisible by patch {p}")
+        patches = x.reshape(n, c, h // p, p, w // p, p).permute(0, 2, 4, 1, 3, 5)
+        patches = patches.reshape(n, (h // p) * (w // p), c * p * p)
+        weight = self.proj.weight.reshape(self.proj.out_channels, -1)
+        y = F.linear(
+            patches.to(self.dtype).float(), weight.to(self.dtype).float(),
+            self.proj.bias,
+        )
+        return y.to(self.dtype)
+
+
+class Attention(nn.Module):
+    """timm-style MHA: a qkv Linear that emits [q | k | v] along features
+    (maskdit_tpu layers.py:219-223), packed attention, output projection."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Linear(hidden_size, 3 * hidden_size, compute_dtype=dtype)
+        self.proj = Linear(hidden_size, hidden_size, compute_dtype=dtype)
+        for lin in (self.qkv, self.proj):
+            nn.init.xavier_uniform_(lin.weight)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hd = x.shape[-1] // self.num_heads
+        out = packed_attention(self.qkv(x), self.num_heads, hd ** -0.5)
+        return self.proj(out)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU(tanh) -> fc2 (timm Mlp used at reference :182)."""
+
+    def __init__(self, hidden_size: int, mlp_hidden: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(hidden_size, mlp_hidden, compute_dtype=dtype)
+        self.fc2 = Linear(mlp_hidden, hidden_size, compute_dtype=dtype)
+        for lin in (self.fc1, self.fc2):
+            nn.init.xavier_uniform_(lin.weight)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu_tanh(self.fc1(x)))
+
+
+def _ada_ln(c_emb_size: int, out: int, dtype: torch.dtype) -> nn.Sequential:
+    """SiLU -> Linear, zero-initialised (adaLN-Zero, reference :374-383)."""
+    lin = Linear(c_emb_size, out, compute_dtype=dtype)
+    nn.init.zeros_(lin.weight)
+    nn.init.zeros_(lin.bias)
+    return nn.Sequential(nn.SiLU(), lin)
+
+
+class DiTBlock(nn.Module):
+    """Pre-LN transformer block with adaLN-Zero conditioning
+    (reference: models/maskdit.py:170-192)."""
+
+    def __init__(self, hidden_size: int, c_emb_size: int, num_heads: int,
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attn = Attention(hidden_size, num_heads, dtype=dtype)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype)
+        self.adaLN_modulation = _ada_ln(c_emb_size, 6 * hidden_size, dtype)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        (shift_msa, scale_msa, gate_msa,
+         shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
+        h = modulate(layer_norm_no_affine(x), shift_msa, scale_msa)
+        x = x + gate_msa[:, None, :] * self.attn(h)
+        h = modulate(layer_norm_no_affine(x), shift_mlp, scale_mlp)
+        return x + gate_mlp[:, None, :] * self.mlp(h)
+
+
+class DecoderLayer(nn.Module):
+    """Encoder -> decoder projection: adaLN (2-way) + Linear hidden ->
+    decoder hidden (reference: models/maskdit.py:195-213)."""
+
+    def __init__(self, hidden_size: int, decoder_hidden_size: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.adaLN_modulation = _ada_ln(hidden_size, 2 * hidden_size, dtype)
+        self.linear = Linear(hidden_size, decoder_hidden_size, compute_dtype=dtype)
+        nn.init.zeros_(self.linear.weight)
+        nn.init.zeros_(self.linear.bias)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+        return self.linear(modulate(layer_norm_no_affine(x), shift, scale))
+
+
+class FinalLayer(nn.Module):
+    """adaLN (2-way) + Linear -> patch^2 * out_channels
+    (reference: :216-234)."""
+
+    def __init__(self, final_hidden_size: int, c_emb_size: int, patch_size: int,
+                 out_channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.adaLN_modulation = _ada_ln(c_emb_size, 2 * final_hidden_size, dtype)
+        self.linear = Linear(final_hidden_size, patch_size * patch_size * out_channels,
+                             compute_dtype=dtype)
+        nn.init.zeros_(self.linear.weight)
+        nn.init.zeros_(self.linear.bias)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+        return self.linear(modulate(layer_norm_no_affine(x), shift, scale))
