@@ -1,12 +1,13 @@
 """MaskDiT: asymmetric masked diffusion transformer (encoder + light decoder).
 
 Counterpart of maskdit_tpu/models/dit.py (reference models/maskdit.py:
-237-587), for the unmasked forward that sampling runs: patch, timestep and
-label embeddings, the encoder blocks, then (with ``use_decoder``) the
-DecoderLayer, the decoder blocks at the fixed 8 x 512 x 16 width, and the
-FinalLayer. The masked training forward arrives with the training slice;
-the JAX package's ``ScannedBlocks`` and remat policies exist only to cut
-XLA compile time and have no counterpart here.
+237-587): patch, timestep and label embeddings, the encoder blocks, then
+(with ``use_decoder``) the DecoderLayer, the decoder blocks at the fixed
+8 x 512 x 16 width, and the FinalLayer. In training with a mask ratio the
+encoder runs on the kept tokens only and the decoder on all of them, the
+dropped ones filled with the mask token (models/masking.py). The JAX
+package's pad-to-max masking, ``ScannedBlocks`` and remat policies are not
+ported; the last two exist only to cut XLA compile time.
 
 API as in the JAX package: ``model(x, t, y)`` returns a dict whose 'x' is
 (N, out_channels, H, W).
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from maskdit_tpu_torch.models import masking
 from maskdit_tpu_torch.models.layers import (
     DecoderLayer,
     DiTBlock,
@@ -64,6 +66,7 @@ class MaskDiT(nn.Module):
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.num_classes = num_classes
         self.use_decoder = use_decoder
+        self.mae_loss_coef = mae_loss_coef
         self.dtype = dtype
         grid = input_size // patch_size
 
@@ -114,25 +117,47 @@ class MaskDiT(nn.Module):
 
     def forward(
         self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None,
-        mask_ratio: float = 0.0, train: bool = False,
+        mask_ratio: float = 0.0, mask_info: Optional[masking.MaskInfo] = None,
+        train: bool = False, generator: Optional[torch.Generator] = None,
     ) -> dict:
-        """Unmasked forward (reference: DiT.forward, maskdit.py:511-557)."""
-        if mask_ratio > 0:
-            raise NotImplementedError(
-                "masked forward (mask_ratio > 0) arrives with the training "
-                "slice of the port (models/masking.py)"
-            )
+        """Full forward (reference: DiT.forward, maskdit.py:511-557).
+
+        With ``mask_ratio > 0`` a mask is drawn from ``generator`` unless
+        ``mask_info`` is given, and returned as ``out['mask']``; only with
+        ``train`` does it drop tokens (at inference it is ignored, as in
+        the reference, maskdit.py:479-483).
+        """
         x_tok = self.x_embedder(x) + self.pos_embed.to(self.dtype)
+        masked = mask_ratio > 0
+        if masked and mask_info is None:
+            mask_info = masking.random_mask(
+                x_tok.shape[0], x_tok.shape[1], mask_ratio, generator, device=x.device
+            )
+        if masked and train:
+            x_tok = masking.gather_tokens(x_tok, mask_info.ids_keep)
         c = self._condition(t, y)
         for block in self.blocks:
             x_tok = block(x_tok, c)
+        out = {"mask": mask_info.mask} if masked else {}
         if self.use_decoder:
             x_tok = self.decoder_layer(x_tok, c)
+            if masked and train:
+                # the learned token exists only with the MAE loss; zeros
+                # otherwise (JAX dit.py:383-387)
+                mask_token = (
+                    self.mask_token if self.mae_loss_coef > 0
+                    else x_tok.new_zeros((1, 1, x_tok.shape[2]))
+                )
+                x_tok = masking.scatter_tokens(x_tok, mask_info.ids_restore, mask_token)
             x_tok = x_tok + self.decoder_pos_embed.to(self.dtype)
             for block in self.decoder_blocks:
                 x_tok = block(x_tok, c)
         x_tok = self.final_layer(x_tok, c)
-        return {"x": self.unpatchify(x_tok)}
+        if not self.use_decoder and masked and train:
+            zero_tok = x_tok.new_zeros((1, 1, x_tok.shape[2]))
+            x_tok = masking.scatter_tokens(x_tok, mask_info.ids_restore, zero_tok)
+        out["x"] = self.unpatchify(x_tok)
+        return out
 
     def forward_with_cfg(
         self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor, cfg_scale: float,

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from maskdit_tpu_torch.models.dit import MaskDiT, create_dit
+from maskdit_tpu_torch.models.masking import MaskInfo
 
 
 class EDMPrecond(nn.Module):
@@ -77,16 +78,22 @@ class EDMPrecond(nn.Module):
     def forward(
         self, x: torch.Tensor, sigma: torch.Tensor, class_labels=None,
         cfg_scale: Optional[float] = None, mask_ratio: float = 0.0,
-        train: bool = False,
+        mask_info: Optional[MaskInfo] = None, train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> dict:
-        """Denoiser forward D(x; sigma) (reference: maskdit.py:756-773)."""
+        """Denoiser forward D(x; sigma) (reference: maskdit.py:756-773).
+
+        ``mask_ratio``, ``mask_info`` and ``generator`` go to the model;
+        with a mask ratio the result carries the model's ``mask``.
+        """
         x = x.float()
         y = self._coerce_labels(x, class_labels)
         sigma, c_skip, c_out, c_in, c_noise = self._coeffs(sigma, self.sigma_data)
         x_in = c_in * x
         if cfg_scale is None:
             model_out = self.model(
-                x_in, c_noise.reshape(-1), y, mask_ratio=mask_ratio, train=train,
+                x_in, c_noise.reshape(-1), y, mask_ratio=mask_ratio,
+                mask_info=mask_info, train=train, generator=generator,
             )
         else:
             model_out = self.model.forward_with_cfg(

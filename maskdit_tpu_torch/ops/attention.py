@@ -3,7 +3,8 @@
 Counterpart of maskdit_tpu/ops/attention.py::mha_reference: fp32 logits,
 fp32 softmax, probabilities cast to the value dtype, fp32 accumulation,
 output in q's dtype (the numerics of the reference's timm Attention under
-AMP). The pad-to-max ``kv_valid`` mask arrives with the training slice.
+AMP). The pad-to-max ``kv_valid`` mask is not ported (the training path
+runs packed, without padding).
 """
 
 from __future__ import annotations

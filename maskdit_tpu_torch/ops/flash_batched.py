@@ -1,18 +1,24 @@
-"""Packed multi-head attention: (N, L, 3D) qkv -> (N, L, D).
+"""Packed multi-head attention: (N, L, 3D) qkv -> (N, L, D), with its gradient.
 
-Counterpart of maskdit_tpu/ops/flash_batched.py::packed_attention (forward).
-The qkv Dense emits [q | k | v] along features, head h at [h*hd, (h+1)*hd)
-of each third. ``packed_attention`` is the entry point the model calls:
+Counterpart of maskdit_tpu/ops/flash_batched.py::packed_attention, a
+``jax.custom_vjp`` whose forward and backward are both kernels. The qkv
+Dense emits [q | k | v] along features, head h at [h*hd, (h+1)*hd) of each
+third. ``packed_attention`` is the entry point the model calls. It is a
+``torch.autograd.Function`` that saves only ``qkv`` for the backward, as
+the custom VJP does (flash_batched.py:171): the backward recomputes the
+softmax, the output and delta from (qkv, dout).
 
-  * a CPU tensor goes to ``packed_attention_reference``, the plain PyTorch
-    version the tests hold the kernel to;
-  * a CUDA tensor launches the hand-written kernel in
-    ``csrc/packed_attention_fwd.cu`` (which replaces the Pallas
-    ``_packed_fwd``), or raises.
+  * a CPU tensor goes to the plain PyTorch versions,
+    ``packed_attention_reference`` and ``packed_attention_bwd_reference``;
+  * a CUDA tensor launches the hand-written kernels in
+    ``csrc/packed_attention_fwd.cu`` (replaces the Pallas ``_packed_fwd``)
+    and ``csrc/packed_attention_bwd.cu`` (replaces ``_packed_bwd``), or
+    raises.
 
-``packed_attention.launches`` counts kernel launches and nothing else, so a
-run can show that it went through the kernel. The backward kernel arrives
-with the training slice.
+``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
+kernel launches and nothing else, so a run can show that it went through
+the kernels. ``packed_attention_plain`` is the same Function with the plain
+versions on any device, for holding the kernels to them on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from maskdit_tpu_torch.ops import build
 from maskdit_tpu_torch.ops.attention import mha_reference
 
 KERNEL = "packed_attention_fwd"
+BWD_KERNEL = "packed_attention_bwd"
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
 
@@ -33,13 +40,43 @@ MAX_HEAD_DIM = 128
 def packed_attention_reference(
     qkv: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of the forward kernel, on any device."""
     n, l, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
     heads = qkv.reshape(n, l, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     o = mha_reference(heads[0], heads[1], heads[2], scale)
     return o.permute(0, 2, 1, 3).reshape(n, l, d)
+
+
+def packed_attention_bwd_reference(
+    qkv: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: dqkv (N, L, 3D).
+
+    The rounding points of the Pallas ``_bwd_kernel`` (flash_batched.py:
+    98-145): fp32 logits and softmax; ``pb = p`` rounded to v's dtype for
+    dv and for the recomputed o; ``delta = sum(do * o)`` in fp32; ``ds =
+    p * (dp - delta) * scale`` rounded to q's dtype before the dq and dk
+    products; fp32 accumulation; dqkv stored in qkv's dtype.
+    """
+    n, l, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // num_heads
+    heads = qkv.reshape(n, l, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = heads[0].float(), heads[1].float(), heads[2].float()
+    do = dout.to(qkv.dtype).reshape(n, l, num_heads, hd).permute(0, 2, 1, 3).float()
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    pb = p.to(qkv.dtype).float()
+    o = torch.matmul(pb, v)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(pb.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.stack([dq, dk, dv])  # (3, N, H, L, hd)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(n, l, three_d).to(qkv.dtype)
 
 
 @functools.cache
@@ -58,25 +95,45 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load(BWD_KERNEL)
+    lib.packed_attention_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.packed_attention_bwd.restype = ctypes.c_int
+    lib.packed_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.packed_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.packed_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.packed_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
+    """Device, dtype, shape and contiguity checks of a kernel's qkv;
+    returns (N, L, D, hd)."""
     if qkv.device.type != "cuda":
-        raise ValueError(f"packed_attention: no kernel for device {qkv.device}")
+        raise ValueError(f"{name}: no kernel for device {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(
-            f"packed_attention: dtype {qkv.dtype} (takes bfloat16 or float32)"
-        )
+        raise TypeError(f"{name}: dtype {qkv.dtype} (takes bfloat16 or float32)")
     if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
         raise ValueError(
-            f"packed_attention: qkv shape {tuple(qkv.shape)} is not "
-            f"(N, L, 3 * {num_heads} * hd)"
+            f"{name}: qkv shape {tuple(qkv.shape)} is not (N, L, 3 * {num_heads} * hd)"
         )
     if not qkv.is_contiguous():
-        raise ValueError("packed_attention: qkv must be contiguous")
+        raise ValueError(f"{name}: qkv must be contiguous")
     n, l, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
     if hd > MAX_HEAD_DIM:
-        raise ValueError(f"packed_attention: head dim {hd} > {MAX_HEAD_DIM}")
+        raise ValueError(f"{name}: head dim {hd} > {MAX_HEAD_DIM}")
+    return n, l, d, hd
+
+
+def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    n, l, d, hd = _check("packed_attention", qkv, num_heads)
     lib = _library()
     out = torch.empty((n, l, d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -96,13 +153,87 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(
+    qkv: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    n, l, d, hd = _check("packed_attention_bwd", qkv, num_heads)
+    if dout.device != qkv.device or dout.dtype != qkv.dtype:
+        raise TypeError(
+            f"packed_attention_bwd: dout is {dout.dtype} on {dout.device}, "
+            f"qkv {qkv.dtype} on {qkv.device}"
+        )
+    if tuple(dout.shape) != (n, l, d) or not dout.is_contiguous():
+        raise ValueError(
+            f"packed_attention_bwd: dout {tuple(dout.shape)} is not a contiguous "
+            f"({n}, {l}, {d})"
+        )
+    lib = _bwd_library()
+    dqkv = torch.empty_like(qkv)
+    # per-row softmax max and sum and delta = sum(do * o), (3, N, H, L) fp32:
+    # written by the query pass, read by the key pass
+    stats = torch.empty((3, n, num_heads, l), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = lib.packed_attention_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            n, l, num_heads, hd, scale, _DTYPE_CODES[qkv.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        smem = lib.packed_attention_bwd_smem_bytes(l, hd, qkv.element_size())
+        raise RuntimeError(
+            f"packed_attention_bwd kernel launch failed: "
+            f"{lib.packed_attention_bwd_error_string(err).decode()} "
+            f"(N={n}, L={l}, H={num_heads}, hd={hd}, {qkv.dtype}, "
+            f"{smem} B shared memory per block)"
+        )
+    packed_attention_bwd.launches += 1
+    return dqkv
+
+
+def packed_attention_bwd(
+    qkv: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """dqkv (N, L, 3D) from qkv and the output's gradient (N, L, D)."""
+    if qkv.device.type == "cpu":
+        return packed_attention_bwd_reference(qkv, dout, num_heads, scale)
+    return _launch_bwd(qkv, dout, num_heads, scale)
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Saves only qkv; the backward recomputes everything from it."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, plain: bool):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale, ctx.plain = num_heads, scale, plain
+        if plain:
+            return packed_attention_reference(qkv, num_heads, scale)
+        return _launch(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        # the proj Linear hands back a gradient of its own dtype and
+        # layout; the kernel takes qkv's (as g.astype(qkv.dtype) does)
+        g = grad_out.to(qkv.dtype).contiguous()
+        bwd = packed_attention_bwd_reference if ctx.plain else _launch_bwd
+        return bwd(qkv, g, ctx.num_heads, ctx.scale), None, None, None
+
+
 def packed_attention(
     qkv: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
-    """(N, L, 3D) packed qkv -> (N, L, D) attention output."""
-    if qkv.device.type == "cpu":
-        return packed_attention_reference(qkv, num_heads, scale)
-    return _launch(qkv, num_heads, scale)
+    """(N, L, 3D) packed qkv -> (N, L, D) attention output, differentiable."""
+    return _PackedAttention.apply(qkv, num_heads, scale, qkv.device.type == "cpu")
+
+
+def packed_attention_plain(
+    qkv: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """``packed_attention`` with the plain forward and backward on any
+    device: what the kernels are held to."""
+    return _PackedAttention.apply(qkv, num_heads, scale, True)
 
 
 packed_attention.launches = 0
+packed_attention_bwd.launches = 0

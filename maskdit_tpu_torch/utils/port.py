@@ -9,11 +9,13 @@ maskdit_tpu/utils/port.py::export_maskdit, with the same layout rules:
 and the reference's key names (``model.blocks.{i}.attn.qkv.weight``, ...),
 which are the port's module names. So ``EDMPrecond.load_state_dict`` takes
 a bridged JAX tree and a released ``.pt`` file's ``ema`` dict alike.
+``optimizer_state_from_flax`` carries optax's Adam state across the same
+way: its moments have the params' tree and layout.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -56,6 +58,18 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         if tok in m:
             state[f"model.{tok}"] = np.asarray(m[tok])
     return {
-        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
         for k, v in state.items()
+    }
+
+
+def optimizer_state_from_flax(adam_state: Any) -> dict[str, Any]:
+    """An optax ``ScaleByAdamState`` (count, mu, nu) -> the port's Adam
+    state ``{'count': int, 'mu': state dict, 'nu': state dict}``, the
+    ``opt`` entry of a training checkpoint (``TrainState.load_opt_state``).
+    Dense moments are transposed as their kernels are; values are fp32."""
+    return {
+        "count": int(np.asarray(adam_state.count)),
+        "mu": state_dict_from_flax(adam_state.mu),
+        "nu": state_dict_from_flax(adam_state.nu),
     }

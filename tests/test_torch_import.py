@@ -15,9 +15,15 @@ MODULES = [
     "maskdit_tpu_torch.generate",
     "maskdit_tpu_torch.models",
     "maskdit_tpu_torch.ops.flash_batched",
+    "maskdit_tpu_torch.ops.fused_adam",
+    "maskdit_tpu_torch.models.masking",
     "maskdit_tpu_torch.sampling.generate",
+    "maskdit_tpu_torch.data",
+    "maskdit_tpu_torch.train",
+    "maskdit_tpu_torch.train.trainer",
     "maskdit_tpu_torch.utils.ckpt",
     "maskdit_tpu_torch.utils.port",
+    "maskdit_tpu_torch.utils.profiling",
 ]
 
 

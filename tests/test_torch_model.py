@@ -101,8 +101,13 @@ def test_state_dict_from_flax_equals_export_maskdit(models):
 
 
 def test_masked_forward_waits_for_training_slice(models):
+    """The training slice has arrived: the masked forward runs and returns
+    the mask beside x (its parity with JAX: test_torch_masked_model.py)."""
     _, _, model = models
     x, sigma, y = _inputs(seed=4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.from_numpy(x), torch.from_numpy(sigma), torch.from_numpy(y),
-              mask_ratio=0.5, train=True)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(sigma), torch.from_numpy(y),
+                    mask_ratio=0.5, train=True, generator=torch.Generator().manual_seed(0))
+    assert out["x"].shape == (2, CIN, RES, RES) and torch.isfinite(out["x"]).all()
+    assert out["mask"].shape == (2, (RES // 2) ** 2)
+    assert int(out["mask"].sum()) == 2 * (RES // 2) ** 2 // 2
