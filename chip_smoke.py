@@ -5,28 +5,43 @@
 Run from the root of a checkout. Every phase runs; each raises on failure:
 
   1. device: needs CUDA; prints the card's name and power limit;
-  2. build: compiles the port's three CUDA kernels from ops/csrc/, one
-     nvcc per source, all started together, with their register and spill
+  2. build: compiles the port's five CUDA kernels from ops/csrc/, one nvcc
+     per source, all started together, with their register and spill
      reports;
   3. kernel vs plain, each against its plain PyTorch version with both
-     times: packed attention forward at the sampling and training shapes,
-     its backward at the training shapes, both in bf16 and fp32; the fused
-     Adam + EMA update over all of DiT-XL/2's parameters;
-  4. sampling (the serving path): a random DiT-XL/2 at 256 px (decoder,
-     MAE coef 0.1, 1000 classes, every parameter ~ N(0, 0.02^2)) saved as
-     a reference ``{"ema": ...}`` checkpoint; ``maskdit_tpu_torch.generate``
+     times, the time of one PyTorch library call for the same function and
+     the least time the card could take (the bound): packed attention
+     forward at the 256-px sampling and training shapes, its backward at
+     the training shapes, both in bf16 and fp32; the fused Adam + EMA
+     update over all of DiT-XL/2's parameters; the blocked attention
+     forward and backward at the 512-px shapes and at the unmasked 256-px
+     encoder's, where one attention layer's route is checked on the card;
+  4. sampling at 256 px (the serving path): a random DiT-XL/2 (decoder,
+     MAE coef 0.1, 1000 classes, every parameter ~ N(0, 0.02^2)) saved as a
+     reference ``{"ema": ...}`` checkpoint; ``maskdit_tpu_torch.generate``
      with it (8 seeds, CFG 1.5, 40 EDM steps), checking the latents and that
-     all 79 x 36 attention calls launched the kernel; model parity kernel vs
-     plain in bf16 and fp32; warm images/s; a profile of one evaluation;
-  5. training (the train path): ``maskdit_tpu_torch.train.main`` on the
-     released 256-px config at its batch of 128, cut to 12 steps, on
-     synthetic latents; checks finite losses, 36 + 36 attention launches
-     and one fused-update launch per step, and that resuming from the checkpoint
+     all 79 x 36 attention calls launched the packed kernel; model parity
+     kernel vs plain in bf16 and fp32; warm images/s; a profile of one
+     evaluation;
+  5. sampling at 512 px: the same weights (one parameter set serves both
+     resolutions) through the generate CLI on configs/test/maskdit-512.yaml
+     (4 seeds, CFG 1.5, 40 steps, 64 x 64 latents), all 79 x 36 attention
+     calls through the blocked kernel; model parity at 512; warm images/s;
+     a profile of one evaluation;
+  6. training at 256 px: ``maskdit_tpu_torch.train.main`` on the released
+     256-px config at its batch of 128, cut to 12 steps, on synthetic
+     latents; checks finite losses, 36 + 36 attention launches and one
+     fused-update launch per step, and that resuming from the checkpoint
      restores it exactly; train-step parity kernels vs plain in fp32 and
-     bf16; a profile of one train step.
+     bf16; a profile of one train step;
+  7. training at 512 px: the same CLI on the released 512-px config at its
+     batch of 32, cut to 8 steps, 36 + 36 blocked-attention launches and
+     one fused-update launch per step; train-step parity; a profile.
 
-The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+Before each main path the launch counts are set to 0 and read just after:
+a path fails if a kernel it should run was not launched, or one it should
+not run was. The line before the last is a JSON object of the kernels; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,19 +68,34 @@ SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 # the warm window leaves out the first two. tests/test_torch_trainer.py
 # holds the rest equal to the YAML.
 TRAIN_STEPS, TRAIN_BATCH, LOG_EVERY = 12, 128, 2
+# the same for configs/train/imagenet512-latent.yaml: 8 steps at the
+# released batch of 32; tests/test_torch_512.py holds it to the YAML
+TRAIN_STEPS_512, TRAIN_BATCH_512 = 8, 32
+
+SEEDS, STEPS, CFG = 8, 40, 1.5
+SEEDS_512 = 4
+DEPTH, DECODER_DEPTH = 28, 8
 
 # (name, N, L, heads, head dim): the encoder and decoder blocks of the
 # sampling path (CFG batch 2 x 8) and of the masked training path (the
 # encoder at the 128 kept tokens)
 ATTN_SHAPES = [
-    ("encoder", 16, 256, 16, 72),
-    ("decoder", 16, 256, 16, 32),
+    ("encoder", 2 * SEEDS, 256, 16, 72),
+    ("decoder", 2 * SEEDS, 256, 16, 32),
     ("train_encoder", TRAIN_BATCH, 128, 16, 72),
     ("train_decoder", TRAIN_BATCH, 256, 16, 32),
 ]
-# kernel vs plain bounds: bf16 rounds both outputs (and the probabilities)
-# to 8 bits of mantissa; fp32 differs only by summation order
-ATTN_BOUND = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# kernel vs plain bound on max|kernel - plain| / max|plain| of the forward:
+# fp32 differs only by summation order; bf16 where that order flips one
+# rounding of p or of the output, by one bf16 ulp, at most 2^-7 of the
+# largest value
+FWD_REL_BOUND = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# and in bf16 the share of elements (forward or backward) that differ at all:
+# another summation order flips few (under 0.5% for fp64 sums), while a
+# rounding point moved or dropped (p rounded before normalising, or not at
+# all; ds unrounded) changes over 20% of them at the same max error
+# (tests/test_torch_flash_big.py holds both)
+BF16_MISMATCH_BOUND = 0.05
 # whole-model bound on max|kernel - plain| / max|plain| of D(x; sigma)
 MODEL_REL_BOUND = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 
@@ -73,17 +103,44 @@ MODEL_REL_BOUND = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 # L256 hd32. Bound on max|kernel - plain| / max|plain|: fp32 sums
 # in another order; bf16 may round ds, pb or the output one ulp (2^-8)
 # the other way where the fp32 values differ in their last bits
-# (and a ragged one: L not a multiple of the 32-row blocks, hd of 40)
+# (and a ragged one: L not a multiple of the 32-row blocks, hd of 40);
+# BF16_MISMATCH_BOUND holds too
 BWD_SHAPES = [("train_encoder", TRAIN_BATCH, 128, 16, 72),
               ("train_decoder", TRAIN_BATCH, 256, 16, 32), ("ragged", 3, 77, 4, 40)]
 BWD_REL_BOUND = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+# the blocked kernels at the 512-px paths' shapes: sampling (CFG batch
+# 2 x 4, encoder and decoder at L 1024) and training (batch 32, the encoder
+# at the 512 kept tokens, the decoder at L 1024); and XL/2's encoder trained
+# unmasked at 256 px (configs/finetune/imagenet256-latent-const.yaml, batch
+# 64, L 256), where the whole-row backward does not fit and the route takes
+# these kernels. The backward at the training shapes and a ragged one (L not
+# a multiple of the 32-row blocks or the 64-row tiles, hd 40). The bounds
+# are FWD_REL_BOUND and BWD_REL_BOUND.
+UNMASKED_256 = ("unmasked256_encoder", 64, 256, 16, 72)
+BIG_SHAPES = [
+    ("sample_encoder", 2 * SEEDS_512, 1024, 16, 72),
+    ("sample_decoder", 2 * SEEDS_512, 1024, 16, 32),
+    ("train_encoder", TRAIN_BATCH_512, 512, 16, 72),
+    ("train_decoder", TRAIN_BATCH_512, 1024, 16, 32),
+    UNMASKED_256,
+]
+BIG_BWD_SHAPES = BIG_SHAPES[2:] + [("ragged", 3, 777, 4, 40)]
+
 # fused Adam: fp32 everywhere, the two differ by FMA contraction only, so
 # per element |kernel - plain| <= 1e-6 |plain| + 1e-7; a bf16 mu by at most
 # one bf16 ulp (2^-7 of the value) where that contraction flips a rounding
 ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
+# operations per parameter of the update (fused_adam_ema.cu's update():
+# m 3, v 4, the denominator 3, p 4, the EMA 3)
+ADAM_OPS = 17
 
-SEEDS, STEPS, CFG = 8, 40, 1.5
-DEPTH, DECODER_DEPTH = 28, 8
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# bf16 on the tensor cores, fp32 outside them, and HBM3's rate. A bound is
+# the larger of operations over the peak of the inputs' type and bytes
+# (each input read once, each output written once) over the memory rate.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
 
 TRAIN_CONFIG = {
     "data": {"dataset": "imagenet256-latent", "category": "synthetic", "resolution": 32,
@@ -99,16 +156,34 @@ TRAIN_CONFIG = {
 }
 TRAIN_CUTS = {"data.category": ("lmdb", "synthetic"),
               "train.max_num_steps": (2000000, TRAIN_STEPS)}
+TRAIN_CONFIG_512 = {
+    "data": {"dataset": "imagenet512-latent", "category": "synthetic", "resolution": 64,
+             "num_channels": 4, "length": TRAIN_STEPS_512 * TRAIN_BATCH_512},
+    "model": {**TRAIN_CONFIG["model"], "in_size": 64},
+    "train": {**TRAIN_CONFIG["train"], "batchsize": TRAIN_BATCH_512, "epochs": 2000,
+              "max_num_steps": TRAIN_STEPS_512},
+    "log": {"log_every": LOG_EVERY, "ckpt_every": 50000, "tag": "chip-smoke-512"},
+}
+TRAIN_CUTS_512 = {"data.category": ("webdataset", "synthetic"),
+                  "train.max_num_steps": (2000000, TRAIN_STEPS_512)}
+# configs/test/maskdit-512.yaml's model section (what the generate CLI
+# reads), as JSON; tests/test_torch_512.py holds it equal to the YAML
+SAMPLE_CONFIG_512 = {"model": {
+    "precond": "edm", "model_type": "DiT-XL/2", "in_size": 64, "in_channels": 4,
+    "num_classes": 1000, "use_decoder": True, "ext_feature_dim": 0, "pad_cls_token": False,
+    "mask_ratio": 0.5, "mae_loss_coef": 0.1, "class_dropout_prob": 0.1,
+}}
 # attention calls per train step (28 encoder + 8 decoder blocks), each
 # once forward and once backward; one fused update per step
 ATTN_PER_STEP = DEPTH + DECODER_DEPTH
 ADAM_PER_STEP = 1
-# train-step parity, kernels vs plain, batch 8 from one state and draws:
-# fp32 with TF32 off: sums in other orders; bf16: the attention kernels
-# round probabilities, ds and outputs at the same points as the plain
-# versions, but a last-bit fp32 difference can flip one bf16 rounding,
-# which 36 layers and the backward carry into every gradient
-PARITY_BATCH = 8
+# train-step parity, kernels vs plain, from one state and draws, at batch
+# 8 (256 px) and 4 (512 px): fp32 with TF32 off: sums in other orders;
+# bf16: the attention kernels round probabilities, ds and outputs at the
+# same points as the plain versions, but a last-bit fp32 difference can
+# flip one bf16 rounding, which 36 layers and the backward carry into
+# every gradient
+PARITY_BATCH, PARITY_BATCH_512 = 8, 4
 TRAIN_PARITY_BOUND = {
     torch.float32: dict(loss=1e-5, grad=1e-4, state=1e-5),
     torch.bfloat16: dict(loss=1e-2, grad=1e-1, state=1e-2),
@@ -138,6 +213,79 @@ def free_device_memory() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def bound(flops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
+    """The least milliseconds the card could take, and what sets it."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def attention_bound(n: int, l: int, h: int, hd: int, dtype: torch.dtype,
+                    backward: bool) -> tuple[float, str]:
+    """The TPU kernels' products, 2 N H L^2 hd operations each (two in the
+    forward; six in the backward: s, o, dv, dp, dq, dk), and the bytes of
+    qkv and the output (forward), or qkv, dout and dqkv (backward)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    products = 6 if backward else 2
+    planes = 7 if backward else 4  # multiples of (N, L, D)
+    return bound(2 * products * n * h * l * l * hd, planes * n * l * h * hd * es, dtype)
+
+
+def library_attention_ms(qkv: torch.Tensor, h: int, scale: float, iters: int,
+                         dout: torch.Tensor | None = None) -> float:
+    """One PyTorch call for the same function, as a yardstick only:
+    ``F.scaled_dot_product_attention`` on q, k, v (N, H, L, hd); with
+    ``dout``, its forward and backward."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    n, l, three_d = qkv.shape
+    hd = three_d // 3 // h
+    q, k, v = (t.contiguous() for t in qkv.reshape(n, l, 3, h, hd).permute(2, 0, 3, 1, 4))
+    if dout is None:
+        with torch.no_grad():
+            return cuda_ms(lambda: sdpa(q, k, v, scale=scale), iters)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    g = dout.reshape(n, l, h, hd).permute(0, 2, 1, 3).contiguous()
+
+    def forward_backward():
+        sdpa(q, k, v, scale=scale).backward(g)
+        q.grad = k.grad = v.grad = None
+
+    return cuda_ms(forward_backward, iters)
+
+
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, which counts its launches."""
+    from maskdit_tpu_torch.ops import flash_batched, flash_big, fused_adam
+
+    return {"packed_fwd": flash_batched.packed_attention,
+            "packed_bwd": flash_batched.packed_attention_bwd,
+            "big_fwd": flash_big.packed_attention_big,
+            "big_bwd": flash_big.packed_attention_big_bwd,
+            "adam": fused_adam.fused_adam_ema}
+
+
+def reset_launches() -> None:
+    for wrapper in kernel_counters().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in kernel_counters().items()}
+
+
+def expect_launches(tag: str, launches: dict, **expected) -> None:
+    """The main path launched exactly the kernels it should, and no other."""
+    want = {name: expected.get(name, 0) for name in kernel_counters()}
+    log(f"[{tag}] launches {launches} (expected {want})")
+    if launches != want or not any(want.values()):
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke test needs a GPU")
@@ -154,9 +302,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from maskdit_tpu_torch.ops import build, flash_batched, fused_adam
+    from maskdit_tpu_torch.ops import build, flash_batched, flash_big, fused_adam
 
-    names = [flash_batched.KERNEL, flash_batched.BWD_KERNEL, fused_adam.KERNEL]
+    names = [flash_batched.KERNEL, flash_batched.BWD_KERNEL, fused_adam.KERNEL,
+             flash_big.KERNEL, flash_big.BWD_KERNEL]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build.build, names))
@@ -164,72 +313,166 @@ def phase_build() -> None:
     for lib, seconds in built:
         log(f"[build] {lib.name} in {seconds:.2f} s")
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "stack frame")):
                 log(f"[build]   {line.strip()}")
 
 
-def phase_kernels() -> dict:
-    from maskdit_tpu_torch.ops.flash_batched import (
-        packed_attention,
-        packed_attention_reference,
-    )
+def check_smem_formulas() -> None:
+    """The routing rule reads shared-memory sizes from Python formulas;
+    they must be the kernel libraries' own."""
+    from maskdit_tpu_torch.ops import flash_batched, flash_big
 
-    g = torch.Generator(device="cuda").manual_seed(0)
+    fwd, bwd = flash_batched._library(), flash_batched._bwd_library()
+    big, big_bwd = flash_big._library(), flash_big._bwd_library()
+    for l, hd in ((128, 72), (256, 72), (256, 32), (512, 72), (777, 40), (1024, 32),
+                  (1024, 72), (1024, 128)):
+        for es in (2, 4):
+            assert fwd.packed_attention_fwd_smem_bytes(l, hd, es) == \
+                flash_batched.fwd_smem_bytes(l, hd, es), (l, hd, es)
+        assert bwd.packed_attention_bwd_smem_bytes(l, hd, 4) == \
+            flash_batched.bwd_smem_bytes(l, hd), (l, hd)
+        assert big.packed_attention_big_fwd_smem_bytes(l, hd) == \
+            flash_big.fwd_smem_bytes(l, hd), (l, hd)
+        assert big_bwd.packed_attention_big_bwd_smem_bytes(l, hd) == \
+            flash_big.bwd_smem_bytes(l, hd), (l, hd)
+    log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 8 shapes")
+
+
+def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
+            dtype: torch.dtype) -> tuple[float, float, float, bool]:
+    """max|got - ref|, its bound rel_bound * max|ref|, the share of
+    elements that differ, and whether all holds (the share only in bf16)."""
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    bnd = rel_bound * ref.float().abs().max().item()
+    share = (diff > 0).float().mean().item()
+    ok = bool(np.isfinite(err) and err <= bnd
+              and (dtype != torch.bfloat16 or share <= BF16_MISMATCH_BOUND))
+    return err, bnd, share, ok
+
+
+def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -> dict:
+    """The forward wrapper ``kernel`` against ``plain`` at each shape and
+    type: error, kernel, plain and library times, bound."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
-    for name, n, l, h, hd in ATTN_SHAPES:
+    for name, n, l, h, hd in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda").to(dtype)
             scale = hd ** -0.5
             with torch.no_grad():
-                out = packed_attention(qkv, h, scale)
+                before = kernel.launches
+                out = kernel(qkv, h, scale)
                 torch.cuda.synchronize()
-                ref = packed_attention_reference(qkv, h, scale)
-                err = (out.float() - ref.float()).abs().max().item()
-                bound = ATTN_BOUND[dtype]
-                ms = cuda_ms(lambda: packed_attention(qkv, h, scale), 50)
-                plain_ms = cuda_ms(lambda: packed_attention_reference(qkv, h, scale), 50)
-            dt = str(dtype).replace("torch.", "")
-            log(f"[kernel] {name} N={n} L={l} H={h} hd={hd} {dt}: "
-                f"max_abs_err {err:.3e} (bound {bound:.0e}); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if not (np.isfinite(err) and err <= bound):
-                raise AssertionError(f"packed_attention {name} {dt}: {err} > {bound}")
-            results[(name, dt)] = dict(err=err, ms=ms, plain_ms=plain_ms)
+                launches = kernel.launches - before
+                ref = plain(qkv, h, scale)
+                err, bnd, share, ok = compare(out, ref, FWD_REL_BOUND[dtype], dtype)
+                del out, ref
+                ms = cuda_ms(lambda: kernel(qkv, h, scale), iters)
+                plain_ms = cuda_ms(lambda: plain(qkv, h, scale), iters)
+            library_ms = library_attention_ms(qkv, h, scale, iters)
+            bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, backward=False)
+            dt = dtype_name(dtype)
+            log(f"[{tag}] {name} N={n} L={l} H={h} hd={hd} {dt}: max_abs_err {err:.3e} "
+                f"(bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements "
+                f"differing {share:.5f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library (SDPA) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / ms:.3f} of it")
+            if not (ok and launches == 1):
+                raise AssertionError(f"{tag} {name} {dt}: err {err} > {bnd}, share {share} "
+                                     f"or {launches} launches")
+            results[(name, dt)] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by)
+            del qkv
+    free_device_memory()
     return results
 
 
-def phase_bwd_kernels() -> dict:
-    from maskdit_tpu_torch.ops.flash_batched import (
-        packed_attention_bwd,
-        packed_attention_bwd_reference,
-    )
-
-    g = torch.Generator(device="cuda").manual_seed(1)
+def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -> dict:
+    """The backward wrapper ``kernel`` against ``plain``, as above; the
+    library time is SDPA's forward and backward."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
-    for name, n, l, h, hd in BWD_SHAPES:
+    for name, n, l, h, hd in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda").to(dtype)
             dout = torch.randn(n, l, h * hd, generator=g, device="cuda").to(dtype)
             scale = hd ** -0.5
-            before = packed_attention_bwd.launches
-            got = packed_attention_bwd(qkv, dout, h, scale)
+            before = kernel.launches
+            got = kernel(qkv, dout, h, scale)
             torch.cuda.synchronize()
-            launches = packed_attention_bwd.launches - before
-            ref = packed_attention_bwd_reference(qkv, dout, h, scale).float()
-            err = (got.float() - ref).abs().max().item()
-            bound = BWD_REL_BOUND[dtype] * ref.abs().max().item()
-            ms = cuda_ms(lambda: packed_attention_bwd(qkv, dout, h, scale), 20)
-            plain_ms = cuda_ms(lambda: packed_attention_bwd_reference(qkv, dout, h, scale), 20)
-            dt = str(dtype).replace("torch.", "")
-            log(f"[kernel] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt}: "
-                f"max_abs_err {err:.3e} (bound {bound:.3e} = {BWD_REL_BOUND[dtype]:.0e} "
-                f"x max|ref|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                f"launches per call {launches}")
-            if not (np.isfinite(err) and err <= bound and launches == 1):
-                raise AssertionError(f"packed_attention_bwd {name} {dt}: {err} > {bound}")
-            results[(name, dt)] = dict(err=err, ms=ms, plain_ms=plain_ms)
-            del qkv, dout, got, ref
+            launches = kernel.launches - before
+            ref = plain(qkv, dout, h, scale)
+            err, bnd, share, ok = compare(got, ref, BWD_REL_BOUND[dtype], dtype)
+            del got, ref
+            ms = cuda_ms(lambda: kernel(qkv, dout, h, scale), iters)
+            plain_ms = cuda_ms(lambda: plain(qkv, dout, h, scale), iters)
+            library_ms = library_attention_ms(qkv, h, scale, iters, dout)
+            bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, backward=True)
+            dt = dtype_name(dtype)
+            log(f"[{tag}] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt}: "
+                f"max_abs_err {err:.3e} (bound {bnd:.3e} = {BWD_REL_BOUND[dtype]:.0e} "
+                f"x max|ref|), elements differing {share:.5f}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library (SDPA fwd + bwd) {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it; launches per "
+                f"call {launches}")
+            if not (ok and launches == 1):
+                raise AssertionError(f"{tag} bwd {name} {dt}: err {err} > {bnd}, share {share} "
+                                     f"or {launches} launches")
+            results[(name, dt)] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by)
+            del qkv, dout
+    free_device_memory()
     return results
+
+
+def phase_kernels() -> dict:
+    from maskdit_tpu_torch.ops import flash_batched
+
+    check_smem_formulas()
+    return attention_fwd_rows("kernel", ATTN_SHAPES, flash_batched.packed_attention,
+                              flash_batched.packed_attention_reference, seed=0, iters=50)
+
+
+def phase_bwd_kernels() -> dict:
+    from maskdit_tpu_torch.ops import flash_batched
+
+    return attention_bwd_rows("kernel", BWD_SHAPES, flash_batched.packed_attention_bwd,
+                              flash_batched.packed_attention_bwd_reference, seed=1, iters=20)
+
+
+def check_unmasked_256_route() -> None:
+    """One XL/2 attention layer at the unmasked 256-px shape (batch 2, L 256,
+    hd 72) on the card: with a backward it launches the blocked kernels, and
+    no plain attention runs; without one, the whole-row forward."""
+    from maskdit_tpu_torch.models.layers import Attention
+
+    attn = Attention(16 * 72, 16, dtype=torch.bfloat16).cuda()
+    x = torch.randn(2, 256, 16 * 72, device="cuda", requires_grad=True)
+    reset_launches()
+    attn(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    expect_launches("kernel-big", read_launches(), big_fwd=1, big_bwd=1)
+    reset_launches()
+    with torch.no_grad():
+        attn(x)
+    torch.cuda.synchronize()
+    expect_launches("kernel-big", read_launches(), packed_fwd=1)
+    del attn, x
+
+
+def phase_big_kernels() -> dict:
+    """The blocked kernels (kernels #3 and #4) at the 512-px shapes and at
+    the unmasked 256-px encoder's; that shape's route on the card."""
+    from maskdit_tpu_torch.ops import flash_big
+
+    check_unmasked_256_route()
+
+    fwd = attention_fwd_rows("kernel-big", BIG_SHAPES, flash_big.packed_attention_big,
+                             flash_big.packed_attention_big_reference, seed=5, iters=10)
+    bwd = attention_bwd_rows("kernel-big", BIG_BWD_SHAPES, flash_big.packed_attention_big_bwd,
+                             flash_big.packed_attention_big_bwd_reference, seed=6, iters=5)
+    return dict(fwd=fwd, bwd=bwd)
 
 
 def xl2_numel() -> int:
@@ -238,6 +481,25 @@ def xl2_numel() -> int:
     with torch.device("meta"):
         model = build_model(torch.bfloat16)
     return sum(p.numel() for p in model.parameters())
+
+
+def library_adam_ms(grads, p, e, scalars, iters: int) -> float:
+    """Two PyTorch calls for the same update, as a yardstick only:
+    ``torch.optim.Adam(fused=True).step()`` and one ``torch._foreach_lerp_``
+    for the EMA."""
+    param = torch.nn.Parameter(p.clone())
+    param.grad = grads
+    ema = e.clone()
+    opt = torch.optim.Adam([param], lr=scalars["lr"], betas=(scalars["b1"], scalars["b2"]),
+                           eps=scalars["eps"], fused=True)
+
+    def update():
+        opt.step()
+        torch._foreach_lerp_([ema], [param.detach()], scalars["one_minus_decay"])
+
+    ms = cuda_ms(update, iters)
+    del param, ema, opt
+    return ms
 
 
 def phase_adam_kernel() -> dict:
@@ -267,28 +529,34 @@ def phase_adam_kernel() -> dict:
                 tol = b.float().abs() * ADAM_RTOL + ADAM_ATOL
             ok = ok and bool((diff <= tol).all())
             del diff, tol
-        dt = str(m_dtype).replace("torch.", "")
+        dt = dtype_name(m_dtype)
         ms = cuda_ms(lambda: fused_adam.fused_adam_ema(grads, *got, lr=1e-4, count_inc=7), 10)
         plain_ms = cuda_ms(lambda: fused_adam.fused_adam_ema_reference(grads, p, m, v, e, **scalars), 5)
         moved = n * (4 * 4 + 4 * 3 + 2 * m.element_size())  # reads g,p,v,e,m; writes p,v,e,m
+        bound_ms, bound_by = bound(ADAM_OPS * n, moved, torch.float32)
         log(f"[kernel] fused adam over {n} params (DiT-XL/2), mu {dt}: max_abs_err {err:.3e} "
             f"(bound per element {ADAM_RTOL:.0e}|ref| + {ADAM_ATOL:.0e}); kernel {ms:.4f} ms "
-            f"({moved / ms / 1e6:.1f} GB/s, floor {moved / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s), "
-            f"plain {plain_ms:.4f} ms; launches per update {launches}")
+            f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / ms:.3f} of it; launches per update {launches}")
         if not ok:
             raise AssertionError(f"fused_adam_ema mu {dt}: err {err}, launches {launches}")
-        out[dt] = dict(err=err, ms=ms, plain_ms=plain_ms, gbps=moved / ms / 1e6)
+        out[dt] = dict(err=err, ms=ms, plain_ms=plain_ms, gbps=moved / ms / 1e6,
+                       bound_ms=bound_ms, bound_by=bound_by)
         del m, want, got
+    free_device_memory()
+    out["float32"]["library_ms"] = library_adam_ms(grads, p, e, scalars, 10)
+    log(f"[kernel] fused adam, library: torch.optim.Adam(fused=True).step() + "
+        f"torch._foreach_lerp_ (two calls), fp32 mu: {out['float32']['library_ms']:.4f} ms")
     del grads, p, e, v
     free_device_memory()
     return out
 
 
-def build_model(dtype: torch.dtype):
+def build_model(dtype: torch.dtype, res: int = 32):
     from maskdit_tpu_torch.models import create_model
 
     return create_model(
-        "edm", img_resolution=32, img_channels=4, num_classes=1000,
+        "edm", img_resolution=res, img_channels=4, num_classes=1000,
         model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1, dtype=dtype,
     )
 
@@ -305,44 +573,64 @@ def phase_weights() -> str:
     random_weights_(model)
     n_params = sum(p.numel() for p in model.parameters())
     os.makedirs(SCRATCH, exist_ok=True)
-    path = os.path.join(SCRATCH, "random-xl2-256.pt")
+    path = os.path.join(SCRATCH, "random-xl2.pt")
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     t0 = time.perf_counter()
     torch.save({"ema": state}, path)
-    log(f"[weights] DiT-XL/2 @256, {n_params} params ~ N(0, 0.02^2), seed 0; "
+    log(f"[weights] DiT-XL/2, {n_params} params ~ N(0, 0.02^2), seed 0; "
         f"saved in {time.perf_counter() - t0:.1f} s")
     return path
 
 
-def phase_main(ckpt: str) -> dict:
+def run_generate(tag: str, argv: list, seeds: int, res: int) -> tuple[dict, dict]:
+    """The generate CLI with the launch counts set to 0 before it; checks
+    the latents; returns the CLI's result and the launch counts."""
     from maskdit_tpu_torch import generate
-    from maskdit_tpu_torch.ops.flash_batched import packed_attention
 
-    outdir = os.path.join(SCRATCH, "samples")
+    outdir = argv[argv.index("--outdir") + 1]
     shutil.rmtree(outdir, ignore_errors=True)
+    reset_launches()
+    result = generate.main(argv)
+    launches = read_launches()
+    z = np.load(os.path.join(outdir, "latents_000000.npy"))
+    log(f"[{tag}] latents {z.shape} {z.dtype}, finite {bool(np.isfinite(z).all())}, "
+        f"std {float(z.std()):.4f}")
+    ips = result["images"] / result["seconds"]
+    log(f"[{tag}] {result['images']} images, {STEPS} steps, CFG {CFG}, bf16: "
+        f"{result['seconds']:.3f} s, {ips:.3f} images/s (first batch, no warm-up)")
+    if z.shape != (seeds, 4, res, res) or not np.isfinite(z).all():
+        raise AssertionError(f"{tag}: bad latents: shape {z.shape}")
+    return dict(images_per_s=ips, seconds=result["seconds"]), launches
+
+
+def phase_main(ckpt: str) -> dict:
     argv = [
-        "--ckpt_path", ckpt, "--outdir", outdir, "--no_decode",
+        "--ckpt_path", ckpt, "--outdir", os.path.join(SCRATCH, "samples"), "--no_decode",
         "--seeds", f"0-{SEEDS - 1}", "--max_batch_size", str(SEEDS),
         "--cfg_scale", str(CFG), "--num_steps", str(STEPS),
         "--model_type", "DiT-XL/2", "--image_size", "32", "--image_channels", "4",
         "--num_classes", "1000", "--use_decoder", "True", "--mae_loss_coef", "0.1",
     ]
-    packed_attention.launches = 0
-    result = generate.main(argv)
-    launches = packed_attention.launches
-    expected = (2 * STEPS - 1) * (DEPTH + DECODER_DEPTH)
-    z = np.load(os.path.join(outdir, "latents_000000.npy"))
-    log(f"[main] latents {z.shape} {z.dtype}, finite {bool(np.isfinite(z).all())}, "
-        f"std {float(z.std()):.4f}")
-    log(f"[main] packed_attention launches {launches} (expected {expected})")
-    ips = result["images"] / result["seconds"]
-    log(f"[main] {result['images']} images, {STEPS} steps, CFG {CFG}, bf16: "
-        f"{result['seconds']:.3f} s, {ips:.3f} images/s (first batch, no warm-up)")
-    if z.shape != (SEEDS, 4, 32, 32) or not np.isfinite(z).all():
-        raise AssertionError(f"bad latents: shape {z.shape}")
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != {expected}")
-    return dict(launches=launches, images_per_s=ips, seconds=result["seconds"])
+    out, launches = run_generate("main", argv, SEEDS, 32)
+    expect_launches("main", launches, packed_fwd=(2 * STEPS - 1) * (DEPTH + DECODER_DEPTH))
+    return dict(out, launches=launches)
+
+
+def phase_main_512(ckpt: str) -> dict:
+    """The generate CLI on configs/test/maskdit-512.yaml (as JSON), with the
+    256-px checkpoint: it loads strictly, so one parameter set serves both."""
+    os.makedirs(SCRATCH, exist_ok=True)
+    config = os.path.join(SCRATCH, "maskdit-512.json")
+    with open(config, "w") as f:
+        json.dump(SAMPLE_CONFIG_512, f)
+    argv = [
+        "--ckpt_path", ckpt, "--outdir", os.path.join(SCRATCH, "samples-512"), "--no_decode",
+        "--config", config, "--seeds", f"0-{SEEDS_512 - 1}", "--max_batch_size",
+        str(SEEDS_512), "--cfg_scale", str(CFG), "--num_steps", str(STEPS),
+    ]
+    out, launches = run_generate("main-512", argv, SEEDS_512, 64)
+    expect_launches("main-512", launches, big_fwd=(2 * STEPS - 1) * (DEPTH + DECODER_DEPTH))
+    return dict(out, launches=launches)
 
 
 @contextlib.contextmanager
@@ -351,13 +639,15 @@ def plain_attention():
     layers, for comparison."""
     from maskdit_tpu_torch.models import layers
     from maskdit_tpu_torch.ops.flash_batched import packed_attention_plain
+    from maskdit_tpu_torch.ops.flash_big import packed_attention_big_plain
 
-    kernel = layers.packed_attention
+    kernels = layers.packed_attention, layers.packed_attention_big
     layers.packed_attention = packed_attention_plain
+    layers.packed_attention_big = packed_attention_big_plain
     try:
         yield
     finally:
-        layers.packed_attention = kernel
+        layers.packed_attention, layers.packed_attention_big = kernels
 
 
 @contextlib.contextmanager
@@ -374,20 +664,23 @@ def plain_update():
         fused_adam.fused_adam_ema = kernel
 
 
-def phase_model_parity(ckpt: str) -> dict:
-    from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
+def phase_model_parity(ckpt: str, tag: str = "parity", res: int = 32, seeds: int = SEEDS,
+                       sampling_turns=("plain", "kernel", "kernel", "plain")) -> dict:
+    """The CFG denoiser, kernels vs plain attention, in bf16 and fp32; then
+    warm images/s of the whole sampler (kernel and plain in the turns
+    given) and a profile of one evaluation, in bf16."""
     from maskdit_tpu_torch.utils.ckpt import load_into, load_reference_checkpoint
 
     state = load_reference_checkpoint(ckpt)
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(size=(SEEDS, 4, 32, 32)).astype(np.float32)).cuda()
-    sigma = torch.from_numpy(rng.uniform(0.5, 5.0, size=SEEDS).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.normal(size=(seeds, 4, res, res)).astype(np.float32)).cuda()
+    sigma = torch.from_numpy(rng.uniform(0.5, 5.0, size=seeds).astype(np.float32)).cuda()
     y = torch.nn.functional.one_hot(
-        torch.from_numpy(rng.integers(0, 1000, size=SEEDS)), 1000
+        torch.from_numpy(rng.integers(0, 1000, size=seeds)), 1000
     ).float().cuda()
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        model = build_model(dtype)
+        model = build_model(dtype, res)
         load_into(model, state)
         model = model.cuda().eval()
         with torch.no_grad():
@@ -395,39 +688,40 @@ def phase_model_parity(ckpt: str) -> dict:
             with plain_attention():
                 ref = model(x, sigma, y, cfg_scale=CFG)["x"]
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
-        dt = str(dtype).replace("torch.", "")
-        bound = MODEL_REL_BOUND[dtype]
-        log(f"[parity] EDMPrecond CFG forward, batch {SEEDS}, {dt}: kernel vs plain "
-            f"max rel err {rel:.3e} (bound {bound:.0e}), finite "
+        dt = dtype_name(dtype)
+        bnd = MODEL_REL_BOUND[dtype]
+        log(f"[{tag}] EDMPrecond CFG forward at {res * 8} px, batch {seeds}, {dt}: kernel vs "
+            f"plain max rel err {rel:.3e} (bound {bnd:.0e}), finite "
             f"{bool(torch.isfinite(got).all())}")
-        if not (torch.isfinite(got).all() and rel <= bound):
-            raise AssertionError(f"model parity {dt}: {rel} > {bound}")
+        if not (torch.isfinite(got).all() and rel <= bnd):
+            raise AssertionError(f"{tag} {dt}: {rel} > {bnd}")
         out[dt] = rel
         if dtype == torch.bfloat16:
-            out["sampling"] = time_sampling(model, generate_with_params, SamplerConfig)
-            profile_forward(model, x, sigma, y)
+            out["sampling"] = time_sampling(model, seeds, res, sampling_turns)
+            profile_forward(model, x, sigma, y, "profile" if res == 32 else "profile-512")
         del model
     free_device_memory()
     return out
 
 
-def time_sampling(model, generate_with_params, SamplerConfig) -> dict:
-    """Warm images/s of the whole sampler at batch 8, with the kernel and
-    with the plain attention, in turns: plain, kernel, kernel, plain."""
+def time_sampling(model, seeds: int, res: int, turns) -> dict:
+    """Warm images/s of the whole sampler at the batch of ``seeds``, with the
+    kernels and with the plain attention, in the turns given."""
+    from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
+
     cfg = SamplerConfig(num_steps=STEPS, cfg_scale=CFG)
-    seeds = list(range(SEEDS))
     times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    for which in turns:
         ctx = plain_attention() if which == "plain" else contextlib.nullcontext()
         with ctx:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            generate_with_params(model, seeds, None, cfg, max_batch_size=SEEDS)
+            generate_with_params(model, list(range(seeds)), None, cfg, max_batch_size=seeds)
             torch.cuda.synchronize()
             times[which].append(time.perf_counter() - t0)
-    ips = {k: [SEEDS / t for t in v] for k, v in times.items()}
-    log(f"[sampling] warm, batch {SEEDS}, {STEPS} steps, CFG {CFG}, bf16: images/s "
-        f"kernel {ips['kernel']}, plain {ips['plain']}")
+    ips = {k: [seeds / t for t in v] for k, v in times.items()}
+    log(f"[sampling] warm at {res * 8} px, batch {seeds}, {STEPS} steps, CFG {CFG}, bf16: "
+        f"images/s kernel {ips['kernel']}, plain {ips['plain']}")
     return ips
 
 
@@ -458,19 +752,22 @@ def profile_device(tag: str, fn, reps: int, what: str) -> None:
             f"{e.key[:100]}")
 
 
-def profile_forward(model, x, sigma, y) -> None:
+def profile_forward(model, x, sigma, y, tag: str) -> None:
     """Device time by kernel over 3 CFG forwards (one denoiser evaluation
     each), from torch.profiler."""
     def evaluate():
         with torch.no_grad():
             model(x, sigma, y, cfg_scale=CFG)
 
-    profile_device("profile", evaluate, 3, f"one CFG denoiser evaluation (batch {SEEDS} x 2)")
+    profile_device(tag, evaluate, 3,
+                   f"one CFG denoiser evaluation (batch {x.shape[0]} x 2, {x.shape[-1] * 8} px)")
 
 
-def phase_train() -> dict:
-    """The train main path through the CLI, then resume from its checkpoint."""
-    from maskdit_tpu_torch.ops import flash_batched, fused_adam
+def run_train(tag: str, config: dict, res: int) -> dict:
+    """The train main path through the CLI, with the launch counts set to 0
+    before it; checks the losses and that each step launched 36 + 36
+    attention kernels of the route this resolution takes and one fused
+    update."""
     from maskdit_tpu_torch.train import main as train_main
     from maskdit_tpu_torch.utils.profiling import (
         maskdit_train_flops_per_image,
@@ -479,46 +776,48 @@ def phase_train() -> dict:
     )
 
     os.makedirs(SCRATCH, exist_ok=True)
-    config = os.path.join(SCRATCH, "train-xl2-256.json")
-    with open(config, "w") as f:
-        json.dump(TRAIN_CONFIG, f)
-    results = os.path.join(SCRATCH, "train")
+    path = os.path.join(SCRATCH, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    results = os.path.join(SCRATCH, tag)
     shutil.rmtree(results, ignore_errors=True)
     free_device_memory()
-    flash_batched.packed_attention.launches = 0
-    flash_batched.packed_attention_bwd.launches = 0
-    fused_adam.fused_adam_ema.launches = 0
-    out = train_main(["--config", config, "--results_dir", results, "--device", "cuda",
+    reset_launches()
+    out = train_main(["--config", path, "--results_dir", results, "--device", "cuda",
                       "--num_workers", "4"])
-    launches = dict(fwd=flash_batched.packed_attention.launches,
-                    bwd=flash_batched.packed_attention_bwd.launches,
-                    adam=fused_adam.fused_adam_ema.launches)
+    launches = read_launches()
     steps, history = out["step"], out["history"]
+    batch, max_steps = config["train"]["batchsize"], config["train"]["max_num_steps"]
     losses = [x for r in history for x in r["losses"]]
-    expect = dict(fwd=ATTN_PER_STEP * steps, bwd=ATTN_PER_STEP * steps, adam=ADAM_PER_STEP * steps)
-    log(f"[train] {steps} steps of DiT-XL/2 @256, batch {TRAIN_BATCH}, mask 0.5, bf16: "
+    log(f"[{tag}] {steps} steps of DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16: "
         f"losses {[round(x, 4) for x in losses]}")
-    log(f"[train] launches {launches} (expected {expect}: per step {ATTN_PER_STEP} forward, "
-        f"{ATTN_PER_STEP} backward, {ADAM_PER_STEP} fused update)")
-    if steps != TRAIN_STEPS or len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
-        raise AssertionError(f"training: {steps} steps, losses {losses}")
-    if launches != expect:
-        raise AssertionError(f"training launches {launches} != {expect}")
+    if steps != max_steps or len(losses) != max_steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: {steps} steps, losses {losses}")
+    attn = "packed" if res == 32 else "big"
+    expect_launches(tag, launches, **{f"{attn}_fwd": ATTN_PER_STEP * steps,
+                                      f"{attn}_bwd": ATTN_PER_STEP * steps,
+                                      "adam": ADAM_PER_STEP * steps})
     warm = history[1:]  # the first window holds steps 1-2 (warm-up)
     seconds = sum(LOG_EVERY / r["steps_per_sec"] for r in warm)
     warm_steps = LOG_EVERY * len(warm)
-    ips = warm_steps * TRAIN_BATCH / seconds
+    ips = warm_steps * batch / seconds
     name = torch.cuda.get_device_name(0)
-    flops = maskdit_train_flops_per_image("DiT-XL/2", 32, 0.5, True)
+    flops = maskdit_train_flops_per_image("DiT-XL/2", res, 0.5, True)
     util = mfu(ips, flops, peak_bf16_tflops(name))
     peak = max(r["mem_peak_gib"] for r in history)
-    log(f"[train] warm steps {2 + 1}-{steps}: {ips:.2f} images/s, {seconds / warm_steps * 1e3:.1f} "
-        f"ms/step, MFU {util:.4f} of {peak_bf16_tflops(name):.0f} TFLOP/s bf16 "
-        f"({flops / 1e9:.1f} GFLOP/image), peak memory {peak:.2f} GiB; per window images/s "
-        f"{[round(r['images_per_sec'], 2) for r in history]}")
-    resume = check_resume(results)
+    log(f"[{tag}] warm steps {LOG_EVERY + 1}-{steps}: {ips:.2f} images/s, "
+        f"{seconds / warm_steps * 1e3:.1f} ms/step, MFU {util:.4f} of "
+        f"{peak_bf16_tflops(name):.0f} TFLOP/s bf16 ({flops / 1e9:.1f} GFLOP/image), peak memory "
+        f"{peak:.2f} GiB; per window images/s {[round(r['images_per_sec'], 2) for r in history]}")
     return dict(launches=launches, images_per_s=ips, ms_per_step=seconds / warm_steps * 1e3,
-                mfu=util, peak_gib=peak, resume=resume)
+                mfu=util, peak_gib=peak, results=results)
+
+
+def phase_train() -> dict:
+    """The 256-px train main path, then resume from its checkpoint."""
+    out = run_train("train", TRAIN_CONFIG, 32)
+    out["resume"] = check_resume(out["results"])
+    return out
 
 
 def check_resume(results: str) -> bool:
@@ -548,16 +847,16 @@ def check_resume(results: str) -> bool:
     return same
 
 
-def train_parity_state(dtype: torch.dtype, seed: int):
+def train_parity_state(dtype: torch.dtype, seed: int, res: int, batch: int):
     """A DiT-XL/2 train state with random weights and a non-trivial Adam
     state (count 10, mu ~ N(0, 1e-4^2), nu ~ |N(0, 1e-7^2)|), the same for
     the same seed."""
     from maskdit_tpu_torch.train.state import create_train_state, make_optimizer
 
     torch.manual_seed(seed)
-    model = build_model(dtype).cuda()
+    model = build_model(dtype, res).cuda()
     random_weights_(model)
-    opt = make_optimizer(1e-4, PARITY_BATCH)
+    opt = make_optimizer(1e-4, batch)
     state = create_train_state(model, opt)
     g = torch.Generator(device="cuda").manual_seed(seed)
     state.opt_state.count = 10
@@ -566,30 +865,30 @@ def train_parity_state(dtype: torch.dtype, seed: int):
     return state, opt
 
 
-def phase_parity_train() -> dict:
+def phase_parity_train(tag: str = "parity-train", res: int = 32,
+                       n: int = PARITY_BATCH) -> dict:
     """One train step from one state with the same injected draws, through
     the kernels and through the plain attention and update."""
     from maskdit_tpu_torch.models.masking import random_mask
     from maskdit_tpu_torch.train.state import StepDraws, make_train_step
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    n = PARITY_BATCH
-    batch = {"x": torch.randn(n, 8, 32, 32, device="cuda", generator=g),
+    batch = {"x": torch.randn(n, 8, res, res, device="cuda", generator=g),
              "y": torch.nn.functional.one_hot(
                  torch.randint(0, 1000, (n,), device="cuda", generator=g), 1000).float()}
     draws = StepDraws(
-        z_noise=torch.randn(n, 4, 32, 32, device="cuda", generator=g),
+        z_noise=torch.randn(n, 4, res, res, device="cuda", generator=g),
         drop_u=torch.rand(n, 1, device="cuda", generator=g),
         sigma=torch.exp(torch.randn(n, device="cuda", generator=g) * 1.2 - 1.2),
-        noise=torch.randn(n, 4, 32, 32, device="cuda", generator=g),
-        mask_info=random_mask(n, 256, 0.5, g, device="cuda"),
+        noise=torch.randn(n, 4, res, res, device="cuda", generator=g),
+        mask_info=random_mask(n, (res // 2) ** 2, 0.5, g, device="cuda"),
     )
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         runs = {}
         for which in ("kernel", "plain"):
             free_device_memory()
-            state, opt = train_parity_state(dtype, seed=4)
+            state, opt = train_parity_state(dtype, 4, res, n)
             step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
             ctx = contextlib.ExitStack()
             if which == "plain":
@@ -615,16 +914,17 @@ def phase_parity_train() -> dict:
         # a gradient that reaches the encoder's first qkv passed through
         # every attention backward above it
         qkv_norm = got["grads"]["model.blocks.0.attn.qkv.weight"].norm().item()
-        bound = TRAIN_PARITY_BOUND[dtype]
-        dt = str(dtype).replace("torch.", "")
-        log(f"[parity-train] one step, DiT-XL/2, batch {n}, {dt}: loss kernel {got['loss']:.6f} "
-            f"plain {ref['loss']:.6f}, rel err {loss_err:.3e} (bound {bound['loss']:.0e}); "
-            f"max per-tensor gradient rel-norm err {grad_err:.3e} (bound {bound['grad']:.0e}, "
-            f"worst {worst}); max per-tensor p/ema/mu/nu rel-norm err {state_err:.3e} "
-            f"(bound {bound['state']:.0e}); |grad| of blocks.0.attn.qkv {qkv_norm:.3e}")
-        if not (loss_err <= bound["loss"] and grad_err <= bound["grad"]
-                and state_err <= bound["state"] and qkv_norm > 0):
-            raise AssertionError(f"train parity {dt}: loss {loss_err}, grad {grad_err}, "
+        bnd = TRAIN_PARITY_BOUND[dtype]
+        dt = dtype_name(dtype)
+        log(f"[{tag}] one step, DiT-XL/2 @{res * 8}, batch {n}, {dt}: loss kernel "
+            f"{got['loss']:.6f} plain {ref['loss']:.6f}, rel err {loss_err:.3e} (bound "
+            f"{bnd['loss']:.0e}); max per-tensor gradient rel-norm err {grad_err:.3e} (bound "
+            f"{bnd['grad']:.0e}, worst {worst}); max per-tensor p/ema/mu/nu rel-norm err "
+            f"{state_err:.3e} (bound {bnd['state']:.0e}); |grad| of blocks.0.attn.qkv "
+            f"{qkv_norm:.3e}")
+        if not (loss_err <= bnd["loss"] and grad_err <= bnd["grad"]
+                and state_err <= bnd["state"] and qkv_norm > 0):
+            raise AssertionError(f"{tag} {dt}: loss {loss_err}, grad {grad_err}, "
                                  f"state {state_err}")
         out[dt] = dict(loss=loss_err, grad=grad_err, state=state_err)
         del runs, got, ref
@@ -632,9 +932,10 @@ def phase_parity_train() -> dict:
     return out
 
 
-def phase_train_profile() -> None:
+def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = TRAIN_BATCH,
+                        reps: int = 3) -> None:
     """Device time by kernel over warm train steps at the main path's batch
-    (bf16, batch 128), from torch.profiler."""
+    (bf16, mask 0.5), from torch.profiler."""
     from maskdit_tpu_torch.data.datasets import SyntheticLatentDataset
     from maskdit_tpu_torch.data.loader import DataLoader
     from maskdit_tpu_torch.models import create_model
@@ -642,21 +943,30 @@ def phase_train_profile() -> None:
 
     free_device_memory()
     torch.manual_seed(0)
-    model = create_model("edm", img_resolution=32, img_channels=4, num_classes=1000,
+    model = create_model("edm", img_resolution=res, img_channels=4, num_classes=1000,
                          model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1).cuda()
-    opt = make_optimizer(1e-4, TRAIN_BATCH)
+    opt = make_optimizer(1e-4, batch)
     state = create_train_state(model, opt)
     step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1)
-    loader = DataLoader(SyntheticLatentDataset(TRAIN_BATCH, 32, 4, 1000), TRAIN_BATCH, num_workers=4)
+    loader = DataLoader(SyntheticLatentDataset(batch, res, 4, 1000), batch, num_workers=4)
     host = next(iter(loader))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    batch_dev = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    step(state, batch, gen)
-    profile_device("train-profile", lambda: step(state, batch, gen), 3,
-                   f"one train step (DiT-XL/2, batch {TRAIN_BATCH}, mask 0.5, bf16)")
-    log(f"[train-profile] peak memory {torch.cuda.max_memory_allocated() / 1024 ** 3:.2f} GiB")
+    step(state, batch_dev, gen)
+    profile_device(tag, lambda: step(state, batch_dev, gen), reps,
+                   f"one train step (DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16)")
+    log(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1024 ** 3:.2f} GiB")
     del model, opt, state, step
     free_device_memory()
+
+
+def kernel_line(name: str, source: str, replaces: str, launches: int, err: float,
+                row: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": f"maskdit_tpu_torch/ops/csrc/{source}",
+            "replaces": f"maskdit_tpu/ops/{replaces}", "launches": launches,
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms")}
 
 
 def main() -> None:
@@ -665,41 +975,50 @@ def main() -> None:
     kernels = phase_kernels()
     bwd = phase_bwd_kernels()
     adam = phase_adam_kernel()
+    big = phase_big_kernels()
     try:
         ckpt = phase_weights()
         main_path = phase_main(ckpt)
         parity = phase_model_parity(ckpt)
+        main_512 = phase_main_512(ckpt)
+        parity_512 = phase_model_parity(ckpt, "parity-512", 64, SEEDS_512, ("kernel",))
         train = phase_train()
         parity_train = phase_parity_train()
         phase_train_profile()
+        train_512 = run_train("train-512", TRAIN_CONFIG_512, 64)
+        parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
+        phase_train_profile("train-profile-512", 64, TRAIN_BATCH_512, 2)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    log(f"[summary] {smi}: sampling {main_path['images_per_s']:.3f} images/s (cold), "
-        f"warm {parity['sampling']['kernel']} images/s; model rel err bf16 "
-        f"{parity['bfloat16']:.3e}, fp32 {parity['float32']:.3e}; training "
+    log(f"[summary] {smi}: sampling 256 {main_path['images_per_s']:.3f} images/s (cold), "
+        f"warm {parity['sampling']['kernel']}; sampling 512 {main_512['images_per_s']:.3f} "
+        f"(cold), warm {parity_512['sampling']['kernel']}; model rel err 256 bf16 "
+        f"{parity['bfloat16']:.3e}, fp32 {parity['float32']:.3e}, 512 bf16 "
+        f"{parity_512['bfloat16']:.3e}, fp32 {parity_512['float32']:.3e}; training 256 "
         f"{train['images_per_s']:.2f} images/s, MFU {train['mfu']:.4f}, peak "
-        f"{train['peak_gib']:.2f} GiB; train parity {parity_train}")
-    enc = kernels[("encoder", "bfloat16")]
-    fwd_err = max(kernels[(name, "bfloat16")]["err"] for name, *_ in ATTN_SHAPES)
-    bwd_enc = bwd[("train_encoder", "bfloat16")]
-    bwd_err = max(bwd[(name, "bfloat16")]["err"] for name in ("train_encoder", "train_decoder"))
+        f"{train['peak_gib']:.2f} GiB; training 512 {train_512['images_per_s']:.2f} images/s, "
+        f"MFU {train_512['mfu']:.4f}, peak {train_512['peak_gib']:.2f} GiB; train parity "
+        f"{parity_train}; train parity 512 {parity_train_512}")
+    bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
+    paths = (main_path, train, main_512, train_512)
+    count = lambda key: sum(p["launches"][key] for p in paths)
     print(json.dumps({"kernels": [
-        {"name": "packed_attention_fwd", "route": "cuda",
-         "source": "maskdit_tpu_torch/ops/csrc/packed_attention_fwd.cu",
-         "replaces": "maskdit_tpu/ops/flash_batched.py:162",
-         "launches": main_path["launches"] + train["launches"]["fwd"],
-         "max_abs_err": fwd_err, "ms": enc["ms"], "plain_ms": enc["plain_ms"]},
-        {"name": "packed_attention_bwd", "route": "cuda",
-         "source": "maskdit_tpu_torch/ops/csrc/packed_attention_bwd.cu",
-         "replaces": "maskdit_tpu/ops/flash_batched.py:177",
-         "launches": train["launches"]["bwd"],
-         "max_abs_err": bwd_err, "ms": bwd_enc["ms"], "plain_ms": bwd_enc["plain_ms"]},
-        {"name": "fused_adam_ema", "route": "cuda",
-         "source": "maskdit_tpu_torch/ops/csrc/fused_adam_ema.cu",
-         "replaces": "maskdit_tpu/ops/fused_adam.py:109",
-         "launches": train["launches"]["adam"],
-         "max_abs_err": adam["float32"]["err"], "ms": adam["float32"]["ms"],
-         "plain_ms": adam["float32"]["plain_ms"]},
+        kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",
+                    count("packed_fwd"), bf16(kernels, [s[0] for s in ATTN_SHAPES]),
+                    kernels[("encoder", "bfloat16")]),
+        kernel_line("packed_attention_bwd", "packed_attention_bwd.cu", "flash_batched.py:177",
+                    count("packed_bwd"), bf16(bwd, ["train_encoder", "train_decoder"]),
+                    bwd[("train_encoder", "bfloat16")]),
+        kernel_line("fused_adam_ema", "fused_adam_ema.cu", "fused_adam.py:109", count("adam"),
+                    adam["float32"]["err"], adam["float32"]),
+        kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",
+                    "flash_big.py:213", count("big_fwd"),
+                    bf16(big["fwd"], [s[0] for s in BIG_SHAPES]),
+                    big["fwd"][("sample_encoder", "bfloat16")]),
+        kernel_line("packed_attention_big_bwd", "packed_attention_big_bwd.cu",
+                    "flash_big.py:234", count("big_bwd"),
+                    bf16(big["bwd"], ["train_encoder", "train_decoder"]),
+                    big["bwd"][("train_encoder", "bfloat16")]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

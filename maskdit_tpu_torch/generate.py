@@ -21,14 +21,15 @@ from typing import Optional, Sequence
 
 import torch
 
-from maskdit_tpu.utils.logging import Logger, parse_float_none, parse_int_list, str2bool
 from maskdit_tpu_torch.models import DIT_CONFIGS, create_model
 from maskdit_tpu_torch.sampling.generate import (
     VAE_NOT_PORTED,
     SamplerConfig,
     generate_with_params,
 )
+from maskdit_tpu_torch.utils import config as config_lib
 from maskdit_tpu_torch.utils.ckpt import load_into, load_reference_checkpoint
+from maskdit_tpu_torch.utils.logging import Logger, parse_float_none, parse_int_list, str2bool
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="reference .pt checkpoint; its 'ema' weights are used")
     parser.add_argument("--outdir", type=str, required=True)
     parser.add_argument("--config", type=str, default=None,
-                        help="model YAML; overrides the --model_type/... flags")
+                        help="model config (YAML, or JSON of the same schema); "
+                        "overrides the --model_type/... flags")
     parser.add_argument("--seeds", type=parse_int_list, default="0-63")
     parser.add_argument("--class_idx", type=int, default=None)
     parser.add_argument("--max_batch_size", type=int, default=64)
@@ -76,10 +78,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.config is not None:
-        # model hyperparameters from YAML (reference generate.py:31-39)
-        from maskdit_tpu.utils import config as config_lib
-
-        m = config_lib.load(args.config).model
+        # model hyperparameters from the config (reference generate.py:31-39)
+        m = config_lib.load_file(args.config).model
         if m.precond != "edm":
             parser.error(f"precond '{m.precond}' is not ported (edm only)")
         args.model_type = m.model_type

@@ -20,6 +20,7 @@ Weights are initialised as the reference does; a checkpoint replaces them.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -27,7 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from maskdit_tpu_torch.ops.flash_batched import packed_attention
+from maskdit_tpu_torch.ops import flash_batched, flash_big
+from maskdit_tpu_torch.ops.flash_batched import packed_attention, packed_attention_plain
+from maskdit_tpu_torch.ops.flash_big import packed_attention_big
 
 
 class Linear(nn.Linear):
@@ -183,9 +186,54 @@ class PatchEmbed(nn.Module):
         return y.to(self.dtype)
 
 
+@functools.cache
+def attention_route(num_heads: int, l: int, head_dim: int, backward: bool) -> str:
+    """Which attention runs at (heads, L, head_dim): 'packed', 'big' or
+    'plain'. Cached: the model asks once per shape, not once per call.
+
+    The JAX package's rule (layers.py:237-277) with the card's reasons in
+    place of the TPU's VMEM budgets:
+      * 'packed' (ops/flash_batched.py, kernels #1/#2) where its kernels'
+        shared-memory layouts fit a block's 232,448 B: the forward's at
+        fp32, and the backward's where a backward will be taken;
+      * else 'big' (ops/flash_big.py, kernels #3/#4) where
+        ``flash_big.supports`` holds (the 512-px shapes);
+      * else, where the whole-row forward fits but its backward does not
+        (XL/2's encoder trained unmasked at 256 px: L 256, hd 72), the JAX
+        package runs its whole-row kernels: 'big', whose kernels take any
+        L, runs both directions there, or, where they cannot take the
+        head dim, raise;
+      * else the JAX package's ``mha`` runs its streaming kernel
+        (ops/flash.py) at L >= 1024 with L % 128 == 0, which is not ported
+        yet: raise rather than run plain code there;
+      * else 'plain', the plain attention (the JAX package's own
+        non-kernel path).
+    """
+    if flash_batched.fits(l, head_dim, backward):
+        return "packed"
+    if flash_big.supports(num_heads, l, head_dim):
+        return "big"
+    if flash_batched.fits(l, head_dim, False):
+        if flash_big.fits(l, head_dim):
+            return "big"
+        raise NotImplementedError(
+            f"attention backward at L={l}, head_dim={head_dim}: the whole-row "
+            "backward kernel's shared memory does not fit the card, and the "
+            "blocked kernels need a head dim that is a multiple of 8"
+        )
+    if l >= 1024 and l % 128 == 0:
+        raise NotImplementedError(
+            f"attention at L={l}, head_dim={head_dim}: the JAX package runs its "
+            "streaming kernel (maskdit_tpu/ops/flash.py, flash_mha) here, which the "
+            "port has not ported yet (ROADMAP.md, section B: the next slice)"
+        )
+    return "plain"
+
+
 class Attention(nn.Module):
     """timm-style MHA: a qkv Linear that emits [q | k | v] along features
-    (maskdit_tpu layers.py:219-223), packed attention, output projection."""
+    (maskdit_tpu layers.py:219-223), attention by ``attention_route``,
+    output projection."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  dtype: torch.dtype = torch.float32):
@@ -199,8 +247,13 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hd = x.shape[-1] // self.num_heads
-        out = packed_attention(self.qkv(x), self.num_heads, hd ** -0.5)
-        return self.proj(out)
+        qkv = self.qkv(x)
+        route = attention_route(self.num_heads, x.shape[1], hd,
+                                torch.is_grad_enabled() and qkv.requires_grad)
+        # looked up when called, so a caller may swap the plain versions in
+        attend = {"packed": packed_attention, "big": packed_attention_big,
+                  "plain": packed_attention_plain}[route]
+        return self.proj(attend(qkv, self.num_heads, hd ** -0.5))
 
 
 class Mlp(nn.Module):

@@ -3,10 +3,12 @@
 Counterpart of maskdit_tpu/ops/flash_batched.py::packed_attention, a
 ``jax.custom_vjp`` whose forward and backward are both kernels. The qkv
 Dense emits [q | k | v] along features, head h at [h*hd, (h+1)*hd) of each
-third. ``packed_attention`` is the entry point the model calls. It is a
-``torch.autograd.Function`` that saves only ``qkv`` for the backward, as
-the custom VJP does (flash_batched.py:171): the backward recomputes the
-softmax, the output and delta from (qkv, dout).
+third. ``packed_attention`` is the entry point the model calls. It applies
+``AttentionFunction``, a ``torch.autograd.Function`` that saves only
+``qkv`` for the backward, as the custom VJP does (flash_batched.py:171):
+the backward recomputes the softmax, the output and delta from (qkv,
+dout). ``AttentionFunction`` and ``launch`` (checks, launch, error) serve
+ops/flash_big.py too.
 
   * a CPU tensor goes to the plain PyTorch versions,
     ``packed_attention_reference`` and ``packed_attention_bwd_reference``;
@@ -17,8 +19,8 @@ softmax, the output and delta from (qkv, dout).
 
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
 kernel launches and nothing else, so a run can show that it went through
-the kernels. ``packed_attention_plain`` is the same Function with the plain
-versions on any device, for holding the kernels to them on the card.
+the kernels. ``packed_attention_plain`` applies the same Function with the
+plain versions on any device, for holding the kernels to them on the card.
 """
 
 from __future__ import annotations
@@ -33,8 +35,50 @@ from maskdit_tpu_torch.ops.attention import mha_reference
 
 KERNEL = "packed_attention_fwd"
 BWD_KERNEL = "packed_attention_bwd"
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
+# dynamic shared memory one block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232448
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def fwd_smem_bytes(l: int, hd: int, esize: int) -> int:
+    """Shared memory of one forward block: ``smem_layout`` of
+    csrc/packed_attention_fwd.cu (q fp32 [hd][32], the head's K and V in
+    the input type, logits fp32 [L][32], two reductions), L padded to 32."""
+    lp = -(-l // 32) * 32
+    k = _align16(hd * 32 * 4)
+    v = _align16(k + hd * lp * esize)
+    s = _align16(v + lp * hd * esize)
+    red = _align16(s + lp * 32 * 4)
+    return red + 2 * 8 * 32 * 4
+
+
+def bwd_smem_bytes(l: int, hd: int) -> int:
+    """Shared memory of the larger of the backward's two passes:
+    ``query_layout`` and ``key_layout`` of csrc/packed_attention_bwd.cu
+    (operands widened to fp32, rows padded to hd + 1 words)."""
+    lp = -(-l // 32) * 32
+    rows = lp * (hd + 1) * 4
+    dout = _align16(hd * 32 * 4)
+    k = _align16(dout + hd * 32 * 4)
+    s = _align16(_align16(k + rows) + rows)
+    query = _align16(s + lp * 32 * 4) + 2 * 8 * 32 * 4
+    pb = _align16(_align16(k + rows) + rows)
+    stats = _align16(_align16(pb + lp * 32 * 4) + lp * 32 * 4)
+    key = stats + 3 * lp * 4
+    return max(query, key)
+
+
+def fits(l: int, hd: int, backward: bool) -> bool:
+    """The kernels launch at (L, hd) for either input type: the forward's
+    layout at fp32 (the larger) fits the card's limit, and the backward's
+    too where a backward will be taken."""
+    return (hd <= MAX_HEAD_DIM and fwd_smem_bytes(l, hd, 4) <= SMEM_LIMIT
+            and (not backward or bwd_smem_bytes(l, hd) <= SMEM_LIMIT))
 
 
 def packed_attention_reference(
@@ -111,12 +155,14 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
+def check_qkv(name: str, qkv: torch.Tensor, num_heads: int,
+              aligned: bool = False) -> tuple[int, int, int, int]:
     """Device, dtype, shape and contiguity checks of a kernel's qkv;
-    returns (N, L, D, hd)."""
+    returns (N, L, D, hd). ``aligned``: the kernel's 16-byte tile loads
+    also need head_dim a multiple of 8 and a 16-byte aligned qkv."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODES:
+    if qkv.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {qkv.dtype} (takes bfloat16 or float32)")
     if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
         raise ValueError(
@@ -129,26 +175,54 @@ def _check(name: str, qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int,
     hd = d // num_heads
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {hd} > {MAX_HEAD_DIM}")
+    if aligned and (hd % 8 or qkv.data_ptr() % 16):
+        raise ValueError(f"{name}: head dim {hd} (a multiple of 8) and a 16-byte "
+                         f"aligned qkv are needed")
     return n, l, d, hd
 
 
-def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    n, l, d, hd = _check("packed_attention", qkv, num_heads)
-    lib = _library()
-    out = torch.empty((n, l, d), dtype=qkv.dtype, device=qkv.device)
+def launch(name: str, library, entry: str, error: str, smem_bytes, qkv: torch.Tensor,
+           num_heads: int, scale: float, dout: torch.Tensor | None = None,
+           aligned: bool = False) -> torch.Tensor:
+    """Checks the operands, then loads ``library()`` (so a tensor that no
+    kernel takes raises without a build), launches its C function ``entry``
+    on the current stream and raises with its ``error`` string on a refused
+    launch. Without ``dout`` a forward: returns the output (N, L, D). With
+    it a backward: returns dqkv (N, L, 3D). ``smem_bytes(l, hd, element
+    size)`` goes into the error message."""
+    n, l, d, hd = check_qkv(name, qkv, num_heads, aligned)
+    if dout is None:
+        out = torch.empty((n, l, d), dtype=qkv.dtype, device=qkv.device)
+        pointers = (qkv.data_ptr(), out.data_ptr())
+    else:
+        if dout.device != qkv.device or dout.dtype != qkv.dtype:
+            raise TypeError(f"{name}: dout is {dout.dtype} on {dout.device}, "
+                            f"qkv {qkv.dtype} on {qkv.device}")
+        if (tuple(dout.shape) != (n, l, d) or not dout.is_contiguous()
+                or (aligned and dout.data_ptr() % 16)):
+            raise ValueError(f"{name}: dout {tuple(dout.shape)} is not a contiguous"
+                             f"{', 16-byte aligned' if aligned else ''} ({n}, {l}, {d})")
+        out = torch.empty_like(qkv)
+        # per-row softmax max and sum and delta = sum(do * o), (3, N, H, L)
+        # fp32: written by the query pass, read by the key pass
+        stats = torch.empty((3, n, num_heads, l), dtype=torch.float32, device=qkv.device)
+        pointers = (qkv.data_ptr(), dout.data_ptr(), out.data_ptr(), stats.data_ptr())
+    lib = library()
     with torch.cuda.device(qkv.device):
-        err = lib.packed_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), n, l, num_heads, hd, scale,
-            _DTYPE_CODES[qkv.dtype], torch.cuda.current_stream().cuda_stream,
-        )
+        err = getattr(lib, entry)(*pointers, n, l, num_heads, hd, scale,
+                                  DTYPE_CODES[qkv.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        smem = lib.packed_attention_fwd_smem_bytes(l, hd, qkv.element_size())
         raise RuntimeError(
-            f"packed_attention kernel launch failed: "
-            f"{lib.packed_attention_error_string(err).decode()} "
+            f"{name} kernel launch failed: {getattr(lib, error)(err).decode()} "
             f"(N={n}, L={l}, H={num_heads}, hd={hd}, {qkv.dtype}, "
-            f"{smem} B shared memory per block)"
+            f"{smem_bytes(l, hd, qkv.element_size())} B shared memory per block)"
         )
+    return out
+
+
+def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    out = launch("packed_attention", _library, "packed_attention_fwd",
+                 "packed_attention_error_string", fwd_smem_bytes, qkv, num_heads, scale)
     packed_attention.launches += 1
     return out
 
@@ -156,36 +230,9 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
 def _launch_bwd(
     qkv: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
-    n, l, d, hd = _check("packed_attention_bwd", qkv, num_heads)
-    if dout.device != qkv.device or dout.dtype != qkv.dtype:
-        raise TypeError(
-            f"packed_attention_bwd: dout is {dout.dtype} on {dout.device}, "
-            f"qkv {qkv.dtype} on {qkv.device}"
-        )
-    if tuple(dout.shape) != (n, l, d) or not dout.is_contiguous():
-        raise ValueError(
-            f"packed_attention_bwd: dout {tuple(dout.shape)} is not a contiguous "
-            f"({n}, {l}, {d})"
-        )
-    lib = _bwd_library()
-    dqkv = torch.empty_like(qkv)
-    # per-row softmax max and sum and delta = sum(do * o), (3, N, H, L) fp32:
-    # written by the query pass, read by the key pass
-    stats = torch.empty((3, n, num_heads, l), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = lib.packed_attention_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            n, l, num_heads, hd, scale, _DTYPE_CODES[qkv.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        smem = lib.packed_attention_bwd_smem_bytes(l, hd, qkv.element_size())
-        raise RuntimeError(
-            f"packed_attention_bwd kernel launch failed: "
-            f"{lib.packed_attention_bwd_error_string(err).decode()} "
-            f"(N={n}, L={l}, H={num_heads}, hd={hd}, {qkv.dtype}, "
-            f"{smem} B shared memory per block)"
-        )
+    dqkv = launch("packed_attention_bwd", _bwd_library, "packed_attention_bwd",
+                  "packed_attention_bwd_error_string", lambda l, hd, _: bwd_smem_bytes(l, hd),
+                  qkv, num_heads, scale, dout)
     packed_attention_bwd.launches += 1
     return dqkv
 
@@ -199,16 +246,16 @@ def packed_attention_bwd(
     return _launch_bwd(qkv, dout, num_heads, scale)
 
 
-class _PackedAttention(torch.autograd.Function):
-    """Saves only qkv; the backward recomputes everything from it."""
+class AttentionFunction(torch.autograd.Function):
+    """Attention from packed qkv by a forward and a backward, each a kernel's
+    launch or its plain version. Saves only qkv; the backward recomputes
+    everything from it. Used here and by ops/flash_big.py."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, plain: bool):
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, fwd, bwd):
         ctx.save_for_backward(qkv)
-        ctx.num_heads, ctx.scale, ctx.plain = num_heads, scale, plain
-        if plain:
-            return packed_attention_reference(qkv, num_heads, scale)
-        return _launch(qkv, num_heads, scale)
+        ctx.num_heads, ctx.scale, ctx.bwd = num_heads, scale, bwd
+        return fwd(qkv, num_heads, scale)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
@@ -216,15 +263,16 @@ class _PackedAttention(torch.autograd.Function):
         # the proj Linear hands back a gradient of its own dtype and
         # layout; the kernel takes qkv's (as g.astype(qkv.dtype) does)
         g = grad_out.to(qkv.dtype).contiguous()
-        bwd = packed_attention_bwd_reference if ctx.plain else _launch_bwd
-        return bwd(qkv, g, ctx.num_heads, ctx.scale), None, None, None
+        return ctx.bwd(qkv, g, ctx.num_heads, ctx.scale), None, None, None, None
 
 
 def packed_attention(
     qkv: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
     """(N, L, 3D) packed qkv -> (N, L, D) attention output, differentiable."""
-    return _PackedAttention.apply(qkv, num_heads, scale, qkv.device.type == "cpu")
+    if qkv.device.type == "cpu":
+        return packed_attention_plain(qkv, num_heads, scale)
+    return AttentionFunction.apply(qkv, num_heads, scale, _launch, _launch_bwd)
 
 
 def packed_attention_plain(
@@ -232,7 +280,8 @@ def packed_attention_plain(
 ) -> torch.Tensor:
     """``packed_attention`` with the plain forward and backward on any
     device: what the kernels are held to."""
-    return _PackedAttention.apply(qkv, num_heads, scale, True)
+    return AttentionFunction.apply(qkv, num_heads, scale, packed_attention_reference,
+                                   packed_attention_bwd_reference)
 
 
 packed_attention.launches = 0

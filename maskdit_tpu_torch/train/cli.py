@@ -19,6 +19,8 @@ import json
 import os
 from typing import Any, Optional, Sequence
 
+from maskdit_tpu_torch.utils import config as config_lib
+
 REQUIRED = (
     "data.resolution", "data.num_channels", "model.model_type", "model.precond",
     "model.mask_ratio", "train.batchsize", "train.lr", "train.max_num_steps",
@@ -28,12 +30,7 @@ REQUIRED = (
 
 def load_config(path: str) -> dict[str, Any]:
     """A YAML or JSON config file as nested dicts."""
-    if path.endswith(".json"):
-        with open(path) as f:
-            return json.load(f)
-    from maskdit_tpu.utils import config as config_lib
-
-    return config_lib.load(path).to_container()
+    return config_lib.load_file(path).to_container()
 
 
 def parse_value(text: str) -> Any:
@@ -77,7 +74,7 @@ def validate(cfg: dict) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from maskdit_tpu.utils.logging import parse_str_none
+    from maskdit_tpu_torch.utils.logging import parse_str_none
 
     parser = argparse.ArgumentParser("training parameters")
     parser.add_argument("--config", type=str, required=True, help="YAML or JSON config")
@@ -96,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> dict[str, Any]:
     """Run the CLI; returns {'step': last step, 'exp_dir': ..., 'history':
     the log records (one per logged window)}."""
-    from maskdit_tpu.utils.logging import Logger
+    from maskdit_tpu_torch.utils.logging import Logger
     from maskdit_tpu_torch.train.trainer import Trainer
 
     args = build_parser().parse_args(argv)

@@ -20,13 +20,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from maskdit_tpu.utils.logging import MetricLogger, Throughput
 from maskdit_tpu_torch.data.datasets import SyntheticLatentDataset
 from maskdit_tpu_torch.data.loader import DataLoader, prefetch, to_device
 from maskdit_tpu_torch.models.precond import create_model
 from maskdit_tpu_torch.train.schedules import bucket_ratio, get_mask_ratio_fn
 from maskdit_tpu_torch.train.state import create_train_state, make_optimizer, make_train_step
 from maskdit_tpu_torch.utils.ckpt import CheckpointManager, load_reference_checkpoint
+from maskdit_tpu_torch.utils.logging import MetricLogger, Throughput
 from maskdit_tpu_torch.utils.profiling import maskdit_train_flops_per_image, mfu, peak_bf16_tflops
 
 # train.* keys of the JAX trainer that the port does not implement yet

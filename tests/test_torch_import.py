@@ -1,7 +1,10 @@
-"""The PyTorch port never imports jax.
+"""The PyTorch port imports neither jax nor anything of the JAX package.
 
-Checked in a fresh interpreter: this test process has jax loaded already
-(tests/conftest.py imports it).
+Checked in a fresh interpreter: this test process has jax and maskdit_tpu
+loaded already (tests/conftest.py imports them). The JAX package's
+``utils/logging.py`` and ``utils/config.py`` import no jax, so a check for
+jax alone misses an import of them: the check forbids every module named
+``maskdit_tpu`` or ``maskdit_tpu.*`` as well.
 """
 
 import os
@@ -10,48 +13,81 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# named so that a module the walk below could miss is still imported
 MODULES = [
     "maskdit_tpu_torch",
     "maskdit_tpu_torch.generate",
     "maskdit_tpu_torch.models",
     "maskdit_tpu_torch.ops.flash_batched",
+    "maskdit_tpu_torch.ops.flash_big",
     "maskdit_tpu_torch.ops.fused_adam",
     "maskdit_tpu_torch.models.masking",
     "maskdit_tpu_torch.sampling.generate",
     "maskdit_tpu_torch.data",
     "maskdit_tpu_torch.train",
+    "maskdit_tpu_torch.train.cli",
     "maskdit_tpu_torch.train.trainer",
     "maskdit_tpu_torch.utils.ckpt",
+    "maskdit_tpu_torch.utils.config",
+    "maskdit_tpu_torch.utils.logging",
     "maskdit_tpu_torch.utils.port",
     "maskdit_tpu_torch.utils.profiling",
 ]
 
+FORBIDDEN = (
+    "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'maskdit_tpu')\n"
+    "             or m.startswith(('jax.', 'flax.', 'maskdit_tpu.')))\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
 
-def test_port_imports_no_jax():
-    code = (
-        "import importlib, sys\n"
-        f"for m in {MODULES!r}:\n"
-        "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax')))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    proc = subprocess.run(
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, those the walk finds and those named."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import maskdit_tpu_torch\n"
+        "walked = [m.name for m in pkgutil.walk_packages(maskdit_tpu_torch.__path__,\n"
+        "                                                'maskdit_tpu_torch.')\n"
+        "          if not m.name.endswith('__main__')]\n"
+        f"for m in sorted(set(walked) | set({MODULES!r})):\n"
+        "    importlib.import_module(m)\n"
+        f"assert set({MODULES!r}) <= set(sys.modules)\n"
+        + FORBIDDEN
+    )
+    proc = _run(code)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py drives the port alone: its imports reach no jax."""
+    """chip_smoke.py drives the port alone. Its phases import the port
+    inside functions, so every module that any import statement in the
+    script names is imported too, after the script's own top level."""
     code = (
-        "import sys, runpy\n"
+        "import ast, importlib, runpy, sys\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
+        "tree = ast.parse(open('chip_smoke.py').read())\n"
+        "names = set()\n"
+        "for node in ast.walk(tree):\n"
+        "    if isinstance(node, ast.Import):\n"
+        "        names.update(a.name for a in node.names)\n"
+        "    elif isinstance(node, ast.ImportFrom) and node.module:\n"
+        "        names.add(node.module)\n"
+        "        for a in node.names:\n"
+        "            try:\n"
+        "                importlib.import_module(f'{node.module}.{a.name}')\n"
+        "            except ImportError:\n"
+        "                pass\n"
+        "assert 'maskdit_tpu_torch.train' in names, sorted(names)\n"
+        "for m in sorted(names):\n"
+        "    importlib.import_module(m)\n"
+        + FORBIDDEN
     )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
-    )
+    proc = _run(code)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

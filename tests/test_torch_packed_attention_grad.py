@@ -115,7 +115,8 @@ def test_kernel_route_has_a_gradient(monkeypatch):
     qkv, dout = _inputs(2, h, 24, 8, seed=10)
     x = torch.from_numpy(qkv).requires_grad_()
     assert launch(x, h, scale).grad_fn is None  # the old path: no gradient
-    out = flash_batched._PackedAttention.apply(x, h, scale, False)
+    out = flash_batched.AttentionFunction.apply(x, h, scale, flash_batched._launch,
+                                                flash_batched._launch_bwd)
     assert out.grad_fn is not None
     assert [t.data_ptr() for t in out.grad_fn.saved_tensors] == [x.data_ptr()]
     # a permuted consumer hands back a non-contiguous gradient
