@@ -5,7 +5,7 @@
 Run from the root of a checkout. Every phase runs; each raises on failure:
 
   1. device: needs CUDA; prints the card's name and power limit;
-  2. build: compiles the port's five CUDA kernels from ops/csrc/, one nvcc
+  2. build: compiles the port's seven CUDA kernels from ops/csrc/, one nvcc
      per source, all started together, with their register and spill
      reports;
   3. kernel vs plain, each against its plain PyTorch version with both
@@ -36,7 +36,17 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      bf16; a profile of one train step;
   7. training at 512 px: the same CLI on the released 512-px config at its
      batch of 32, cut to 8 steps, 36 + 36 blocked-attention launches and
-     one fused-update launch per step; train-step parity; a profile.
+     one fused-update launch per step; train-step parity; a profile;
+  8. the ``use_flash`` path (ops/flash.py, kernels #5 and #6): both kernels
+     against their plain versions at every L of their window (bf16, head
+     dims 32, 64, 72), then timed at the 512-px shapes, at the edges of
+     the window and at an odd head dim; one CFG denoiser evaluation at
+     512 px with ``use_flash=True``, kernels vs plain; the train CLI on the
+     released 512-px config with the override ``model.use_flash=true``, at
+     batch 32, cut to 6 steps: 72 flash-forward launches (the checkpoint
+     recomputes each layer's forward in the backward), 36 flash-backward
+     and one fused-update launch per step; train-step parity kernels vs
+     plain and, in fp32, flash vs the blocked kernels; a profile.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -126,6 +136,19 @@ BIG_SHAPES = [
     UNMASKED_256,
 ]
 BIG_BWD_SHAPES = BIG_SHAPES[2:] + [("ragged", 3, 777, 4, 40)]
+
+# ops/flash.py's kernels (#5, #6) at the use_flash path's 512-px shapes
+# (sampling: CFG batch 2 x 4 at L 1024; training: batch 32, the encoder at
+# the 512 kept tokens, the decoder at L 1024), at the edges of the kernels'
+# window (L 128 and 2048; 2048 takes the 16-row forward blocks) and at an
+# odd head dim; the backward at the training shapes, L 2048 and hd 40. The
+# bounds are FWD_REL_BOUND, BWD_REL_BOUND and BF16_MISMATCH_BOUND; the fp32
+# logsumexp is held to LSE_REL_BOUND x max|lse| (fp32 sums in another order)
+FLASH_SHAPES = BIG_SHAPES[:4] + [("edge_128", 128, 128, 16, 72), ("edge_2048", 2, 2048, 16, 72),
+                                 ("hd40", 3, 384, 4, 40)]
+FLASH_BWD_SHAPES = FLASH_SHAPES[2:4] + FLASH_SHAPES[5:]
+LSE_REL_BOUND = 1e-5
+TRAIN_STEPS_FLASH = 6
 
 # fused Adam: fp32 everywhere, the two differ by FMA contraction only, so
 # per element |kernel - plain| <= 1e-6 |plain| + 1e-7; a bf16 mu by at most
@@ -224,15 +247,18 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def attention_bound(n: int, l: int, h: int, hd: int, dtype: torch.dtype,
-                    backward: bool) -> tuple[float, str]:
-    """The TPU kernels' products, 2 N H L^2 hd operations each (two in the
-    forward; six in the backward: s, o, dv, dp, dq, dk), and the bytes of
-    qkv and the output (forward), or qkv, dout and dqkv (backward)."""
+def attention_bound(n: int, l: int, h: int, hd: int, dtype: torch.dtype, products: int,
+                    planes: int, rows_fp32: int = 0) -> tuple[float, str]:
+    """The TPU kernel's ``products`` L x L x hd products per head, 2 N H L^2
+    hd operations each, and the bytes of its inputs and outputs: ``planes``
+    multiples of (N, L, D) in the input type and ``rows_fp32`` of (N, H, L)
+    in fp32 (the logsumexp). #1-#4: 2 products (s, o) and 4 planes (qkv,
+    out) forward, 6 (s, o, dv, dp, dq, dk) and 7 (qkv, dout, dqkv)
+    backward; #5: 2 and 4 (q, k, v, o) + lse; #6: 5 (s, dv, dp, dq, dk) and
+    8 (q, k, v, o, do, dq, dk, dv) + lse."""
     es = torch.empty((), dtype=dtype).element_size()
-    products = 6 if backward else 2
-    planes = 7 if backward else 4  # multiples of (N, L, D)
-    return bound(2 * products * n * h * l * l * hd, planes * n * l * h * hd * es, dtype)
+    return bound(2 * products * n * h * l * l * hd,
+                 planes * n * l * h * hd * es + rows_fp32 * n * h * l * 4, dtype)
 
 
 def library_attention_ms(qkv: torch.Tensor, h: int, scale: float, iters: int,
@@ -240,16 +266,23 @@ def library_attention_ms(qkv: torch.Tensor, h: int, scale: float, iters: int,
     """One PyTorch call for the same function, as a yardstick only:
     ``F.scaled_dot_product_attention`` on q, k, v (N, H, L, hd); with
     ``dout``, its forward and backward."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
     n, l, three_d = qkv.shape
     hd = three_d // 3 // h
     q, k, v = (t.contiguous() for t in qkv.reshape(n, l, 3, h, hd).permute(2, 0, 3, 1, 4))
-    if dout is None:
+    g = None if dout is None else dout.reshape(n, l, h, hd).permute(0, 2, 1, 3).contiguous()
+    return sdpa_ms(q, k, v, scale, iters, g)
+
+
+def sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, iters: int,
+            g: torch.Tensor | None = None) -> float:
+    """``F.scaled_dot_product_attention`` on q, k, v (N, H, L, hd); with the
+    output's gradient ``g``, its forward and backward."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    if g is None:
         with torch.no_grad():
             return cuda_ms(lambda: sdpa(q, k, v, scale=scale), iters)
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    g = dout.reshape(n, l, h, hd).permute(0, 2, 1, 3).contiguous()
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
 
     def forward_backward():
         sdpa(q, k, v, scale=scale).backward(g)
@@ -260,12 +293,14 @@ def library_attention_ms(qkv: torch.Tensor, h: int, scale: float, iters: int,
 
 def kernel_counters() -> dict:
     """Each kernel's wrapper, which counts its launches."""
-    from maskdit_tpu_torch.ops import flash_batched, flash_big, fused_adam
+    from maskdit_tpu_torch.ops import flash, flash_batched, flash_big, fused_adam
 
     return {"packed_fwd": flash_batched.packed_attention,
             "packed_bwd": flash_batched.packed_attention_bwd,
             "big_fwd": flash_big.packed_attention_big,
             "big_bwd": flash_big.packed_attention_big_bwd,
+            "flash_fwd": flash.flash_fwd,
+            "flash_bwd": flash.flash_bwd,
             "adam": fused_adam.fused_adam_ema}
 
 
@@ -302,10 +337,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from maskdit_tpu_torch.ops import build, flash_batched, flash_big, fused_adam
+    from maskdit_tpu_torch.ops import build, flash, flash_batched, flash_big, fused_adam
 
     names = [flash_batched.KERNEL, flash_batched.BWD_KERNEL, fused_adam.KERNEL,
-             flash_big.KERNEL, flash_big.BWD_KERNEL]
+             flash_big.KERNEL, flash_big.BWD_KERNEL, flash.KERNEL, flash.BWD_KERNEL]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build.build, names))
@@ -320,10 +355,11 @@ def phase_build() -> None:
 def check_smem_formulas() -> None:
     """The routing rule reads shared-memory sizes from Python formulas;
     they must be the kernel libraries' own."""
-    from maskdit_tpu_torch.ops import flash_batched, flash_big
+    from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
 
     fwd, bwd = flash_batched._library(), flash_batched._bwd_library()
     big, big_bwd = flash_big._library(), flash_big._bwd_library()
+    fl, fl_bwd = flash._library(), flash._bwd_library()
     for l, hd in ((128, 72), (256, 72), (256, 32), (512, 72), (777, 40), (1024, 32),
                   (1024, 72), (1024, 128)):
         for es in (2, 4):
@@ -335,7 +371,15 @@ def check_smem_formulas() -> None:
             flash_big.fwd_smem_bytes(l, hd), (l, hd)
         assert big_bwd.packed_attention_big_bwd_smem_bytes(l, hd) == \
             flash_big.bwd_smem_bytes(l, hd), (l, hd)
-    log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 8 shapes")
+        for rows in flash.BLOCK_ROWS:
+            assert fl.flash_fwd_smem_bytes(l, hd, rows) == flash.fwd_smem_bytes(l, hd, rows), \
+                (l, hd, rows)
+        assert fl_bwd.flash_bwd_smem_bytes(hd) == flash.bwd_smem_bytes(hd), hd
+    for l in (1408, 1536, 2048):  # where the flash forward's 32-row blocks stop fitting
+        for rows in flash.BLOCK_ROWS:
+            assert fl.flash_fwd_smem_bytes(l, 72, rows) == flash.fwd_smem_bytes(l, 72, rows)
+    log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 8 shapes, "
+        "the flash forward's at 11")
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
@@ -371,7 +415,7 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
                 ms = cuda_ms(lambda: kernel(qkv, h, scale), iters)
                 plain_ms = cuda_ms(lambda: plain(qkv, h, scale), iters)
             library_ms = library_attention_ms(qkv, h, scale, iters)
-            bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, backward=False)
+            bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 2, 4)
             dt = dtype_name(dtype)
             log(f"[{tag}] {name} N={n} L={l} H={h} hd={hd} {dt}: max_abs_err {err:.3e} "
                 f"(bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements "
@@ -408,7 +452,7 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
             ms = cuda_ms(lambda: kernel(qkv, dout, h, scale), iters)
             plain_ms = cuda_ms(lambda: plain(qkv, dout, h, scale), iters)
             library_ms = library_attention_ms(qkv, h, scale, iters, dout)
-            bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, backward=True)
+            bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 6, 7)
             dt = dtype_name(dtype)
             log(f"[{tag}] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt}: "
                 f"max_abs_err {err:.3e} (bound {bnd:.3e} = {BWD_REL_BOUND[dtype]:.0e} "
@@ -473,6 +517,128 @@ def phase_big_kernels() -> dict:
     bwd = attention_bwd_rows("kernel-big", BIG_BWD_SHAPES, flash_big.packed_attention_big_bwd,
                              flash_big.packed_attention_big_bwd_reference, seed=6, iters=5)
     return dict(fwd=fwd, bwd=bwd)
+
+
+def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
+                  g: torch.Generator, iters: int) -> dict:
+    """The flash forward kernel against its plain version at one shape."""
+    from maskdit_tpu_torch.ops import flash
+
+    q, k, v = (torch.randn(n * h, l, hd, generator=g, device="cuda").to(dtype) for _ in range(3))
+    scale = hd ** -0.5
+    before = flash.flash_fwd.launches
+    o, lse = flash.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    launches = flash.flash_fwd.launches - before
+    ref_o, ref_lse = flash.flash_fwd_reference(q, k, v, scale)
+    err, bnd, share, ok = compare(o, ref_o, FWD_REL_BOUND[dtype], dtype)
+    lse_err = (lse - ref_lse).abs().max().item()
+    lse_bnd = LSE_REL_BOUND * ref_lse.abs().max().item()
+    del o, lse, ref_o, ref_lse
+    ms = cuda_ms(lambda: flash.flash_fwd(q, k, v, scale), iters)
+    plain_ms = cuda_ms(lambda: flash.flash_fwd_reference(q, k, v, scale), iters)
+    library_ms = sdpa_ms(*(t.view(n, h, l, hd) for t in (q, k, v)), scale, iters)
+    bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 2, 4, 1)
+    dt = dtype_name(dtype)
+    log(f"[kernel-flash] fwd {name} N={n} L={l} H={h} hd={hd} {dt}: max_abs_err {err:.3e} "
+        f"(bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements differing "
+        f"{share:.5f}, lse err {lse_err:.3e} (bound {lse_bnd:.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), {bound_ms / ms:.3f} of it")
+    if not (ok and lse_err <= lse_bnd and launches == 1):
+        raise AssertionError(f"flash fwd {name} {dt}: err {err} > {bnd}, share {share}, lse "
+                             f"{lse_err} > {lse_bnd} or {launches} launches")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def flash_bwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
+                  g: torch.Generator, iters: int) -> dict:
+    """The flash backward kernel against its plain version at one shape, on
+    the forward kernel's residuals; the library time is SDPA's forward and
+    backward."""
+    from maskdit_tpu_torch.ops import flash
+
+    q, k, v, do = (torch.randn(n * h, l, hd, generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = hd ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, scale)
+    before = flash.flash_bwd.launches
+    got = flash.flash_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    launches = flash.flash_bwd.launches - before
+    ref = flash.flash_bwd_reference(q, k, v, o, lse, do, scale)
+    checks = [compare(a, b, BWD_REL_BOUND[dtype], dtype) for a, b in zip(got, ref)]
+    del got, ref
+    err = max(c[0] for c in checks)
+    share = max(c[2] for c in checks)
+    ok = all(c[3] for c in checks)
+    ms = cuda_ms(lambda: flash.flash_bwd(q, k, v, o, lse, do, scale), iters)
+    plain_ms = cuda_ms(lambda: flash.flash_bwd_reference(q, k, v, o, lse, do, scale), iters)
+    library_ms = sdpa_ms(*(t.view(n, h, l, hd) for t in (q, k, v)), scale, iters,
+                         do.view(n, h, l, hd))
+    bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 5, 8, 1)
+    dt = dtype_name(dtype)
+    log(f"[kernel-flash] bwd {name} N={n} L={l} H={h} hd={hd} {dt}: dq/dk/dv max_abs_err "
+        f"{'/'.join(f'{c[0]:.3e}' for c in checks)} (bounds "
+        f"{'/'.join(f'{c[1]:.3e}' for c in checks)} = {BWD_REL_BOUND[dtype]:.0e} x max|ref|), "
+        f"elements differing {'/'.join(f'{c[2]:.5f}' for c in checks)}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library (SDPA fwd + bwd) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it")
+    if not (ok and launches == 1):
+        raise AssertionError(f"flash bwd {name} {dt}: checks {checks} or {launches} launches")
+    return dict(err=err, share=share, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_flash_window() -> None:
+    """Both flash kernels launch and agree with their plain versions (o,
+    lse, dq, dk, dv) at every L of their window, 128 to 2048 in steps of
+    128, at the model head dims 32, 64 and 72, in bf16 (N*H = 2)."""
+    from maskdit_tpu_torch.ops import flash
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf16 = torch.bfloat16
+    worst, worst_share, shapes = 0.0, 0.0, 0
+    for hd in (32, 64, 72):
+        for l in range(flash.LANE, flash.MAX_L + 1, flash.LANE):
+            q, k, v, do = (torch.randn(2, l, hd, generator=g, device="cuda").to(bf16)
+                           for _ in range(4))
+            scale = hd ** -0.5
+            o, lse = flash.flash_fwd(q, k, v, scale)
+            grads = flash.flash_bwd(q, k, v, o, lse, do, scale)
+            ref_o, ref_lse = flash.flash_fwd_reference(q, k, v, scale)
+            ref_grads = flash.flash_bwd_reference(q, k, v, o, lse, do, scale)
+            pairs = [(o, ref_o, FWD_REL_BOUND[bf16])] + [
+                (a, b, BWD_REL_BOUND[bf16]) for a, b in zip(grads, ref_grads)]
+            for got, ref, rel in pairs:
+                err, bnd, share, ok = compare(got, ref, rel, bf16)
+                if not ok:
+                    raise AssertionError(f"flash window L={l} hd={hd}: err {err} > {bnd} "
+                                         f"or share {share}")
+                worst, worst_share = max(worst, err / bnd), max(worst_share, share)
+            lse_err = (lse - ref_lse).abs().max().item()
+            if lse_err > LSE_REL_BOUND * ref_lse.abs().max().item():
+                raise AssertionError(f"flash window L={l} hd={hd}: lse err {lse_err}")
+            shapes += 1
+    log(f"[kernel-flash] window: fwd and bwd at every L of 128-2048 (step 128) x hd 32, 64, "
+        f"72, bf16, N*H 2: {shapes} shapes within their bounds; the worst error "
+        f"{worst:.3f} of its bound, the largest share of differing elements {worst_share:.5f}")
+
+
+def phase_flash_kernels() -> dict:
+    """ops/flash.py's kernels (#5 and #6) over their window, then at
+    FLASH_SHAPES and FLASH_BWD_SHAPES, bf16 and fp32."""
+    check_flash_window()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {"fwd": {}, "bwd": {}}
+    for key, shapes, row, iters in (("fwd", FLASH_SHAPES, flash_fwd_row, 10),
+                                    ("bwd", FLASH_BWD_SHAPES, flash_bwd_row, 5)):
+        for name, n, l, h, hd in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                out[key][(name, dtype_name(dtype))] = row(name, n, l, h, hd, dtype, g, iters)
+                free_device_memory()
+    return out
 
 
 def xl2_numel() -> int:
@@ -552,12 +718,13 @@ def phase_adam_kernel() -> dict:
     return out
 
 
-def build_model(dtype: torch.dtype, res: int = 32):
+def build_model(dtype: torch.dtype, res: int = 32, use_flash=None):
     from maskdit_tpu_torch.models import create_model
 
     return create_model(
         "edm", img_resolution=res, img_channels=4, num_classes=1000,
         model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1, dtype=dtype,
+        use_flash=use_flash,
     )
 
 
@@ -638,16 +805,18 @@ def plain_attention():
     """Swap the plain attention (forward and backward) into the model's
     layers, for comparison."""
     from maskdit_tpu_torch.models import layers
+    from maskdit_tpu_torch.ops import flash
     from maskdit_tpu_torch.ops.flash_batched import packed_attention_plain
     from maskdit_tpu_torch.ops.flash_big import packed_attention_big_plain
 
-    kernels = layers.packed_attention, layers.packed_attention_big
+    kernels = layers.packed_attention, layers.packed_attention_big, flash.flash_mha
     layers.packed_attention = packed_attention_plain
     layers.packed_attention_big = packed_attention_big_plain
+    flash.flash_mha = flash.flash_mha_plain  # what ops/attention.mha calls
     try:
         yield
     finally:
-        layers.packed_attention, layers.packed_attention_big = kernels
+        layers.packed_attention, layers.packed_attention_big, flash.flash_mha = kernels
 
 
 @contextlib.contextmanager
@@ -669,36 +838,80 @@ def phase_model_parity(ckpt: str, tag: str = "parity", res: int = 32, seeds: int
     """The CFG denoiser, kernels vs plain attention, in bf16 and fp32; then
     warm images/s of the whole sampler (kernel and plain in the turns
     given) and a profile of one evaluation, in bf16."""
-    from maskdit_tpu_torch.utils.ckpt import load_into, load_reference_checkpoint
+    from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
 
     state = load_reference_checkpoint(ckpt)
+    x, sigma, y = denoiser_inputs(seeds, res)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = parity_model(state, dtype, res)
+        out[dtype_name(dtype)] = check_denoiser(tag, model, x, sigma, y)
+        if dtype == torch.bfloat16:
+            out["sampling"] = time_sampling(model, seeds, res, sampling_turns)
+            profile_forward(model, x, sigma, y, "profile" if res == 32 else "profile-512")
+        del model
+    free_device_memory()
+    return out
+
+
+def denoiser_inputs(seeds: int, res: int):
+    """Latents, noise levels and one-hot labels of a CFG evaluation, from a
+    seed."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(seeds, 4, res, res)).astype(np.float32)).cuda()
     sigma = torch.from_numpy(rng.uniform(0.5, 5.0, size=seeds).astype(np.float32)).cuda()
     y = torch.nn.functional.one_hot(
         torch.from_numpy(rng.integers(0, 1000, size=seeds)), 1000
     ).float().cuda()
+    return x, sigma, y
+
+
+def parity_model(state: dict, dtype: torch.dtype, res: int, use_flash=None):
+    from maskdit_tpu_torch.utils.ckpt import load_into
+
+    model = build_model(dtype, res, use_flash)
+    load_into(model, state)
+    return model.cuda().eval()
+
+
+def check_denoiser(tag: str, model, x, sigma, y, **launches) -> float:
+    """The CFG denoiser, kernels vs plain attention: max|kernel - plain| /
+    max|plain| within MODEL_REL_BOUND of the model's type; with
+    ``launches``, the kernels' run launched exactly those."""
+    dtype = model.model.dtype
+    with torch.no_grad():
+        reset_launches()
+        got = model(x, sigma, y, cfg_scale=CFG)["x"]
+        torch.cuda.synchronize()
+        if launches:
+            expect_launches(tag, read_launches(), **launches)
+        with plain_attention():
+            ref = model(x, sigma, y, cfg_scale=CFG)["x"]
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    dt = dtype_name(dtype)
+    bnd = MODEL_REL_BOUND[dtype]
+    res = x.shape[-1]
+    log(f"[{tag}] EDMPrecond CFG forward at {res * 8} px, batch {x.shape[0]}, {dt}: kernel vs "
+        f"plain max rel err {rel:.3e} (bound {bnd:.0e}), finite "
+        f"{bool(torch.isfinite(got).all())}")
+    if not (torch.isfinite(got).all() and rel <= bnd):
+        raise AssertionError(f"{tag} {dt}: {rel} > {bnd}")
+    return rel
+
+
+def phase_flash_parity(ckpt: str) -> dict:
+    """One CFG denoiser evaluation at 512 px with ``use_flash=True``: the
+    flash kernels (one forward launch per block, 28 + 8, and no other
+    attention kernel) vs their plain versions, in bf16 and fp32."""
+    from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
+
+    state = load_reference_checkpoint(ckpt)
+    x, sigma, y = denoiser_inputs(SEEDS_512, 64)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        model = build_model(dtype, res)
-        load_into(model, state)
-        model = model.cuda().eval()
-        with torch.no_grad():
-            got = model(x, sigma, y, cfg_scale=CFG)["x"]
-            with plain_attention():
-                ref = model(x, sigma, y, cfg_scale=CFG)["x"]
-        rel = ((got - ref).abs().max() / ref.abs().max()).item()
-        dt = dtype_name(dtype)
-        bnd = MODEL_REL_BOUND[dtype]
-        log(f"[{tag}] EDMPrecond CFG forward at {res * 8} px, batch {seeds}, {dt}: kernel vs "
-            f"plain max rel err {rel:.3e} (bound {bnd:.0e}), finite "
-            f"{bool(torch.isfinite(got).all())}")
-        if not (torch.isfinite(got).all() and rel <= bnd):
-            raise AssertionError(f"{tag} {dt}: {rel} > {bnd}")
-        out[dt] = rel
-        if dtype == torch.bfloat16:
-            out["sampling"] = time_sampling(model, seeds, res, sampling_turns)
-            profile_forward(model, x, sigma, y, "profile" if res == 32 else "profile-512")
+        model = parity_model(state, dtype, 64, use_flash=True)
+        out[dtype_name(dtype)] = check_denoiser("parity-flash", model, x, sigma, y,
+                                                flash_fwd=DEPTH + DECODER_DEPTH)
         del model
     free_device_memory()
     return out
@@ -763,12 +976,13 @@ def profile_forward(model, x, sigma, y, tag: str) -> None:
                    f"one CFG denoiser evaluation (batch {x.shape[0]} x 2, {x.shape[-1] * 8} px)")
 
 
-def run_train(tag: str, config: dict, res: int) -> dict:
-    """The train main path through the CLI, with the launch counts set to 0
-    before it; checks the losses and that each step launched 36 + 36
-    attention kernels of the route this resolution takes and one fused
-    update."""
+def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=()) -> dict:
+    """The train main path through the CLI on ``config`` with the CLI
+    ``overrides``, with the launch counts set to 0 before it; checks the
+    losses and that each step launched the kernels ``per_step`` names that
+    many times, and no other."""
     from maskdit_tpu_torch.train import main as train_main
+    from maskdit_tpu_torch.train.cli import apply_overrides
     from maskdit_tpu_torch.utils.profiling import (
         maskdit_train_flops_per_image,
         mfu,
@@ -784,19 +998,17 @@ def run_train(tag: str, config: dict, res: int) -> dict:
     free_device_memory()
     reset_launches()
     out = train_main(["--config", path, "--results_dir", results, "--device", "cuda",
-                      "--num_workers", "4"])
+                      "--num_workers", "4", *overrides])
     launches = read_launches()
     steps, history = out["step"], out["history"]
+    config = apply_overrides(json.loads(json.dumps(config)), overrides)
     batch, max_steps = config["train"]["batchsize"], config["train"]["max_num_steps"]
     losses = [x for r in history for x in r["losses"]]
     log(f"[{tag}] {steps} steps of DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16: "
         f"losses {[round(x, 4) for x in losses]}")
     if steps != max_steps or len(losses) != max_steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: {steps} steps, losses {losses}")
-    attn = "packed" if res == 32 else "big"
-    expect_launches(tag, launches, **{f"{attn}_fwd": ATTN_PER_STEP * steps,
-                                      f"{attn}_bwd": ATTN_PER_STEP * steps,
-                                      "adam": ADAM_PER_STEP * steps})
+    expect_launches(tag, launches, **{name: n * steps for name, n in per_step.items()})
     warm = history[1:]  # the first window holds steps 1-2 (warm-up)
     seconds = sum(LOG_EVERY / r["steps_per_sec"] for r in warm)
     warm_steps = LOG_EVERY * len(warm)
@@ -815,7 +1027,8 @@ def run_train(tag: str, config: dict, res: int) -> dict:
 
 def phase_train() -> dict:
     """The 256-px train main path, then resume from its checkpoint."""
-    out = run_train("train", TRAIN_CONFIG, 32)
+    out = run_train("train", TRAIN_CONFIG, 32, dict(packed_fwd=ATTN_PER_STEP,
+                                                   packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
     out["resume"] = check_resume(out["results"])
     return out
 
@@ -847,14 +1060,14 @@ def check_resume(results: str) -> bool:
     return same
 
 
-def train_parity_state(dtype: torch.dtype, seed: int, res: int, batch: int):
+def train_parity_state(dtype: torch.dtype, seed: int, res: int, batch: int, use_flash=None):
     """A DiT-XL/2 train state with random weights and a non-trivial Adam
     state (count 10, mu ~ N(0, 1e-4^2), nu ~ |N(0, 1e-7^2)|), the same for
     the same seed."""
     from maskdit_tpu_torch.train.state import create_train_state, make_optimizer
 
     torch.manual_seed(seed)
-    model = build_model(dtype, res).cuda()
+    model = build_model(dtype, res, use_flash).cuda()
     random_weights_(model)
     opt = make_optimizer(1e-4, batch)
     state = create_train_state(model, opt)
@@ -865,12 +1078,10 @@ def train_parity_state(dtype: torch.dtype, seed: int, res: int, batch: int):
     return state, opt
 
 
-def phase_parity_train(tag: str = "parity-train", res: int = 32,
-                       n: int = PARITY_BATCH) -> dict:
-    """One train step from one state with the same injected draws, through
-    the kernels and through the plain attention and update."""
+def parity_batch(res: int, n: int):
+    """A batch of moments and labels and the step's draws, from a seed."""
     from maskdit_tpu_torch.models.masking import random_mask
-    from maskdit_tpu_torch.train.state import StepDraws, make_train_step
+    from maskdit_tpu_torch.train.state import StepDraws
 
     g = torch.Generator(device="cuda").manual_seed(3)
     batch = {"x": torch.randn(n, 8, res, res, device="cuda", generator=g),
@@ -883,57 +1094,87 @@ def phase_parity_train(tag: str = "parity-train", res: int = 32,
         noise=torch.randn(n, 4, res, res, device="cuda", generator=g),
         mask_info=random_mask(n, (res // 2) ** 2, 0.5, g, device="cuda"),
     )
+    return batch, draws
+
+
+def train_step_result(dtype: torch.dtype, res: int, batch: dict, draws, use_flash=None,
+                      plain: bool = False) -> dict:
+    """One train step from train_parity_state's state: the loss, the
+    gradients and the updated p/ema/mu/nu, through the kernels or (``plain``)
+    the plain attention and update."""
+    from maskdit_tpu_torch.train.state import make_train_step
+
+    free_device_memory()
+    state, opt = train_parity_state(dtype, 4, res, batch["x"].shape[0], use_flash)
+    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
+    ctx = contextlib.ExitStack()
+    if plain:
+        ctx.enter_context(plain_attention())
+        ctx.enter_context(plain_update())
+    with ctx:
+        metrics = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    result = dict(
+        loss=float(metrics["loss"]),
+        grads={k: v.clone() for k, v in state.named(state.grads).items()},
+        state={f"{name}.{k}": v.clone() for name, flat in (
+            ("p", state.params), ("ema", state.ema), ("mu", state.opt_state.mu),
+            ("nu", state.opt_state.nu)) for k, v in state.named(flat).items()},
+    )
+    del state, opt, step, metrics
+    return result
+
+
+def compare_steps(tag: str, what: str, dtype: torch.dtype, res: int, n: int, got: dict,
+                  ref: dict) -> dict:
+    """Two train steps' loss, gradients and state within TRAIN_PARITY_BOUND."""
+    rel_norm = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_err = max(rel_norm(got["grads"][k], v) for k, v in ref["grads"].items())
+    worst = max(ref["grads"], key=lambda k: rel_norm(got["grads"][k], ref["grads"][k]))
+    state_err = max(rel_norm(got["state"][k], v) for k, v in ref["state"].items())
+    # a gradient that reaches the encoder's first qkv passed through
+    # every attention backward above it
+    qkv_norm = got["grads"]["model.blocks.0.attn.qkv.weight"].norm().item()
+    bnd = TRAIN_PARITY_BOUND[dtype]
+    dt = dtype_name(dtype)
+    log(f"[{tag}] one step, DiT-XL/2 @{res * 8}, batch {n}, {dt}, {what}: loss "
+        f"{got['loss']:.6f} vs {ref['loss']:.6f}, rel err {loss_err:.3e} (bound "
+        f"{bnd['loss']:.0e}); max per-tensor gradient rel-norm err {grad_err:.3e} (bound "
+        f"{bnd['grad']:.0e}, worst {worst}); max per-tensor p/ema/mu/nu rel-norm err "
+        f"{state_err:.3e} (bound {bnd['state']:.0e}); |grad| of blocks.0.attn.qkv "
+        f"{qkv_norm:.3e}")
+    if not (loss_err <= bnd["loss"] and grad_err <= bnd["grad"]
+            and state_err <= bnd["state"] and qkv_norm > 0):
+        raise AssertionError(f"{tag} {dt} {what}: loss {loss_err}, grad {grad_err}, "
+                             f"state {state_err}")
+    return dict(loss=loss_err, grad=grad_err, state=state_err)
+
+
+def phase_parity_train(tag: str = "parity-train", res: int = 32, n: int = PARITY_BATCH,
+                       use_flash=None) -> dict:
+    """One train step from one state with the same injected draws, through
+    the kernels and through the plain attention and update; with
+    ``use_flash``, also (fp32) the flash step against the default one on
+    the blocked kernels: the flag changes the algorithm, not the model."""
+    batch, draws = parity_batch(res, n)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        runs = {}
-        for which in ("kernel", "plain"):
-            free_device_memory()
-            state, opt = train_parity_state(dtype, 4, res, n)
-            step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
-            ctx = contextlib.ExitStack()
-            if which == "plain":
-                ctx.enter_context(plain_attention())
-                ctx.enter_context(plain_update())
-            with ctx:
-                metrics = step(state, batch, draws=draws)
-            torch.cuda.synchronize()
-            runs[which] = dict(
-                loss=float(metrics["loss"]),
-                grads={k: v.clone() for k, v in state.named(state.grads).items()},
-                state={f"{name}.{k}": v.clone() for name, flat in (
-                    ("p", state.params), ("ema", state.ema), ("mu", state.opt_state.mu),
-                    ("nu", state.opt_state.nu)) for k, v in state.named(flat).items()},
-            )
-            del state, opt, step, metrics
-        got, ref = runs["kernel"], runs["plain"]
-        rel_norm = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
-        loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
-        grad_err = max(rel_norm(got["grads"][k], v) for k, v in ref["grads"].items())
-        worst = max(ref["grads"], key=lambda k: rel_norm(got["grads"][k], ref["grads"][k]))
-        state_err = max(rel_norm(got["state"][k], v) for k, v in ref["state"].items())
-        # a gradient that reaches the encoder's first qkv passed through
-        # every attention backward above it
-        qkv_norm = got["grads"]["model.blocks.0.attn.qkv.weight"].norm().item()
-        bnd = TRAIN_PARITY_BOUND[dtype]
-        dt = dtype_name(dtype)
-        log(f"[{tag}] one step, DiT-XL/2 @{res * 8}, batch {n}, {dt}: loss kernel "
-            f"{got['loss']:.6f} plain {ref['loss']:.6f}, rel err {loss_err:.3e} (bound "
-            f"{bnd['loss']:.0e}); max per-tensor gradient rel-norm err {grad_err:.3e} (bound "
-            f"{bnd['grad']:.0e}, worst {worst}); max per-tensor p/ema/mu/nu rel-norm err "
-            f"{state_err:.3e} (bound {bnd['state']:.0e}); |grad| of blocks.0.attn.qkv "
-            f"{qkv_norm:.3e}")
-        if not (loss_err <= bnd["loss"] and grad_err <= bnd["grad"]
-                and state_err <= bnd["state"] and qkv_norm > 0):
-            raise AssertionError(f"{tag} {dt}: loss {loss_err}, grad {grad_err}, "
-                                 f"state {state_err}")
-        out[dt] = dict(loss=loss_err, grad=grad_err, state=state_err)
-        del runs, got, ref
+        got = train_step_result(dtype, res, batch, draws, use_flash)
+        if use_flash and dtype == torch.float32:
+            ref = train_step_result(dtype, res, batch, draws)
+            out["flash_vs_blocked"] = compare_steps(tag, "use_flash vs the blocked kernels",
+                                                    dtype, res, n, got, ref)
+            del ref
+        ref = train_step_result(dtype, res, batch, draws, use_flash, plain=True)
+        out[dtype_name(dtype)] = compare_steps(tag, "kernels vs plain", dtype, res, n, got, ref)
+        del got, ref
     free_device_memory()
     return out
 
 
 def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = TRAIN_BATCH,
-                        reps: int = 3) -> None:
+                        reps: int = 3, use_flash=None) -> None:
     """Device time by kernel over warm train steps at the main path's batch
     (bf16, mask 0.5), from torch.profiler."""
     from maskdit_tpu_torch.data.datasets import SyntheticLatentDataset
@@ -944,7 +1185,8 @@ def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = 
     free_device_memory()
     torch.manual_seed(0)
     model = create_model("edm", img_resolution=res, img_channels=4, num_classes=1000,
-                         model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1).cuda()
+                         model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1,
+                         use_flash=use_flash).cuda()
     opt = make_optimizer(1e-4, batch)
     state = create_train_state(model, opt)
     step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1)
@@ -953,8 +1195,9 @@ def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = 
     batch_dev = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     step(state, batch_dev, gen)
+    flag = "" if use_flash is None else f", use_flash={use_flash}"
     profile_device(tag, lambda: step(state, batch_dev, gen), reps,
-                   f"one train step (DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16)")
+                   f"one train step (DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16{flag})")
     log(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1024 ** 3:.2f} GiB")
     del model, opt, state, step
     free_device_memory()
@@ -976,6 +1219,7 @@ def main() -> None:
     bwd = phase_bwd_kernels()
     adam = phase_adam_kernel()
     big = phase_big_kernels()
+    flash_k = phase_flash_kernels()
     try:
         ckpt = phase_weights()
         main_path = phase_main(ckpt)
@@ -985,9 +1229,18 @@ def main() -> None:
         train = phase_train()
         parity_train = phase_parity_train()
         phase_train_profile()
-        train_512 = run_train("train-512", TRAIN_CONFIG_512, 64)
+        train_512 = run_train("train-512", TRAIN_CONFIG_512, 64, dict(
+            big_fwd=ATTN_PER_STEP, big_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
         parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
         phase_train_profile("train-profile-512", 64, TRAIN_BATCH_512, 2)
+        parity_flash = phase_flash_parity(ckpt)
+        # the checkpoint recomputes each layer's forward in the backward
+        train_flash = run_train("train-flash", TRAIN_CONFIG_512, 64, dict(
+            flash_fwd=2 * ATTN_PER_STEP, flash_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
+            ("model.use_flash=true", f"train.max_num_steps={TRAIN_STEPS_FLASH}"))
+        parity_train_flash = phase_parity_train("parity-train-flash", 64, PARITY_BATCH_512,
+                                                use_flash=True)
+        phase_train_profile("train-profile-flash", 64, TRAIN_BATCH_512, 2, use_flash=True)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     log(f"[summary] {smi}: sampling 256 {main_path['images_per_s']:.3f} images/s (cold), "
@@ -998,9 +1251,13 @@ def main() -> None:
         f"{train['images_per_s']:.2f} images/s, MFU {train['mfu']:.4f}, peak "
         f"{train['peak_gib']:.2f} GiB; training 512 {train_512['images_per_s']:.2f} images/s, "
         f"MFU {train_512['mfu']:.4f}, peak {train_512['peak_gib']:.2f} GiB; train parity "
-        f"{parity_train}; train parity 512 {parity_train_512}")
+        f"{parity_train}; train parity 512 {parity_train_512}; use_flash: model rel err "
+        f"bf16 {parity_flash['bfloat16']:.3e}, fp32 {parity_flash['float32']:.3e}; training "
+        f"{train_flash['images_per_s']:.2f} images/s, {train_flash['ms_per_step']:.1f} ms/step, "
+        f"MFU {train_flash['mfu']:.4f}, peak {train_flash['peak_gib']:.2f} GiB; train parity "
+        f"{parity_train_flash}")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
-    paths = (main_path, train, main_512, train_512)
+    paths = (main_path, train, main_512, train_512, train_flash)
     count = lambda key: sum(p["launches"][key] for p in paths)
     print(json.dumps({"kernels": [
         kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",
@@ -1019,6 +1276,12 @@ def main() -> None:
                     "flash_big.py:234", count("big_bwd"),
                     bf16(big["bwd"], ["train_encoder", "train_decoder"]),
                     big["bwd"][("train_encoder", "bfloat16")]),
+        kernel_line("flash_fwd", "flash_fwd.cu", "flash.py:96", count("flash_fwd"),
+                    bf16(flash_k["fwd"], ["train_encoder", "train_decoder"]),
+                    flash_k["fwd"][("train_encoder", "bfloat16")]),
+        kernel_line("flash_bwd", "flash_bwd.cu", "flash.py:114", count("flash_bwd"),
+                    bf16(flash_k["bwd"], ["train_encoder", "train_decoder"]),
+                    flash_k["bwd"][("train_encoder", "bfloat16")]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

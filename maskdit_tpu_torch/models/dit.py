@@ -41,7 +41,9 @@ class MaskDiT(nn.Module):
 
     Argument defaults mirror DiT.__init__ (reference: maskdit.py:242-261).
     The DECODER_* constants are read at construction, as the JAX version
-    reads them in ``setup``.
+    reads them in ``setup``. ``use_flash`` goes to every encoder and
+    decoder block's ``Attention`` (None = auto, True = ops/flash.py's
+    kernels, False = the plain path).
     """
 
     def __init__(
@@ -58,6 +60,7 @@ class MaskDiT(nn.Module):
         use_decoder: bool = False,
         mae_loss_coef: float = 0.0,
         dtype: torch.dtype = torch.bfloat16,
+        use_flash: Optional[bool] = None,
     ):
         super().__init__()
         self.input_size = input_size
@@ -80,7 +83,8 @@ class MaskDiT(nn.Module):
             persistent=False,
         )
         self.blocks = nn.ModuleList(
-            DiTBlock(hidden_size, hidden_size, num_heads, mlp_ratio, dtype=dtype)
+            DiTBlock(hidden_size, hidden_size, num_heads, mlp_ratio, dtype=dtype,
+                     use_flash=use_flash)
             for _ in range(depth)
         )
         final_hidden_size = hidden_size
@@ -93,7 +97,7 @@ class MaskDiT(nn.Module):
             )
             self.decoder_blocks = nn.ModuleList(
                 DiTBlock(DECODER_HIDDEN_SIZE, hidden_size, DECODER_NUM_HEADS,
-                         mlp_ratio, dtype=dtype)
+                         mlp_ratio, dtype=dtype, use_flash=use_flash)
                 for _ in range(DECODER_DEPTH)
             )
             if mae_loss_coef > 0:

@@ -22,14 +22,17 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from maskdit_tpu_torch.ops import flash_batched, flash_big
-from maskdit_tpu_torch.ops.flash_batched import packed_attention, packed_attention_plain
+from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
+from maskdit_tpu_torch.ops.attention import mha
+from maskdit_tpu_torch.ops.flash_batched import packed_attention
 from maskdit_tpu_torch.ops.flash_big import packed_attention_big
 
 
@@ -187,28 +190,38 @@ class PatchEmbed(nn.Module):
 
 
 @functools.cache
-def attention_route(num_heads: int, l: int, head_dim: int, backward: bool) -> str:
-    """Which attention runs at (heads, L, head_dim): 'packed', 'big' or
-    'plain'. Cached: the model asks once per shape, not once per call.
+def attention_route(num_heads: int, l: int, head_dim: int, backward: bool,
+                    use_flash: Optional[bool] = None) -> str:
+    """Which attention runs at (heads, L, head_dim): 'packed', 'big',
+    'flash' or 'plain'. It depends on the shape and the flag only; the
+    tensor's device picks between a kernel and its plain version. Cached:
+    the model asks once per shape, not once per call.
 
-    The JAX package's rule (layers.py:237-277) with the card's reasons in
-    place of the TPU's VMEM budgets:
-      * 'packed' (ops/flash_batched.py, kernels #1/#2) where its kernels'
-        shared-memory layouts fit a block's 232,448 B: the forward's at
-        fp32, and the backward's where a backward will be taken;
-      * else 'big' (ops/flash_big.py, kernels #3/#4) where
-        ``flash_big.supports`` holds (the 512-px shapes);
-      * else, where the whole-row forward fits but its backward does not
-        (XL/2's encoder trained unmasked at 256 px: L 256, hd 72), the JAX
-        package runs its whole-row kernels: 'big', whose kernels take any
-        L, runs both directions there, or, where they cannot take the
-        head dim, raise;
-      * else the JAX package's ``mha`` runs its streaming kernel
-        (ops/flash.py) at L >= 1024 with L % 128 == 0, which is not ported
-        yet: raise rather than run plain code there;
-      * else 'plain', the plain attention (the JAX package's own
-        non-kernel path).
+    The JAX package's rule (layers.py:225-277, attention.py:83-91) with
+    the card's reasons in place of the TPU's VMEM budgets:
+      * ``use_flash`` False: 'plain' (the JAX package's plain path);
+      * ``use_flash`` True: 'flash' (ops/flash.py, kernels #5/#6) where
+        ``flash.supports(L)`` holds, else 'plain', as ``flash_mha`` falls
+        back; the packed kernels are never used;
+      * ``use_flash`` None (auto):
+        - 'packed' (ops/flash_batched.py, kernels #1/#2) where its kernels'
+          shared-memory layouts fit a block's 232,448 B: the forward's at
+          fp32, and the backward's where a backward will be taken;
+        - else 'big' (ops/flash_big.py, kernels #3/#4) where
+          ``flash_big.supports`` holds (the 512-px shapes);
+        - else, where the whole-row forward fits but its backward does not
+          (XL/2's encoder trained unmasked at 256 px: L 256, hd 72), the JAX
+          package runs its whole-row kernels: 'big', whose kernels take any
+          L, runs both directions there, or, where they cannot take the
+          head dim, raise;
+        - else ``mha``'s auto rule: 'flash' at L >= 1024 with L % 128 == 0
+          (and 'plain' past the kernel's window, L > 2048);
+        - else 'plain'.
     """
+    if use_flash is False:
+        return "plain"
+    if use_flash:
+        return "flash" if flash.supports(l) else "plain"
     if flash_batched.fits(l, head_dim, backward):
         return "packed"
     if flash_big.supports(num_heads, l, head_dim):
@@ -222,23 +235,39 @@ def attention_route(num_heads: int, l: int, head_dim: int, backward: bool) -> st
             "blocked kernels need a head dim that is a multiple of 8"
         )
     if l >= 1024 and l % 128 == 0:
-        raise NotImplementedError(
-            f"attention at L={l}, head_dim={head_dim}: the JAX package runs its "
-            "streaming kernel (maskdit_tpu/ops/flash.py, flash_mha) here, which the "
-            "port has not ported yet (ROADMAP.md, section B: the next slice)"
-        )
+        return "flash" if flash.supports(l) else "plain"
     return "plain"
+
+
+def attn_from_qkv(qkv: torch.Tensor, num_heads: int, use_flash: bool) -> torch.Tensor:
+    """(N, L, 3D) -> (N, L, D) through ``ops.attention.mha``: split the
+    [q | k | v] features into (N, H, L, hd) heads, attend, merge the heads
+    (maskdit_tpu layers.py:264-270)."""
+    n, l, three_d = qkv.shape
+    hd = three_d // 3 // num_heads
+    heads = qkv.reshape(n, l, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    o = mha(heads[0], heads[1], heads[2], use_flash=use_flash)
+    return o.permute(0, 2, 1, 3).reshape(n, l, three_d // 3)
 
 
 class Attention(nn.Module):
     """timm-style MHA: a qkv Linear that emits [q | k | v] along features
     (maskdit_tpu layers.py:219-223), attention by ``attention_route``,
-    output projection."""
+    output projection.
+
+    ``use_flash`` as in the JAX package: None = auto, True = ops/flash.py's
+    kernels, False = the plain path. The 'flash' and 'plain' routes run
+    ``attn_from_qkv``, with a gradient under ``torch.utils.checkpoint``
+    as the JAX package runs it under ``jax.checkpoint`` (layers.py:277): the
+    layer keeps only qkv, and the backward recomputes the forward first, so
+    a 'flash' layer launches its forward kernel twice per train step and its
+    backward kernel once."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_flash: Optional[bool] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.use_flash = use_flash
         self.qkv = Linear(hidden_size, 3 * hidden_size, compute_dtype=dtype)
         self.proj = Linear(hidden_size, hidden_size, compute_dtype=dtype)
         for lin in (self.qkv, self.proj):
@@ -248,12 +277,20 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hd = x.shape[-1] // self.num_heads
         qkv = self.qkv(x)
-        route = attention_route(self.num_heads, x.shape[1], hd,
-                                torch.is_grad_enabled() and qkv.requires_grad)
+        grad = torch.is_grad_enabled() and qkv.requires_grad
+        route = attention_route(self.num_heads, x.shape[1], hd, grad, self.use_flash)
         # looked up when called, so a caller may swap the plain versions in
-        attend = {"packed": packed_attention, "big": packed_attention_big,
-                  "plain": packed_attention_plain}[route]
-        return self.proj(attend(qkv, self.num_heads, hd ** -0.5))
+        if route == "packed":
+            out = packed_attention(qkv, self.num_heads, hd ** -0.5)
+        elif route == "big":
+            out = packed_attention_big(qkv, self.num_heads, hd ** -0.5)
+        elif grad:
+            # (attention draws no random numbers: no RNG state to restore)
+            out = checkpoint(attn_from_qkv, qkv, self.num_heads, route == "flash",
+                             use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = attn_from_qkv(qkv, self.num_heads, route == "flash")
+        return self.proj(out)
 
 
 class Mlp(nn.Module):
@@ -285,9 +322,10 @@ class DiTBlock(nn.Module):
     (reference: models/maskdit.py:170-192)."""
 
     def __init__(self, hidden_size: int, c_emb_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
+                 use_flash: Optional[bool] = None):
         super().__init__()
-        self.attn = Attention(hidden_size, num_heads, dtype=dtype)
+        self.attn = Attention(hidden_size, num_heads, dtype=dtype, use_flash=use_flash)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype)
         self.adaLN_modulation = _ada_ln(c_emb_size, 6 * hidden_size, dtype)
 

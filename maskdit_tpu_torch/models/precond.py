@@ -39,6 +39,7 @@ class EDMPrecond(nn.Module):
         mae_loss_coef: float = 0.0,
         learn_sigma: bool = False,
         dtype: torch.dtype = torch.bfloat16,
+        use_flash: Optional[bool] = None,
     ):
         super().__init__()
         self.img_resolution = img_resolution
@@ -56,6 +57,7 @@ class EDMPrecond(nn.Module):
             mae_loss_coef=mae_loss_coef,
             learn_sigma=learn_sigma,
             dtype=dtype,
+            use_flash=use_flash,
         )
 
     def _coerce_labels(self, x: torch.Tensor, class_labels) -> Optional[torch.Tensor]:

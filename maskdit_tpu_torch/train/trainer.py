@@ -8,7 +8,9 @@ resume from the newest checkpoint, the save on SIGTERM/SIGINT, and the log
 line (loss, steps/s, images/s, MFU, peak device memory).
 
 On a CUDA device every attention call and every optimizer update launches
-the port's kernels; there is no switch.
+the port's kernels; there is no switch. ``model.use_flash`` picks the
+attention as the JAX trainer reads it: true for ops/flash.py's kernels,
+false for the plain path, null or absent for auto (``default_use_flash``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,17 @@ NOT_PORTED = {
     "amp_grads": False, "accum_dtype": None, "nu_dtype": None, "pad_to_max": False,
     "ema_every": 1, "accum_unroll": 1, "peel_last_micro": False,
 }
+
+
+def default_use_flash(grad_accum: int, seq_len: int) -> Optional[bool]:
+    """The attention kernels' default, with the JAX trainer's semantics
+    (maskdit_tpu/train/trainer.py:85-95): a config that accumulates
+    gradients over short sequences (L < 512) runs the plain attention
+    (False); every other config stays on auto (None). The JAX package chose
+    this from times on a TPU; whether plain attention beats the packed
+    kernels under accumulation on the card is not measured (ROADMAP.md,
+    section C)."""
+    return False if (grad_accum > 1 and seq_len < 512) else None
 
 
 def build_dataset(config: dict) -> SyntheticLatentDataset:
@@ -105,6 +118,9 @@ class Trainer:
             use_decoder=m["use_decoder"],
             mae_loss_coef=m["mae_loss_coef"],
             dtype=torch.float32 if t.get("fp32", False) else torch.bfloat16,
+            # an explicit model.use_flash wins (null means auto); see
+            # default_use_flash
+            use_flash=m.get("use_flash", default_use_flash(self.grad_accum, self.seq_len)),
         ).to(self.device)
         self.optimizer = make_optimizer(
             t["lr"],

@@ -5,7 +5,9 @@
   ``flash_big.supports``, else ``mha``'s own rule, layers.py:237-277 and
   attention.py:83-91) at every shape of DiT-XL/2, L/2, B/2 and S/2 at 256
   and 512 px, masked and unmasked, encoder and decoder, and at the tests'
-  tiny shapes. The two rules differ only where NAMED_DIFFERENCES says.
+  tiny shapes, with ``use_flash`` None (auto; tests/test_torch_use_flash.py
+  takes the other values). The two rules differ only where
+  NAMED_DIFFERENCES says.
 * The slice as a whole at the 512-px geometry (64 x 64 latents: L 1024
   unmasked, 512 kept tokens at mask 0.5) and small widths: the encoder has
   XL/2's head dim of 72 (8 heads, width 576, so that neither package's
@@ -94,10 +96,7 @@ def jax_choice(h: int, l: int, hd: int) -> str:
 
 
 def port_choice(h: int, l: int, hd: int, backward: bool) -> str:
-    try:
-        return layers.attention_route(h, l, hd, backward)
-    except NotImplementedError:
-        return "flash"
+    return layers.attention_route(h, l, hd, backward)
 
 
 def model_shapes():
@@ -181,11 +180,14 @@ def test_unmasked_256_training_takes_the_blocked_kernels(monkeypatch):
 
 
 def test_route_raises_where_the_jax_package_runs_its_streaming_kernel():
-    """L 2048 (hd 72) fits neither kernel of the port; the JAX package's mha
-    runs ops/flash.py there, which is the next slice."""
+    """L 2048 (hd 72) fits neither packed kernel of the port; the JAX
+    package's mha runs its streaming kernel (ops/flash.py) there, and so
+    does the port (tests/test_torch_use_flash.py holds that route). The
+    route still raises where only the whole-row backward does not fit and
+    the blocked kernels cannot take the head dim."""
     assert jax_choice(16, 2048, 72) == "flash"
-    with pytest.raises(NotImplementedError, match="flash"):
-        layers.attention_route(16, 2048, 72, False)
+    for backward in (False, True):
+        assert layers.attention_route(16, 2048, 72, backward) == "flash"
     assert layers.attention_route(16, 640, 72, False) == "plain" == jax_choice(16, 640, 72)
     # a whole-row shape whose backward does not fit, at a head dim the
     # blocked kernels cannot load: raise, not plain attention

@@ -18,6 +18,7 @@ MODULES = [
     "maskdit_tpu_torch",
     "maskdit_tpu_torch.generate",
     "maskdit_tpu_torch.models",
+    "maskdit_tpu_torch.ops.flash",
     "maskdit_tpu_torch.ops.flash_batched",
     "maskdit_tpu_torch.ops.flash_big",
     "maskdit_tpu_torch.ops.fused_adam",
