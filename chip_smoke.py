@@ -14,8 +14,11 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      forward at the 256-px sampling and training shapes, its backward at
      the training shapes, both in bf16 and fp32; the fused Adam + EMA
      update over all of DiT-XL/2's parameters; the blocked attention
-     forward and backward at the 512-px shapes and at the unmasked 256-px
-     encoder's, where one attention layer's route is checked on the card;
+     forward and backward at the 512-px shapes, at a ragged shape and at
+     the unmasked 256-px encoder's, where one attention layer's route is
+     checked on the card; both bf16 forwards on the tensor cores (kernels
+     #3 and #5, csrc/attention_fwd_mma.cuh) at every head dim that is a
+     multiple of 8 from 8 to 128;
   4. sampling at 256 px (the serving path): a random DiT-XL/2 (decoder,
      MAE coef 0.1, 1000 classes, every parameter ~ N(0, 0.02^2)) saved as a
      reference ``{"ema": ...}`` checkpoint; ``maskdit_tpu_torch.generate``
@@ -135,7 +138,15 @@ BIG_SHAPES = [
     ("train_decoder", TRAIN_BATCH_512, 1024, 16, 32),
     UNMASKED_256,
 ]
-BIG_BWD_SHAPES = BIG_SHAPES[2:] + [("ragged", 3, 777, 4, 40)]
+RAGGED_BIG = ("ragged", 3, 777, 4, 40)
+BIG_FWD_SHAPES = BIG_SHAPES + [RAGGED_BIG]
+BIG_BWD_SHAPES = BIG_SHAPES[2:] + [RAGGED_BIG]
+# both bf16 forwards (#3, #5: one tensor-core kernel, two layouts) at every
+# head dim that is a multiple of 8 up to 128: the odd multiples of 8 take
+# the padding of hd to a multiple of 16 in Q.K^T and an odd count of 8-wide
+# n-tiles in P.V; (N, L, H) = SWEEP_SHAPE, L a multiple of the flash window
+SWEEP_SHAPE = (2, 384, 4)
+SWEEP_HEAD_DIMS = range(8, 129, 8)
 
 # ops/flash.py's kernels (#5, #6) at the use_flash path's 512-px shapes
 # (sampling: CFG batch 2 x 4 at L 1024; training: batch 32, the encoder at
@@ -365,21 +376,29 @@ def check_smem_formulas() -> None:
         for es in (2, 4):
             assert fwd.packed_attention_fwd_smem_bytes(l, hd, es) == \
                 flash_batched.fwd_smem_bytes(l, hd, es), (l, hd, es)
+            assert big.packed_attention_big_fwd_smem_bytes(l, hd, es) == \
+                flash_big.fwd_smem_bytes(l, hd, es), (l, hd, es)
         assert bwd.packed_attention_bwd_smem_bytes(l, hd, 4) == \
             flash_batched.bwd_smem_bytes(l, hd), (l, hd)
-        assert big.packed_attention_big_fwd_smem_bytes(l, hd) == \
-            flash_big.fwd_smem_bytes(l, hd), (l, hd)
         assert big_bwd.packed_attention_big_bwd_smem_bytes(l, hd) == \
             flash_big.bwd_smem_bytes(l, hd), (l, hd)
         for rows in flash.BLOCK_ROWS:
-            assert fl.flash_fwd_smem_bytes(l, hd, rows) == flash.fwd_smem_bytes(l, hd, rows), \
-                (l, hd, rows)
+            assert fl.flash_fwd_smem_bytes(l, hd, rows, 4) == \
+                flash.fwd_smem_bytes(l, hd, rows, 4), (l, hd, rows)
+        assert fl.flash_fwd_smem_bytes(l, hd, flash.MMA_ROWS, 2) == \
+            flash.fwd_smem_bytes(l, hd, flash.MMA_ROWS, 2), (l, hd)
         assert fl_bwd.flash_bwd_smem_bytes(hd) == flash.bwd_smem_bytes(hd), hd
-    for l in (1408, 1536, 2048):  # where the flash forward's 32-row blocks stop fitting
+    for l in (1408, 1536, 2048):  # where the flash forward's 32-row fp32 blocks stop fitting
         for rows in flash.BLOCK_ROWS:
-            assert fl.flash_fwd_smem_bytes(l, 72, rows) == flash.fwd_smem_bytes(l, 72, rows)
-    log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 8 shapes, "
-        "the flash forward's at 11")
+            assert fl.flash_fwd_smem_bytes(l, 72, rows, 4) == flash.fwd_smem_bytes(l, 72, rows, 4)
+        assert fl.flash_fwd_smem_bytes(l, 72, flash.MMA_ROWS, 2) == \
+            flash.fwd_smem_bytes(l, 72, flash.MMA_ROWS, 2)
+    for hd in SWEEP_HEAD_DIMS:  # the tensor-core forward's, per head dim
+        assert big.packed_attention_big_fwd_smem_bytes(2048, hd, 2) == \
+            fl.flash_fwd_smem_bytes(2048, hd, flash.MMA_ROWS, 2) == \
+            flash_big.mma_fwd_smem_bytes(hd), hd
+    log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 8 shapes "
+        "in bf16 and fp32, the flash forward's at 11, the tensor-core forward's at 16 head dims")
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
@@ -512,7 +531,7 @@ def phase_big_kernels() -> dict:
 
     check_unmasked_256_route()
 
-    fwd = attention_fwd_rows("kernel-big", BIG_SHAPES, flash_big.packed_attention_big,
+    fwd = attention_fwd_rows("kernel-big", BIG_FWD_SHAPES, flash_big.packed_attention_big,
                              flash_big.packed_attention_big_reference, seed=5, iters=10)
     bwd = attention_bwd_rows("kernel-big", BIG_BWD_SHAPES, flash_big.packed_attention_big_bwd,
                              flash_big.packed_attention_big_bwd_reference, seed=6, iters=5)
@@ -626,10 +645,55 @@ def check_flash_window() -> None:
         f"{worst:.3f} of its bound, the largest share of differing elements {worst_share:.5f}")
 
 
+def check_fwd_head_dims() -> None:
+    """Both bf16 forwards on the tensor cores (#3 packed, #5 separate heads)
+    launch and agree with their plain versions at every head dim of
+    SWEEP_HEAD_DIMS, at SWEEP_SHAPE: FWD_REL_BOUND and BF16_MISMATCH_BOUND,
+    and for #5 the lse within LSE_REL_BOUND."""
+    from maskdit_tpu_torch.ops import flash, flash_big
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf16 = torch.bfloat16
+    n, l, h = SWEEP_SHAPE
+    worst, worst_share, worst_lse = 0.0, 0.0, 0.0
+    for hd in SWEEP_HEAD_DIMS:
+        scale = hd ** -0.5
+        qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda").to(bf16)
+        before = flash_big.packed_attention_big.launches, flash.flash_fwd.launches
+        with torch.no_grad():
+            out = flash_big.packed_attention_big(qkv, h, scale)
+        q, k, v = (t.reshape(n * h, l, hd).contiguous()
+                   for t in qkv.reshape(n, l, 3, h, hd).permute(2, 0, 3, 1, 4))
+        o, lse = flash.flash_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        launches = (flash_big.packed_attention_big.launches - before[0],
+                    flash.flash_fwd.launches - before[1])
+        ref_o, ref_lse = flash.flash_fwd_reference(q, k, v, scale)
+        pairs = ((out, flash_big.packed_attention_big_reference(qkv, h, scale)), (o, ref_o))
+        for got, ref in pairs:
+            err, bnd, share, ok = compare(got, ref, FWD_REL_BOUND[bf16], bf16)
+            if not ok:
+                raise AssertionError(f"forward hd sweep hd={hd}: err {err} > {bnd} or share "
+                                     f"{share}")
+            worst, worst_share = max(worst, err / bnd), max(worst_share, share)
+        lse_err = (lse - ref_lse).abs().max().item() / ref_lse.abs().max().item()
+        if lse_err > LSE_REL_BOUND or launches != (1, 1):
+            raise AssertionError(f"forward hd sweep hd={hd}: lse rel err {lse_err}, launches "
+                                 f"{launches}")
+        worst_lse = max(worst_lse, lse_err)
+    log(f"[kernel-flash] head dims: both bf16 forwards (#3, #5) at (N, L, H) = {SWEEP_SHAPE}, "
+        f"hd {SWEEP_HEAD_DIMS.start}-{SWEEP_HEAD_DIMS.stop - 1} step {SWEEP_HEAD_DIMS.step}: "
+        f"{2 * len(SWEEP_HEAD_DIMS)} rows within their bounds; the worst error {worst:.3f} of "
+        f"its bound, the largest share of differing elements {worst_share:.5f}, the largest lse "
+        f"error {worst_lse:.3e} of max|lse| (bound {LSE_REL_BOUND:.0e})")
+
+
 def phase_flash_kernels() -> dict:
-    """ops/flash.py's kernels (#5 and #6) over their window, then at
-    FLASH_SHAPES and FLASH_BWD_SHAPES, bf16 and fp32."""
+    """ops/flash.py's kernels (#5 and #6) over their window, both bf16
+    forwards over the head dims, then #5 and #6 at FLASH_SHAPES and
+    FLASH_BWD_SHAPES, bf16 and fp32."""
     check_flash_window()
+    check_fwd_head_dims()
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {"fwd": {}, "bwd": {}}
     for key, shapes, row, iters in (("fwd", FLASH_SHAPES, flash_fwd_row, 10),
@@ -1213,6 +1277,7 @@ def kernel_line(name: str, source: str, replaces: str, launches: int, err: float
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
@@ -1255,7 +1320,7 @@ def main() -> None:
         f"bf16 {parity_flash['bfloat16']:.3e}, fp32 {parity_flash['float32']:.3e}; training "
         f"{train_flash['images_per_s']:.2f} images/s, {train_flash['ms_per_step']:.1f} ms/step, "
         f"MFU {train_flash['mfu']:.4f}, peak {train_flash['peak_gib']:.2f} GiB; train parity "
-        f"{parity_train_flash}")
+        f"{parity_train_flash}; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
     paths = (main_path, train, main_512, train_512, train_flash)
     count = lambda key: sum(p["launches"][key] for p in paths)
@@ -1270,7 +1335,7 @@ def main() -> None:
                     adam["float32"]["err"], adam["float32"]),
         kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",
                     "flash_big.py:213", count("big_fwd"),
-                    bf16(big["fwd"], [s[0] for s in BIG_SHAPES]),
+                    bf16(big["fwd"], [s[0] for s in BIG_FWD_SHAPES]),
                     big["fwd"][("sample_encoder", "bfloat16")]),
         kernel_line("packed_attention_big_bwd", "packed_attention_big_bwd.cu",
                     "flash_big.py:234", count("big_bwd"),

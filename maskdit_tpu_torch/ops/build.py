@@ -38,12 +38,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` goes, keyed by source and flags."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the build of ``<csrc>/<name>.cu`` goes, keyed by the source,
+    every header in ``csrc`` (any of them may be included) and the flags."""
+    digest = hashlib.sha256()
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, float]:

@@ -4,22 +4,30 @@
 // _fwd_kernel). It reads the packed qkv Dense output (N, L, 3D) in place and
 // writes (N, L, D): head h reads q at features [h*hd, (h+1)*hd), k at
 // [D + h*hd, ...) and v at [2D + h*hd, ...) of each row. As in _fwd_kernel,
-// each softmax row completes in one pass over all keys (no online-softmax
-// rescaling): fp32 logits and softmax, p / denom rounded to the input type
-// before the product with v (flash_big.py:112-115), the product accumulated
-// in fp32, the output stored in the input type.
+// p / denom is rounded once, from each row's final max and sum: fp32 logits
+// and softmax, p / denom rounded to the input type before the product with v
+// (flash_big.py:112-115), the product accumulated in fp32, the output stored
+// in the input type.
 //
 // What bounds it: at the 512-px shapes (L 1024 or 512, hd 72 or 32) the
 // two L x L x hd products are 4 N H L^2 hd operations against ~(4 L hd)
 // bytes per head, far above the card's balance, so the kernel is bound by
-// arithmetic. This first version does it with fp32 FMAs from shared memory
-// (hd 72 is not a multiple of the bf16 MMA k-step, and fp32 inputs take the
-// same path), so its ceiling is the card's fp32 rate; wgmma with hd padded
-// to 80 is later work.
+// arithmetic.
 //
-// The design. The TPU kernel keeps a whole head's K and V in VMEM. Here one
-// head's K and V at L 1024 (up to 590 KB in fp32) do not fit a block's
-// 227 KB of shared memory next to the logits, so they are streamed:
+// bf16 (the main path) runs attention_fwd_mma.cuh's tensor-core kernel with
+// the PackedQkv layout: blocks of 64 queries of one head, K and V read in
+// place and streamed by cp.async, mma.sync products, two passes over the
+// keys (m and l, then p / denom rounded once and P.V). It takes three
+// products instead of two, so it can reach at most 2/3 of the bound, and two
+// expf per logit (2 N H L^2; at (32, 1024, 16, 32) ~0.29 ms of the MUFU
+// units), which with the division bound it at hd 32. Shared memory 45,056 B
+// at hd 72, 20,480 B at hd 32, at every L.
+//
+// fp32 (the parity path, held to 1e-5 of max|ref|: no TF32) keeps the first
+// design, fp32 FMAs from shared memory. The TPU kernel keeps a whole head's
+// K and V in VMEM; here one head's K and V at L 1024 (up to 590 KB in fp32)
+// do not fit a block's 227 KB of shared memory next to the logits, so they
+// are streamed:
 //   * grid (ceil(L/32), H, N): one block per 32 queries of one head of one
 //     sample;
 //   * the block keeps its (32, L) fp32 logits row block in shared memory
@@ -27,18 +35,19 @@
 //   * K is streamed in tiles of 64 keys to fill it, then the fp32 softmax
 //     runs over each complete row, then V is streamed in tiles of 64 keys
 //     for the product. Each tile is fetched into registers with 16-byte
-//     loads while the block computes on the previous one, and widened into
-//     shared memory as fp32 [64][hd + 1] (rows padded to an odd number of
-//     words, so a warp reads 32 rows at one feature, or 32 features of one
-//     row, without bank conflicts).
+//     loads while the block computes on the previous one, and stored in
+//     shared memory as [64][hd + 1] (rows padded to an odd number of words,
+//     so a warp reads 32 rows at one feature, or 32 features of one row,
+//     without bank conflicts).
 // Shared memory: 179,712 B at L 1024, hd 72 (one block per SM); 114,176 B
 // at L 512 (two).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "attention_fwd_mma.cuh"
 
 namespace {
 
@@ -53,41 +62,6 @@ constexpr int kMaxHdCols = kMaxHd / 32;
 constexpr int kMaxDevices = 64;
 constexpr size_t kMaxSmem = 232448;      // a block's limit on sm_90
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and widened back
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// 16 bytes of T widened to fp32, exactly
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void widen(const uint4& x, float* f) {
-    f[0] = __uint_as_float(x.x); f[1] = __uint_as_float(x.y);
-    f[2] = __uint_as_float(x.z); f[3] = __uint_as_float(x.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void widen(const uint4& x, float* f) {
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
 __host__ __device__ __forceinline__ size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
@@ -96,9 +70,9 @@ struct SmemLayout {
   size_t q, s, tile, red, total;
 };
 
-// Shared memory of one block, in bytes, for keys padded to lp (a multiple
-// of kTile): q fp32 [hd][kBQ]; logits fp32 [lp][kBQ]; two fp32
-// [kTile][hd + 1] tiles; two fp32 [kWarps][kBQ] reductions.
+// Shared memory of one fp32 block, in bytes, for keys padded to lp (a
+// multiple of kTile): q [hd][kBQ]; logits [lp][kBQ]; two [kTile][hd + 1]
+// tiles; two [kWarps][kBQ] reductions.
 __host__ __device__ __forceinline__ SmemLayout smem_layout(int lp, int hd) {
   const size_t hdp = hd + 1;
   SmemLayout m;
@@ -111,17 +85,17 @@ __host__ __device__ __forceinline__ SmemLayout smem_layout(int lp, int hd) {
 }
 
 // kTile rows of one head's K or V, fetched from device memory into
-// registers with 16-byte loads, then widened into shared memory as fp32
+// registers with 16-byte loads, then stored in shared memory as
 // [kTile][hd + 1]. Rows at or past L are zero, so padded keys carry no NaNs
 // into 0 * v.
-template <typename T>
 struct TileFetch {
-  static constexpr int kVec = Vec<T>::kN;
+  static constexpr int kVec = 4;
   static constexpr int kMaxVecs = kTile * kMaxHd / kVec / kThreads;
   uint4 regs[kMaxVecs];
 
   // rows r0 .. r0 + kTile - 1 of a matrix whose row r starts at base + r * stride
-  __device__ __forceinline__ void fetch(const T* base, size_t stride, int r0, int L, int hd) {
+  __device__ __forceinline__ void fetch(const float* base, size_t stride, int r0, int L,
+                                        int hd) {
     const int nv = hd / kVec;
 #pragma unroll
     for (int u = 0; u < kMaxVecs; ++u) {
@@ -145,11 +119,11 @@ struct TileFetch {
       const int idx = threadIdx.x + u * kThreads;
       if (idx < kTile * nv) {
         const int j = idx / nv;
-        float f[kVec];
-        Vec<T>::widen(regs[u], f);
         float* dst = tile + j * hdp + (idx - j * nv) * kVec;
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) dst[e] = f[e];
+        dst[0] = __uint_as_float(regs[u].x);
+        dst[1] = __uint_as_float(regs[u].y);
+        dst[2] = __uint_as_float(regs[u].z);
+        dst[3] = __uint_as_float(regs[u].w);
       }
     }
   }
@@ -159,12 +133,12 @@ struct TileFetch {
 // base, double-buffered in tiles (2 x [kTile][hd + 1] fp32): tile t + 1 is
 // in flight while the block computes on tile t. Ends synchronised; the body
 // must not synchronise the block itself.
-template <typename T, typename Body>
-__device__ __forceinline__ void for_each_tile(const T* base, size_t stride, int L, int hd,
+template <typename Body>
+__device__ __forceinline__ void for_each_tile(const float* base, size_t stride, int L, int hd,
                                               float* tiles, Body body) {
   const int ntiles = (L + kTile - 1) / kTile;
   const int tile_elems = kTile * (hd + 1);
-  TileFetch<T> f;
+  TileFetch f;
   f.fetch(base, stride, 0, L, hd);
   f.store(tiles, hd);
   __syncthreads();
@@ -176,9 +150,8 @@ __device__ __forceinline__ void for_each_tile(const T* base, size_t stride, int 
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-big_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int H, int hd,
+big_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int L, int H, int hd,
                float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lp = (L + kTile - 1) / kTile * kTile;
@@ -198,20 +171,20 @@ big_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int H, int
   const int n = blockIdx.z;
   const int D = H * hd;
   const size_t row = 3 * static_cast<size_t>(D);
-  const T* head = qkv + static_cast<size_t>(n) * L * row + static_cast<size_t>(h) * hd;
+  const float* head = qkv + static_cast<size_t>(n) * L * row + static_cast<size_t>(h) * hd;
 
-  // ---- 1. this block's queries, fp32 [hd][kBQ], zero past L ---------------
+  // ---- 1. this block's queries, [hd][kBQ], zero past L --------------------
   for (int idx = tid; idx < kBQ * hd; idx += kThreads) {
     const int i = idx / hd;
     const int d = idx - i * hd;
-    qs[d * kBQ + i] = q0 + i < L ? to_f(head[static_cast<size_t>(q0 + i) * row + d]) : 0.f;
+    qs[d * kBQ + i] = q0 + i < L ? head[static_cast<size_t>(q0 + i) * row + d] : 0.f;
   }
   // (for_each_tile synchronises before its first body)
 
   // ---- 2. logits, streaming K: warp w takes queries 4w..4w+3, lane takes
   //         keys lane + 32c of each tile ----------------------------------
   const int qi = warp * kQPerWarp;
-  for_each_tile<T>(head + D, row, L, hd, tiles, [&](int t, const float* kt) {
+  for_each_tile(head + D, row, L, hd, tiles, [&](int t, const float* kt) {
     float acc[kQPerWarp][kTileCols];
 #pragma unroll
     for (int r = 0; r < kQPerWarp; ++r)
@@ -261,19 +234,19 @@ big_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int H, int
     __syncthreads();
     l = 0.f;
     for (int w = 0; w < kWarps; ++w) l += red_sum[w * kBQ + i];
-    // p / denom rounded to the input type (flash_big.py:115)
-    for (int j = warp; j < lp; j += kWarps) ss[j * kBQ + i] = round_to<T>(ss[j * kBQ + i] / l);
+    // p / denom (flash_big.py:115; rounding to fp32 is the identity)
+    for (int j = warp; j < lp; j += kWarps) ss[j * kBQ + i] /= l;
   }
   // (for_each_tile synchronises before its first body)
 
-  // ---- 4. o = pb v, streaming V: warp w keeps its 4 queries, lane takes
+  // ---- 4. o = p v, streaming V: warp w keeps its 4 queries, lane takes
   //         features d = lane + 32c ------------------------------------------
   float o[kQPerWarp][kMaxHdCols];
 #pragma unroll
   for (int r = 0; r < kQPerWarp; ++r)
 #pragma unroll
     for (int c = 0; c < kMaxHdCols; ++c) o[r][c] = 0.f;
-  for_each_tile<T>(head + 2 * D, row, L, hd, tiles, [&](int t, const float* vt) {
+  for_each_tile(head + 2 * D, row, L, hd, tiles, [&](int t, const float* vt) {
     for (int j = 0; j < kTile; ++j) {
       const float4 p = *reinterpret_cast<const float4*>(ss + (t * kTile + j) * kBQ + qi);
       const float* vrow = vt + j * hdp + lane;
@@ -289,7 +262,7 @@ big_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int H, int
       }
     }
   });
-  T* obase = out + static_cast<size_t>(n) * L * D + static_cast<size_t>(h) * hd;
+  float* obase = out + static_cast<size_t>(n) * L * D + static_cast<size_t>(h) * hd;
 #pragma unroll
   for (int r = 0; r < kQPerWarp; ++r) {
     const int i = q0 + qi + r;
@@ -297,14 +270,13 @@ big_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int H, int
 #pragma unroll
     for (int c = 0; c < kMaxHdCols; ++c) {
       const int d = lane + 32 * c;
-      if (d < hd) obase[static_cast<size_t>(i) * D + d] = from_f<T>(o[r][c]);
+      if (d < hd) obase[static_cast<size_t>(i) * D + d] = o[r][c];
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* qkv, void* out, int n, int l, int heads, int hd,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch_fp32(const void* qkv, void* out, int n, int l, int heads, int hd,
+                        float scale, cudaStream_t stream) {
   const int lp = (l + kTile - 1) / kTile * kTile;
   const size_t smem = smem_layout(lp, hd).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -316,14 +288,14 @@ cudaError_t launch(const void* qkv, void* out, int n, int l, int heads, int hd,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (smem > configured[dev]) {
-    err = cudaFuncSetAttribute(big_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(big_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured[dev] = smem;
   }
   const dim3 grid((l + kBQ - 1) / kBQ, heads, n);
-  big_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), l, heads, hd, scale);
+  big_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), l, heads, hd, scale);
   return cudaGetLastError();
 }
 
@@ -331,9 +303,11 @@ cudaError_t launch(const void* qkv, void* out, int n, int l, int heads, int hd,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs (the same for bf16 and
-// fp32 inputs: tiles are widened to fp32).
-size_t packed_attention_big_fwd_smem_bytes(int l, int hd) {
+// Bytes of dynamic shared memory one block needs: for bf16 (esize 2) the
+// tensor-core kernel's, the same at every l; for fp32 (esize 4) the
+// row-block kernel's.
+size_t packed_attention_big_fwd_smem_bytes(int l, int hd, int esize) {
+  if (esize == 2) return attention_fwd_mma::smem_bytes(hd);
   return smem_layout((l + kTile - 1) / kTile * kTile, hd).total;
 }
 
@@ -348,10 +322,14 @@ int packed_attention_big_fwd(const void* qkv, void* out, int n, int l, int heads
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return static_cast<int>(launch<__nv_bfloat16>(qkv, out, n, l, heads, hd, scale, s));
+    case 0: {
+      using attention_fwd_mma::bf16;
+      const attention_fwd_mma::PackedQkv layout{static_cast<const bf16*>(qkv),
+                                                static_cast<bf16*>(out), n, heads};
+      return static_cast<int>(attention_fwd_mma::launch(layout, l, hd, scale, s));
+    }
     case 1:
-      return static_cast<int>(launch<float>(qkv, out, n, l, heads, hd, scale, s));
+      return static_cast<int>(launch_fp32(qkv, out, n, l, heads, hd, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

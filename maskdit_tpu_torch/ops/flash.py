@@ -17,10 +17,11 @@ rounding points, so it has kernels of its own:
 
   * a CPU tensor goes to the plain PyTorch versions,
     ``flash_fwd_reference`` and ``flash_bwd_reference``;
-  * a CUDA tensor launches ``csrc/flash_fwd.cu`` (replaces ``_flash_fwd``)
-    and ``csrc/flash_bwd.cu`` (replaces ``_flash_bwd``), or raises. They
-    take a head dim that is a multiple of 8 up to 128; any other raises
-    NotImplementedError.
+  * a CUDA tensor launches ``csrc/flash_fwd.cu`` (replaces ``_flash_fwd``;
+    in bf16 the tensor-core kernel of ``csrc/attention_fwd_mma.cuh``,
+    shared with ops/flash_big.py) and ``csrc/flash_bwd.cu`` (replaces
+    ``_flash_bwd``), or raises. They take a head dim that is a multiple of
+    8 up to 128; any other raises NotImplementedError.
 
 ``flash_fwd.launches`` and ``flash_bwd.launches`` count kernel launches
 and nothing else; ``flash_mha_plain`` applies the Function with the plain
@@ -37,6 +38,7 @@ import torch
 from maskdit_tpu_torch.ops import build
 from maskdit_tpu_torch.ops.attention import mha_reference
 from maskdit_tpu_torch.ops.flash_batched import DTYPE_CODES, MAX_HEAD_DIM, SMEM_LIMIT, _align16
+from maskdit_tpu_torch.ops.flash_big import mma_fwd_smem_bytes
 
 KERNEL = "flash_fwd"
 BWD_KERNEL = "flash_bwd"
@@ -44,9 +46,11 @@ LANE = 128
 MAX_L = 2048
 # keys (forward), or keys and queries (backward), per tile the kernels stream
 TILE = 64
-# queries per forward block: 32, or 16 where the (32, L) logits block would
-# not fit a block's shared memory (L above 1408 at hd 72)
+# queries per fp32 forward block: 32, or 16 where the (32, L) logits block
+# would not fit a block's shared memory (L above 1408 at hd 72)
 BLOCK_ROWS = (32, 16)
+# queries per bf16 (tensor-core) forward block, at every L
+MMA_ROWS = 64
 THREADS = 256
 
 
@@ -56,11 +60,15 @@ def supports(l: int) -> bool:
     return l % LANE == 0 and l <= MAX_L
 
 
-def fwd_smem_bytes(l: int, hd: int, rows: int) -> int:
-    """Shared memory of one forward block of ``rows`` queries,
-    ``smem_layout`` of csrc/flash_fwd.cu: q fp32 [hd][rows], the logits
+def fwd_smem_bytes(l: int, hd: int, rows: int, esize: int = 4) -> int:
+    """Shared memory of one forward block of ``rows`` queries for inputs of
+    ``esize`` bytes. bf16 (2): the tensor-core kernel's,
+    ``flash_big.mma_fwd_smem_bytes`` (``rows`` is MMA_ROWS). fp32 (4):
+    ``smem_layout`` of csrc/flash_fwd.cu, q fp32 [hd][rows], the logits
     row block fp32 [L][rows] (L padded to the tile), two fp32 [64][hd + 1]
     key/value tiles, two fp32 [THREADS] reductions."""
+    if esize == 2:
+        return mma_fwd_smem_bytes(hd)
     lp = -(-l // TILE) * TILE
     s = _align16(hd * rows * 4)
     tile = _align16(s + lp * rows * 4)
@@ -68,9 +76,11 @@ def fwd_smem_bytes(l: int, hd: int, rows: int) -> int:
     return red + 2 * THREADS * 4
 
 
-def fwd_block_rows(l: int, hd: int) -> int:
-    """The forward's queries per block at (L, hd): the first of
-    BLOCK_ROWS whose layout fits, else 0."""
+def fwd_block_rows(l: int, hd: int, esize: int = 4) -> int:
+    """The forward's queries per block at (L, hd): MMA_ROWS in bf16; in
+    fp32 the first of BLOCK_ROWS whose layout fits, else 0."""
+    if esize == 2:
+        return MMA_ROWS
     return next((r for r in BLOCK_ROWS if fwd_smem_bytes(l, hd, r) <= SMEM_LIMIT), 0)
 
 
@@ -135,7 +145,7 @@ def _library() -> ctypes.CDLL:
     lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_fwd.restype = ctypes.c_int
-    lib.flash_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.flash_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
@@ -191,8 +201,9 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float)
         err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             lse.data_ptr(), n, l, hd, scale, DTYPE_CODES[q.dtype],
                             torch.cuda.current_stream().cuda_stream)
+    es = q.element_size()
     _raise_on("flash_fwd", lib, "flash_fwd_error_string", err, q.shape, q.dtype,
-              fwd_smem_bytes(l, hd, fwd_block_rows(l, hd) or BLOCK_ROWS[-1]))
+              fwd_smem_bytes(l, hd, fwd_block_rows(l, hd, es) or BLOCK_ROWS[-1], es))
     flash_fwd.launches += 1
     return o, lse
 

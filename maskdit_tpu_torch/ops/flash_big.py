@@ -14,8 +14,10 @@ the card (models/layers.attention_route).
     ``packed_attention_big_reference`` and
     ``packed_attention_big_bwd_reference``;
   * a CUDA tensor launches ``csrc/packed_attention_big_fwd.cu`` (replaces
-    ``_big_fwd``) and ``csrc/packed_attention_big_bwd.cu`` (replaces
-    ``_big_bwd``), or raises.
+    ``_big_fwd``; in bf16 the tensor-core kernel of
+    ``csrc/attention_fwd_mma.cuh``, shared with ops/flash.py) and
+    ``csrc/packed_attention_big_bwd.cu`` (replaces ``_big_bwd``), or
+    raises.
 
 ``packed_attention_big`` applies flash_batched's ``AttentionFunction``,
 which saves only qkv, as the custom VJP does (flash_big.py:198-249); the
@@ -52,11 +54,23 @@ BLOCK_Q = 256
 TILE = 64
 
 
-def fwd_smem_bytes(l: int, hd: int) -> int:
-    """Shared memory of one forward block, ``smem_layout`` of
-    csrc/packed_attention_big_fwd.cu: q fp32 [hd][32], the logits row block
+def mma_fwd_smem_bytes(hd: int) -> int:
+    """Shared memory of one block of the bf16 tensor-core forward
+    (csrc/attention_fwd_mma.cuh ``smem_bytes``, shared with ops/flash.py):
+    K and V rings of two bf16 [64][hd16 + 8] tiles each, hd16 = hd padded to
+    a multiple of 16; the same at every L."""
+    hd16 = -(-hd // 16) * 16
+    return 4 * TILE * (hd16 + 8) * 2
+
+
+def fwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
+    """Shared memory of one forward block for inputs of ``esize`` bytes.
+    bf16 (2): ``mma_fwd_smem_bytes``. fp32 (4): ``smem_layout`` of
+    csrc/packed_attention_big_fwd.cu, q fp32 [hd][32], the logits row block
     fp32 [L][32] (L padded to the tile), two fp32 [64][hd + 1] key/value
-    tiles, two reductions. The same for bf16 and fp32 inputs."""
+    tiles, two reductions."""
+    if esize == 2:
+        return mma_fwd_smem_bytes(hd)
     lp = -(-l // TILE) * TILE
     s = _align16(hd * 32 * 4)
     tile = _align16(s + lp * 32 * 4)
@@ -80,9 +94,10 @@ def bwd_smem_bytes(l: int, hd: int) -> int:
 
 
 def fits(l: int, head_dim: int) -> bool:
-    """The kernels launch at (L, head_dim), at any L: head_dim a multiple of
-    8 (their 16-byte tile loads) and at most 128, and both kernels' shared
-    memory within a block's 232,448 B."""
+    """The kernels launch at (L, head_dim), at any L and for either input
+    type: head_dim a multiple of 8 (their 16-byte tile loads) and at most
+    128, and both kernels' shared memory within a block's 232,448 B (the
+    forward's at fp32, the larger layout)."""
     return (
         head_dim % 8 == 0 and 0 < head_dim <= MAX_HEAD_DIM
         and fwd_smem_bytes(l, head_dim) <= SMEM_LIMIT
@@ -179,7 +194,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.packed_attention_big_fwd.restype = ctypes.c_int
-    lib.packed_attention_big_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.packed_attention_big_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.packed_attention_big_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.packed_attention_big_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_big_error_string.restype = ctypes.c_char_p
@@ -204,8 +219,8 @@ def _bwd_library() -> ctypes.CDLL:
 
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     out = launch("packed_attention_big", _library, "packed_attention_big_fwd",
-                 "packed_attention_big_error_string", lambda l, hd, _: fwd_smem_bytes(l, hd),
-                 qkv, num_heads, scale, aligned=True)
+                 "packed_attention_big_error_string", fwd_smem_bytes, qkv, num_heads, scale,
+                 aligned=True)
     packed_attention_big.launches += 1
     return out
 

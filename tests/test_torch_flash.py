@@ -200,6 +200,18 @@ def test_shared_memory_covers_the_whole_window():
             rows = flash.fwd_block_rows(l, hd)
             assert rows in flash.BLOCK_ROWS and flash.fwd_smem_bytes(l, hd, rows) <= 232448
     assert flash.bwd_smem_bytes(128) <= 232448
+    # bf16 runs the tensor-core forward (csrc/attention_fwd_mma.cuh): 64
+    # query rows per block at every L, in shared memory that does not grow
+    # with L; no 16-row fallback
+    assert flash.fwd_smem_bytes(512, 72, 64, 2) == 45056
+    assert flash.fwd_smem_bytes(2048, 72, 64, 2) == 45056
+    assert flash.fwd_smem_bytes(1024, 32, 64, 2) == 20480
+    assert flash.fwd_smem_bytes(384, 40, 64, 2) == 28672
+    for l in range(128, 2049, 128):
+        for hd in range(8, 129, 8):
+            assert flash.fwd_block_rows(l, hd, 2) == flash.MMA_ROWS == 64
+            assert flash.fwd_smem_bytes(l, hd, 64, 2) == flash.fwd_smem_bytes(128, hd, 64, 2)
+            assert flash.fwd_smem_bytes(l, hd, 64, 2) <= 69632
 
 
 @pytest.mark.cuda

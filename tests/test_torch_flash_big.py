@@ -9,6 +9,8 @@ versions. The CUDA kernels are held to those plain versions by the
 CUDA-only test here and by chip_smoke.py.
 """
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from maskdit_tpu.ops import flash_big as jax_big
-from maskdit_tpu_torch.ops import flash_batched, flash_big
+from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
 
 # fp32 on both sides; the products run over L <= 1024 keys summed in other
 # orders: outputs agree to ~1e-6 and gradients (|dqkv| up to ~3 here) to
@@ -174,6 +176,18 @@ def test_shared_memory_formulas():
     assert flash_big.bwd_smem_bytes(1024, 128) == 231936
     assert flash_big.fwd_smem_bytes(1000, 72) == flash_big.fwd_smem_bytes(1024, 72)
     assert not flash_big.supports(16, 2048, 72)
+    # bf16 runs the tensor-core forward (csrc/attention_fwd_mma.cuh): four
+    # bf16 [64][hd16 + 8] tiles, hd16 = hd padded to 16, the same at every L,
+    # so four blocks fit an SM at hd 72; fits() keeps reading the fp32 layout
+    assert flash_big.fwd_smem_bytes(1024, 72, 2) == 45056
+    assert flash_big.fwd_smem_bytes(512, 72, 2) == 45056
+    assert flash_big.fwd_smem_bytes(1024, 32, 2) == 20480
+    assert flash_big.fwd_smem_bytes(777, 40, 2) == 28672
+    assert flash_big.fwd_smem_bytes(2048, 128, 2) == 69632
+    assert flash_big.fwd_smem_bytes(1024, 72, 4) == flash_big.fwd_smem_bytes(1024, 72)
+    for hd in range(8, 129, 8):
+        assert flash_big.mma_fwd_smem_bytes(hd) == 4 * 64 * (-(-hd // 16) * 16 + 8) * 2
+        assert flash_big.fwd_smem_bytes(1024, hd, 2) < flash_big.fwd_smem_bytes(64, hd, 4)
 
 
 def _variant_bwd(qkv, dout, h, scale, acc=torch.float64, round_p=True, round_ds=True):
@@ -226,6 +240,104 @@ def test_bf16_mismatch_share_separates_rounding_faults():
     early = (e.bfloat16().float() / e.sum(-1, keepdim=True)) @ v
     early = early.bfloat16().permute(0, 2, 1, 3).reshape(ref_out.shape)
     assert _share(early, ref_out) > 0.2
+
+
+def _two_pass_forward(q, k, v, scale, tile=64, online_output=False):
+    """The bf16 tensor-core forward's arithmetic (csrc/attention_fwd_mma.cuh)
+    in torch on the CPU, for q, k, v (B, L, hd) in bf16: pass 1 over tiles
+    of ``tile`` keys keeps a running row max m and a sum l rescaled by
+    exp(m_old - m_new), in fp32; pass 2 recomputes the logits and forms
+    exp(s - m) / l, rounded to bf16 before the fp32 product with v. Returns
+    o (B, L, hd) in bf16 and lse = m + log l (B, 1, L) in fp32.
+    ``online_output``: the usual online-softmax output instead of pass 2,
+    o = sum of bf16-rounded exp(s - m_running) v, rescaled as m grows and
+    divided by l at the end."""
+    b, l, _ = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tiles = [slice(t, t + tile) for t in range(0, l, tile)]
+
+    def logits(keys):
+        return torch.matmul(qf, kf[:, keys].transpose(-1, -2)) * scale
+
+    m = torch.full((b, l, 1), float("-inf"))
+    lsum = torch.zeros(b, l, 1)
+    o = torch.zeros_like(qf)
+    for keys in tiles:
+        s = logits(keys)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        lsum = lsum * alpha + p.sum(-1, keepdim=True)
+        if online_output:
+            o = o * alpha + torch.matmul(p.to(q.dtype).float(), vf[:, keys])
+        m = m_new
+    if online_output:
+        o = o / lsum
+    else:
+        for keys in tiles:
+            pb = (torch.exp(logits(keys) - m) / lsum).to(q.dtype).float()
+            o = o + torch.matmul(pb, vf[:, keys])
+    return o.to(q.dtype), (m + torch.log(lsum)).reshape(b, 1, l)
+
+
+@pytest.mark.parametrize("hd", [72, 32])
+def test_two_pass_forward_rounds_where_the_plain_versions_do(hd):
+    """The premise of the tensor-core forward (#3 and #5 in bf16): its two
+    passes over 64-key tiles, with a rescaled running sum, differ from the
+    plain versions (packed_attention_big_reference, flash_fwd_reference) in
+    under 0.5% of the bf16 outputs, and its lse by at most 1e-6 of max|lse|;
+    the usual online-softmax output, which rounds unnormalised
+    probabilities, differs in over 20%."""
+    n, l, h = 1, 1024, 2
+    qkv, _ = _inputs(n, l, h, hd, seed=12 + hd)
+    x = torch.from_numpy(qkv).bfloat16()
+    scale = hd ** -0.5
+    q, k, v = (t.reshape(n * h, l, hd) for t in x.reshape(n, l, 3, h, hd).permute(2, 0, 3, 1, 4))
+
+    def packed(o):
+        return o.reshape(n, h, l, hd).permute(0, 2, 1, 3).reshape(n, l, h * hd)
+
+    ref_packed = flash_big.packed_attention_big_reference(x, h, scale)
+    ref_o, ref_lse = flash.flash_fwd_reference(q, k, v, scale)
+    o, lse = _two_pass_forward(q, k, v, scale)
+    assert o.dtype == torch.bfloat16 and lse.shape == ref_lse.shape
+    assert _share(packed(o), ref_packed) < 0.005
+    assert _share(o, ref_o) < 0.005
+    assert (lse - ref_lse).abs().max().item() <= 1e-6 * ref_lse.abs().max().item()
+    online, _ = _two_pass_forward(q, k, v, scale, online_output=True)
+    assert _share(packed(online), ref_packed) > 0.2
+    assert _share(online, ref_o) > 0.2
+
+
+def _rn32(x: Fraction) -> Fraction:
+    """x rounded to the nearest fp32 value, ties to even (normal range)."""
+    if x == 0:
+        return x
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    e += 1 if Fraction(2) ** (e + 1) <= x else (-1 if Fraction(2) ** e > x else 0)
+    m = x * Fraction(2) ** (23 - e)
+    whole, rest = divmod(m.numerator, m.denominator)
+    if 2 * rest > m.denominator or (2 * rest == m.denominator and whole % 2):
+        whole += 1
+    return Fraction(whole) / Fraction(2) ** (23 - e)
+
+
+def test_division_sequence_is_correctly_rounded():
+    """csrc/attention_fwd_mma.cuh's div_rn forms p = e / l from r = 1 / l
+    (rounded once per row): q = e r, then q + fma(-q, l, e) r, each step
+    rounded once as fp32 multiplies and FMAs round. Over the kernel's
+    operands (e = exp(s - m) in (0, 1], l a softmax sum in [1, 2048]) it is
+    the correctly rounded e / l, the quotient torch's division gives, in
+    exact arithmetic."""
+    rng = np.random.default_rng(13)
+    es = np.exp(-rng.uniform(0, 20, 3000)).astype(np.float32)
+    ls = np.where(np.arange(3000) % 2, rng.uniform(1, 2048, 3000),
+                  1 + rng.uniform(0, 1, 3000)).astype(np.float32)
+    for e32, l32 in zip(es, ls):
+        e, l = Fraction(float(e32)), Fraction(float(l32))
+        r = _rn32(1 / l)
+        q = _rn32(e * r)
+        assert _rn32(q + _rn32(e - q * l) * r) == _rn32(e / l) == Fraction(float(e32 / l32))
 
 
 @pytest.mark.cuda
