@@ -17,8 +17,10 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      forward and backward at the 512-px shapes, at a ragged shape and at
      the unmasked 256-px encoder's, where one attention layer's route is
      checked on the card; both bf16 forwards on the tensor cores (kernels
-     #3 and #5, csrc/attention_fwd_mma.cuh) at every head dim that is a
-     multiple of 8 from 8 to 128;
+     #3 and #5, csrc/attention_fwd_mma.cuh) and both bf16 backwards (#2 and
+     #4, csrc/attention_bwd_mma.cuh) at every head dim that is a multiple of
+     8 from 8 to 128; each backward row names the kernels that ran (mma or
+     fma);
   4. sampling at 256 px (the serving path): a random DiT-XL/2 (decoder,
      MAE coef 0.1, 1000 classes, every parameter ~ N(0, 0.02^2)) saved as a
      reference ``{"ema": ...}`` checkpoint; ``maskdit_tpu_torch.generate``
@@ -141,10 +143,12 @@ BIG_SHAPES = [
 RAGGED_BIG = ("ragged", 3, 777, 4, 40)
 BIG_FWD_SHAPES = BIG_SHAPES + [RAGGED_BIG]
 BIG_BWD_SHAPES = BIG_SHAPES[2:] + [RAGGED_BIG]
-# both bf16 forwards (#3, #5: one tensor-core kernel, two layouts) at every
-# head dim that is a multiple of 8 up to 128: the odd multiples of 8 take
-# the padding of hd to a multiple of 16 in Q.K^T and an odd count of 8-wide
-# n-tiles in P.V; (N, L, H) = SWEEP_SHAPE, L a multiple of the flash window
+# both bf16 forwards (#3, #5: one tensor-core kernel, two layouts) and both
+# bf16 backwards (#2, #4: one pair of tensor-core kernels) at every head dim
+# that is a multiple of 8 up to 128: the odd multiples of 8 take the padding
+# of hd to a multiple of 16 in Q.K^T (and dO.V^T) and an odd count of 8-wide
+# n-tiles in P.V (and dS.K, P^T.dO, dS^T.Q); (N, L, H) = SWEEP_SHAPE, L a
+# multiple of the flash window
 SWEEP_SHAPE = (2, 384, 4)
 SWEEP_HEAD_DIMS = range(8, 129, 8)
 
@@ -378,10 +382,10 @@ def check_smem_formulas() -> None:
                 flash_batched.fwd_smem_bytes(l, hd, es), (l, hd, es)
             assert big.packed_attention_big_fwd_smem_bytes(l, hd, es) == \
                 flash_big.fwd_smem_bytes(l, hd, es), (l, hd, es)
-        assert bwd.packed_attention_bwd_smem_bytes(l, hd, 4) == \
-            flash_batched.bwd_smem_bytes(l, hd), (l, hd)
-        assert big_bwd.packed_attention_big_bwd_smem_bytes(l, hd) == \
-            flash_big.bwd_smem_bytes(l, hd), (l, hd)
+            assert bwd.packed_attention_bwd_smem_bytes(l, hd, es) == \
+                flash_batched.bwd_smem_bytes(l, hd, es), (l, hd, es)
+            assert big_bwd.packed_attention_big_bwd_smem_bytes(l, hd, es) == \
+                flash_big.bwd_smem_bytes(l, hd, es), (l, hd, es)
         for rows in flash.BLOCK_ROWS:
             assert fl.flash_fwd_smem_bytes(l, hd, rows, 4) == \
                 flash.fwd_smem_bytes(l, hd, rows, 4), (l, hd, rows)
@@ -393,12 +397,16 @@ def check_smem_formulas() -> None:
             assert fl.flash_fwd_smem_bytes(l, 72, rows, 4) == flash.fwd_smem_bytes(l, 72, rows, 4)
         assert fl.flash_fwd_smem_bytes(l, 72, flash.MMA_ROWS, 2) == \
             flash.fwd_smem_bytes(l, 72, flash.MMA_ROWS, 2)
-    for hd in SWEEP_HEAD_DIMS:  # the tensor-core forward's, per head dim
+    for hd in SWEEP_HEAD_DIMS:  # the tensor-core forward's and backward's, per head dim
         assert big.packed_attention_big_fwd_smem_bytes(2048, hd, 2) == \
             fl.flash_fwd_smem_bytes(2048, hd, flash.MMA_ROWS, 2) == \
             flash_big.mma_fwd_smem_bytes(hd), hd
+        assert bwd.packed_attention_bwd_smem_bytes(2048, hd, 2) == \
+            big_bwd.packed_attention_big_bwd_smem_bytes(2048, hd, 2) == \
+            flash_batched.mma_bwd_smem_bytes(hd), hd
     log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 8 shapes "
-        "in bf16 and fp32, the flash forward's at 11, the tensor-core forward's at 16 head dims")
+        "in bf16 and fp32, the flash forward's at 11, the tensor-core forward's and "
+        "backward's at 16 head dims")
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
@@ -453,7 +461,10 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
 
 def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -> dict:
     """The backward wrapper ``kernel`` against ``plain``, as above; the
-    library time is SDPA's forward and backward."""
+    library time is SDPA's forward and backward. Each row names the kernels
+    that ran: 'mma' (bf16, csrc/attention_bwd_mma.cuh) or 'fma'."""
+    from maskdit_tpu_torch.ops.flash_batched import bwd_kernel
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
     for name, n, l, h, hd in shapes:
@@ -473,7 +484,8 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
             library_ms = library_attention_ms(qkv, h, scale, iters, dout)
             bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 6, 7)
             dt = dtype_name(dtype)
-            log(f"[{tag}] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt}: "
+            log(f"[{tag}] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt} "
+                f"({bwd_kernel(dtype, hd)}): "
                 f"max_abs_err {err:.3e} (bound {bnd:.3e} = {BWD_REL_BOUND[dtype]:.0e} "
                 f"x max|ref|), elements differing {share:.5f}; kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, library (SDPA fwd + bwd) {library_ms:.4f} ms, bound "
@@ -526,10 +538,12 @@ def check_unmasked_256_route() -> None:
 
 def phase_big_kernels() -> dict:
     """The blocked kernels (kernels #3 and #4) at the 512-px shapes and at
-    the unmasked 256-px encoder's; that shape's route on the card."""
+    the unmasked 256-px encoder's; that shape's route on the card; both bf16
+    backwards over the head dims."""
     from maskdit_tpu_torch.ops import flash_big
 
     check_unmasked_256_route()
+    check_bwd_head_dims()
 
     fwd = attention_fwd_rows("kernel-big", BIG_FWD_SHAPES, flash_big.packed_attention_big,
                              flash_big.packed_attention_big_reference, seed=5, iters=10)
@@ -686,6 +700,40 @@ def check_fwd_head_dims() -> None:
         f"{2 * len(SWEEP_HEAD_DIMS)} rows within their bounds; the worst error {worst:.3f} of "
         f"its bound, the largest share of differing elements {worst_share:.5f}, the largest lse "
         f"error {worst_lse:.3e} of max|lse| (bound {LSE_REL_BOUND:.0e})")
+
+
+def check_bwd_head_dims() -> None:
+    """Both bf16 backwards on the tensor cores (#2 whole-row, #4 blocked:
+    one pair of kernels, csrc/attention_bwd_mma.cuh) launch once per call and
+    agree with their plain versions at every head dim of SWEEP_HEAD_DIMS, at
+    SWEEP_SHAPE: BWD_REL_BOUND and BF16_MISMATCH_BOUND."""
+    from maskdit_tpu_torch.ops import flash_batched, flash_big
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    bf16 = torch.bfloat16
+    n, l, h = SWEEP_SHAPE
+    pairs = ((flash_batched.packed_attention_bwd, flash_batched.packed_attention_bwd_reference),
+             (flash_big.packed_attention_big_bwd, flash_big.packed_attention_big_bwd_reference))
+    worst, worst_share = 0.0, 0.0
+    for hd in SWEEP_HEAD_DIMS:
+        scale = hd ** -0.5
+        qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda").to(bf16)
+        dout = torch.randn(n, l, h * hd, generator=g, device="cuda").to(bf16)
+        for kernel, plain in pairs:
+            before = kernel.launches
+            got = kernel(qkv, dout, h, scale)
+            torch.cuda.synchronize()
+            launches = kernel.launches - before
+            err, bnd, share, ok = compare(got, plain(qkv, dout, h, scale), BWD_REL_BOUND[bf16],
+                                          bf16)
+            if not (ok and launches == 1):
+                raise AssertionError(f"backward hd sweep hd={hd} {kernel.__name__}: err {err} > "
+                                     f"{bnd}, share {share} or {launches} launches")
+            worst, worst_share = max(worst, err / bnd), max(worst_share, share)
+    log(f"[kernel-big] head dims: both bf16 backwards (#2, #4) at (N, L, H) = {SWEEP_SHAPE}, "
+        f"hd {SWEEP_HEAD_DIMS.start}-{SWEEP_HEAD_DIMS.stop - 1} step {SWEEP_HEAD_DIMS.step}: "
+        f"{2 * len(SWEEP_HEAD_DIMS)} rows within their bounds; the worst error {worst:.3f} of "
+        f"its bound, the largest share of differing elements {worst_share:.5f}")
 
 
 def phase_flash_kernels() -> dict:

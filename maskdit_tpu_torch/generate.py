@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from maskdit_tpu_torch.models import DIT_CONFIGS, create_model
+from maskdit_tpu_torch.models import DIT_CONFIGS, check_model_keys, create_model
 from maskdit_tpu_torch.sampling.generate import (
     VAE_NOT_PORTED,
     SamplerConfig,
@@ -82,6 +82,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         m = config_lib.load_file(args.config).model
         if m.precond != "edm":
             parser.error(f"precond '{m.precond}' is not ported (edm only)")
+        check_model_keys(m)
         args.model_type = m.model_type
         args.image_size = m.in_size
         args.image_channels = m.in_channels

@@ -1,5 +1,10 @@
 from maskdit_tpu_torch.models.dit import DIT_CONFIGS, MaskDiT, create_dit
-from maskdit_tpu_torch.models.precond import EDMPrecond, PRECOND_MODELS, create_model
+from maskdit_tpu_torch.models.precond import (
+    PRECOND_MODELS,
+    EDMPrecond,
+    check_model_keys,
+    create_model,
+)
 
 __all__ = [
     "DIT_CONFIGS",
@@ -7,5 +12,6 @@ __all__ = [
     "create_dit",
     "EDMPrecond",
     "PRECOND_MODELS",
+    "check_model_keys",
     "create_model",
 ]

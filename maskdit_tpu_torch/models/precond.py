@@ -113,6 +113,21 @@ class EDMPrecond(nn.Module):
 
 PRECOND_MODELS = {"edm": EDMPrecond}
 
+# model.* config keys of the JAX package that the port's models do not build
+# yet, with the value that needs nothing (maskdit_tpu/train/trainer.py:
+# 158-159 and generate.py:150-151 read them)
+NOT_PORTED_MODEL_KEYS = {"pad_cls_token": False, "ext_feature_dim": 0}
+
+
+def check_model_keys(model_config) -> None:
+    """Raise NotImplementedError where a config's model section asks for
+    something the port would otherwise build silently without: a cls token
+    or external features. Takes a dict or a config object with ``get``."""
+    for key, default in NOT_PORTED_MODEL_KEYS.items():
+        value = model_config.get(key, default)
+        if value != default:
+            raise NotImplementedError(f"model.{key}={value!r} is not ported yet")
+
 
 def create_model(
     precond: str = "edm",

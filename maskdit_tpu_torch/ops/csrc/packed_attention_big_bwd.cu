@@ -11,14 +11,20 @@
 // delta) * scale rounded to the input type before the dq and dk products;
 // fp32 accumulation, dk and dv over all queries, each rounded once.
 //
-// What bounds it: six L x L x hd products per head (s, o, dv, dp, dq, dk;
-// eight here, with the key pass's recomputed s and dp), 12-16 N H L^2 hd
-// operations against ~(10 L hd) bytes per head: bound by arithmetic, done
-// with fp32 FMAs from shared memory as in the forward; wgmma is later work.
+// What bounds it: six L x L x hd products per head (s, o, dv, dp, dq, dk),
+// 12 N H L^2 hd operations against ~(10 L hd) bytes per head: bound by
+// arithmetic.
 //
-// The design keeps the deterministic two-pass structure of
-// packed_attention_bwd.cu (the TPU kernel's sequential sum over query
-// chunks becomes a second pass, not atomics), with K, V, Q and dO streamed
+// bf16 (the main path) runs attention_bwd_mma.cuh's tensor-core kernels,
+// shared with packed_attention_bwd.cu: a query kernel (m, l, o and delta,
+// then dq) and a key kernel (dk and dv) over blocks of 64 rows, every
+// product a bf16 mma.sync with fp32 accumulators, Q, K, V and dO streamed in
+// 64-row tiles by cp.async; shared memory 86,016 B at hd 72 at every L.
+//
+// fp32 (the parity path, held to 1e-5 of max|ref|: no TF32) keeps the first
+// design, fp32 FMAs from shared memory, with the deterministic two-pass
+// structure of packed_attention_bwd.cu (the TPU kernel's sequential sum over
+// query chunks becomes a second pass, not atomics), K, V, Q and dO streamed
 // in tiles of 64 rows because one head's operands at L 1024 do not fit a
 // block's shared memory:
 //   * query pass, grid (ceil(L/32), H, N): the block keeps its (32, L) fp32
@@ -40,6 +46,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "attention_bwd_mma.cuh"
 
 namespace {
 
@@ -613,9 +621,11 @@ cudaError_t launch(const void* qkv, const void* dout, void* dqkv, float* stats,
 
 extern "C" {
 
-// Bytes of dynamic shared memory the larger of the two passes needs per
-// block (the same for bf16 and fp32: operands are widened to fp32).
-size_t packed_attention_big_bwd_smem_bytes(int l, int hd) {
+// Bytes of dynamic shared memory the larger of the two kernels needs per
+// block: for bf16 (esize 2) the tensor-core kernels', the same at every l;
+// for fp32 (esize 4) the two passes' (operands widened to fp32).
+size_t packed_attention_big_bwd_smem_bytes(int l, int hd, int esize) {
+  if (esize == 2) return attention_bwd_mma::smem_bytes(hd);
   const size_t q = query_layout((l + kTile - 1) / kTile * kTile, hd).total;
   const size_t k = key_layout(hd).total;
   return q > k ? q : k;
@@ -636,9 +646,13 @@ int packed_attention_big_bwd(const void* qkv, const void* dout, void* dqkv, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   switch (dtype) {
-    case 0:
-      return static_cast<int>(
-          launch<__nv_bfloat16>(qkv, dout, dqkv, st, n, l, heads, hd, scale, s));
+    case 0: {
+      using attention_bwd_mma::bf16;
+      const attention_bwd_mma::PackedQkv problem{static_cast<const bf16*>(qkv),
+                                                 static_cast<const bf16*>(dout),
+                                                 static_cast<bf16*>(dqkv), st, n, heads};
+      return static_cast<int>(attention_bwd_mma::launch(problem, l, hd, scale, s));
+    }
     case 1:
       return static_cast<int>(launch<float>(qkv, dout, dqkv, st, n, l, heads, hd, scale, s));
     default:

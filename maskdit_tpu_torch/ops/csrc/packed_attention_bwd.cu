@@ -13,14 +13,17 @@
 //
 // What bounds it: at the training shapes (L 128 hd 72, L 256 hd 32) one
 // head's operands are 37-74 KB, so, like the forward, the kernel is bound
-// by arithmetic: five (L x L x hd) products per head, done here with fp32
-// FMAs from shared memory (hd 72 is not a multiple of the bf16 MMA k-step,
-// and fp32 inputs take the same path). Register pressure of the 4 x 8
-// accumulator tiles is the next limit; wgmma, TMA and pipelining are later
-// work.
+// by arithmetic: six (L x L x hd) products per head.
 //
-// The design. The TPU kernel loops over all heads of one sample in one
-// sequential grid step. Here blocks run in no order, and dk and dv are sums
+// bf16 at a head dim that is a multiple of 8 (every model's: the main path)
+// runs attention_bwd_mma.cuh's tensor-core kernels, shared with
+// packed_attention_big_bwd.cu (kernel #4 computes the same function): every
+// product a bf16 mma.sync with fp32 accumulators, K, V, Q and dO streamed in
+// 64-row tiles, so shared memory does not grow with L (86,016 B at hd 72).
+//
+// fp32 (the parity path), and bf16 at other head dims, keep the first
+// design, fp32 FMAs from shared memory. The TPU kernel loops over all heads
+// of one sample in one sequential grid step. Here blocks run in no order, and dk and dv are sums
 // over all queries, so the work is split in two passes that need no
 // atomics and give the same bits on every run:
 //   * pass 1, grid (L/32 query blocks, H, N): a block recomputes the
@@ -41,6 +44,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "attention_bwd_mma.cuh"
 
 namespace {
 
@@ -536,9 +541,12 @@ cudaError_t launch(const void* qkv, const void* dout, void* dqkv, float* stats,
 
 extern "C" {
 
-// Bytes of dynamic shared memory the larger of the two passes needs per block.
+// Bytes of dynamic shared memory the larger of the two kernels needs per
+// block: for bf16 (esize 2) at a head dim that is a multiple of 8 the
+// tensor-core kernels', the same at every l; else the two passes' (operands
+// widened to fp32).
 size_t packed_attention_bwd_smem_bytes(int l, int hd, int esize) {
-  (void)esize;  // operands are widened to fp32 in shared memory
+  if (esize == 2 && hd % 8 == 0) return attention_bwd_mma::smem_bytes(hd);
   const int lp = (l + 31) & ~31;
   const size_t q = query_layout(lp, hd).total;
   const size_t k = key_layout(lp, hd).total;
@@ -547,8 +555,10 @@ size_t packed_attention_bwd_smem_bytes(int l, int hd, int esize) {
 
 // dtype: 0 = bfloat16, 1 = float32. qkv (n, l, 3*heads*hd), dout
 // (n, l, heads*hd) and dqkv (n, l, 3*heads*hd) are contiguous in dtype;
-// stats is fp32 scratch of 3*n*heads*l; all on the current device. Launches
-// both passes on the stream and returns the cudaError_t (0 on success).
+// stats is fp32 scratch of 3*n*heads*l; all on the current device; in bf16
+// at a head dim that is a multiple of 8, qkv and dout 16-byte aligned.
+// Launches both kernels on the stream and returns the cudaError_t (0 on
+// success).
 int packed_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
                          int n, int l, int heads, int hd, float scale, int dtype,
                          void* stream) {
@@ -558,9 +568,19 @@ int packed_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* st
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   switch (dtype) {
-    case 0:
-      return static_cast<int>(
-          launch<__nv_bfloat16>(qkv, dout, dqkv, st, n, l, heads, hd, scale, s));
+    case 0: {
+      if (hd % 8 != 0)
+        return static_cast<int>(
+            launch<__nv_bfloat16>(qkv, dout, dqkv, st, n, l, heads, hd, scale, s));
+      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+          reinterpret_cast<uintptr_t>(dout) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      using attention_bwd_mma::bf16;
+      const attention_bwd_mma::PackedQkv problem{static_cast<const bf16*>(qkv),
+                                                 static_cast<const bf16*>(dout),
+                                                 static_cast<bf16*>(dqkv), st, n, heads};
+      return static_cast<int>(attention_bwd_mma::launch(problem, l, hd, scale, s));
+    }
     case 1:
       return static_cast<int>(launch<float>(qkv, dout, dqkv, st, n, l, heads, hd, scale, s));
     default:

@@ -14,8 +14,9 @@ ops/flash_big.py too.
     ``packed_attention_reference`` and ``packed_attention_bwd_reference``;
   * a CUDA tensor launches the hand-written kernels in
     ``csrc/packed_attention_fwd.cu`` (replaces the Pallas ``_packed_fwd``)
-    and ``csrc/packed_attention_bwd.cu`` (replaces ``_packed_bwd``), or
-    raises.
+    and ``csrc/packed_attention_bwd.cu`` (replaces ``_packed_bwd``; in bf16
+    the tensor-core kernels of ``csrc/attention_bwd_mma.cuh``, shared with
+    ops/flash_big.py, see ``bwd_kernel``), or raises.
 
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
 kernel launches and nothing else, so a run can show that it went through
@@ -57,10 +58,31 @@ def fwd_smem_bytes(l: int, hd: int, esize: int) -> int:
     return red + 2 * 8 * 32 * 4
 
 
-def bwd_smem_bytes(l: int, hd: int) -> int:
-    """Shared memory of the larger of the backward's two passes:
-    ``query_layout`` and ``key_layout`` of csrc/packed_attention_bwd.cu
-    (operands widened to fp32, rows padded to hd + 1 words)."""
+def mma_bwd_smem_bytes(hd: int) -> int:
+    """Shared memory of the larger of the bf16 tensor-core backward's two
+    kernels (csrc/attention_bwd_mma.cuh ``smem_bytes``, shared with
+    ops/flash_big.py): the key kernel's K and V tiles and Q and dO rings, six
+    bf16 [64][hd16 + 8] tiles, hd16 = hd padded to a multiple of 16, and its
+    pb and ds tiles, bf16 [64][72] each; the same at every L."""
+    hd16 = -(-hd // 16) * 16
+    return 6 * 64 * (hd16 + 8) * 2 + 2 * 64 * 72 * 2
+
+
+def bwd_kernel(dtype: torch.dtype, hd: int) -> str:
+    """Which backward kernels a call runs: 'mma', the tensor-core kernels of
+    csrc/attention_bwd_mma.cuh, for bf16 at a head dim that is a multiple of
+    8 (every model's); 'fma', the fp32-FMA kernels, otherwise."""
+    return "mma" if dtype == torch.bfloat16 and hd % 8 == 0 else "fma"
+
+
+def bwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
+    """Shared memory of the larger of the backward's two kernels for inputs
+    of ``esize`` bytes. bf16 (2) at a head dim that is a multiple of 8:
+    ``mma_bwd_smem_bytes``. Else ``query_layout`` and ``key_layout`` of
+    csrc/packed_attention_bwd.cu (operands widened to fp32, rows padded to
+    hd + 1 words)."""
+    if esize == 2 and hd % 8 == 0:
+        return mma_bwd_smem_bytes(hd)
     lp = -(-l // 32) * 32
     rows = lp * (hd + 1) * 4
     dout = _align16(hd * 32 * 4)
@@ -75,8 +97,8 @@ def bwd_smem_bytes(l: int, hd: int) -> int:
 
 def fits(l: int, hd: int, backward: bool) -> bool:
     """The kernels launch at (L, hd) for either input type: the forward's
-    layout at fp32 (the larger) fits the card's limit, and the backward's
-    too where a backward will be taken."""
+    and, where a backward will be taken, the backward's layout at fp32 (the
+    larger) fit the card's limit."""
     return (hd <= MAX_HEAD_DIM and fwd_smem_bytes(l, hd, 4) <= SMEM_LIMIT
             and (not backward or bwd_smem_bytes(l, hd) <= SMEM_LIMIT))
 
@@ -230,9 +252,10 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
 def _launch_bwd(
     qkv: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
+    hd = qkv.shape[-1] // 3 // num_heads
     dqkv = launch("packed_attention_bwd", _bwd_library, "packed_attention_bwd",
-                  "packed_attention_bwd_error_string", lambda l, hd, _: bwd_smem_bytes(l, hd),
-                  qkv, num_heads, scale, dout)
+                  "packed_attention_bwd_error_string", bwd_smem_bytes, qkv, num_heads, scale,
+                  dout, aligned=bwd_kernel(qkv.dtype, hd) == "mma")
     packed_attention_bwd.launches += 1
     return dqkv
 

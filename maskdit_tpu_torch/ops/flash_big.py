@@ -16,8 +16,9 @@ the card (models/layers.attention_route).
   * a CUDA tensor launches ``csrc/packed_attention_big_fwd.cu`` (replaces
     ``_big_fwd``; in bf16 the tensor-core kernel of
     ``csrc/attention_fwd_mma.cuh``, shared with ops/flash.py) and
-    ``csrc/packed_attention_big_bwd.cu`` (replaces ``_big_bwd``), or
-    raises.
+    ``csrc/packed_attention_big_bwd.cu`` (replaces ``_big_bwd``; in bf16
+    the tensor-core kernels of ``csrc/attention_bwd_mma.cuh``, shared with
+    ops/flash_batched.py), or raises.
 
 ``packed_attention_big`` applies flash_batched's ``AttentionFunction``,
 which saves only qkv, as the custom VJP does (flash_big.py:198-249); the
@@ -43,6 +44,7 @@ from maskdit_tpu_torch.ops.flash_batched import (
     AttentionFunction,
     _align16,
     launch,
+    mma_bwd_smem_bytes,
 )
 
 KERNEL = "packed_attention_big_fwd"
@@ -78,9 +80,13 @@ def fwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
     return red + 2 * 8 * 32 * 4
 
 
-def bwd_smem_bytes(l: int, hd: int) -> int:
-    """Shared memory of the larger of the backward's two passes,
-    ``query_layout`` and ``key_layout`` of csrc/packed_attention_big_bwd.cu."""
+def bwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
+    """Shared memory of the larger of the backward's two kernels for inputs
+    of ``esize`` bytes. bf16 (2): flash_batched's ``mma_bwd_smem_bytes``
+    (the tensor-core kernels both backwards share). fp32 (4): ``query_layout``
+    and ``key_layout`` of csrc/packed_attention_big_bwd.cu."""
+    if esize == 2:
+        return mma_bwd_smem_bytes(hd)
     lp = -(-l // TILE) * TILE
     tile = 2 * TILE * (hd + 1) * 4
     dout = _align16(hd * 32 * 4)
@@ -96,8 +102,8 @@ def bwd_smem_bytes(l: int, hd: int) -> int:
 def fits(l: int, head_dim: int) -> bool:
     """The kernels launch at (L, head_dim), at any L and for either input
     type: head_dim a multiple of 8 (their 16-byte tile loads) and at most
-    128, and both kernels' shared memory within a block's 232,448 B (the
-    forward's at fp32, the larger layout)."""
+    128, and both kernels' shared memory within a block's 232,448 B (at
+    fp32, the larger layouts)."""
     return (
         head_dim % 8 == 0 and 0 < head_dim <= MAX_HEAD_DIM
         and fwd_smem_bytes(l, head_dim) <= SMEM_LIMIT
@@ -210,7 +216,7 @@ def _bwd_library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.packed_attention_big_bwd.restype = ctypes.c_int
-    lib.packed_attention_big_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.packed_attention_big_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.packed_attention_big_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.packed_attention_big_bwd_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_big_bwd_error_string.restype = ctypes.c_char_p
@@ -229,8 +235,8 @@ def _launch_bwd(
     qkv: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
     dqkv = launch("packed_attention_big_bwd", _bwd_library, "packed_attention_big_bwd",
-                  "packed_attention_big_bwd_error_string", lambda l, hd, _: bwd_smem_bytes(l, hd),
-                  qkv, num_heads, scale, dout, aligned=True)
+                  "packed_attention_big_bwd_error_string", bwd_smem_bytes, qkv, num_heads, scale,
+                  dout, aligned=True)
     packed_attention_big_bwd.launches += 1
     return dqkv
 

@@ -4,8 +4,11 @@ Counterpart of maskdit_tpu/train/trainer.py (the reference train.py:35-291)
 without the mesh, sharding, orbax, WDS streaming, the eval hook and
 pad-to-max masking. Kept: the experiment naming, mask-ratio bucketing with
 one train step per bucket, the learning-rate schedule mirror for logging,
-resume from the newest checkpoint, the save on SIGTERM/SIGINT, and the log
-line (loss, steps/s, images/s, MFU, peak device memory).
+resume from the newest checkpoint (each step's draws are seeded from the
+seed and the step, so a resumed run draws what a straight run would), the
+save on SIGTERM/SIGINT, and the log line (loss, steps/s, images/s, MFU, peak
+device memory). Model keys the port does not build yet raise (see
+``check_model_keys``).
 
 On a CUDA device every attention call and every optimizer update launches
 the port's kernels; there is no switch. ``model.use_flash`` picks the
@@ -24,7 +27,7 @@ import torch
 
 from maskdit_tpu_torch.data.datasets import SyntheticLatentDataset
 from maskdit_tpu_torch.data.loader import DataLoader, prefetch, to_device
-from maskdit_tpu_torch.models.precond import create_model
+from maskdit_tpu_torch.models.precond import check_model_keys, create_model
 from maskdit_tpu_torch.train.schedules import bucket_ratio, get_mask_ratio_fn
 from maskdit_tpu_torch.train.state import create_train_state, make_optimizer, make_train_step
 from maskdit_tpu_torch.utils.ckpt import CheckpointManager, load_reference_checkpoint
@@ -36,6 +39,15 @@ NOT_PORTED = {
     "amp_grads": False, "accum_dtype": None, "nu_dtype": None, "pad_to_max": False,
     "ema_every": 1, "accum_unroll": 1, "peel_last_micro": False,
 }
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of the draws of train step ``step`` (moment noise, label
+    dropout, sigma, noise, masks): a function of (seed, step) alone, as the
+    JAX trainer folds the step into its key (``fold_in(rng, state.step)``,
+    maskdit_tpu/train/state.py:338). So a run resumed at step k draws what a
+    straight run draws at step k. The numbers are not threefry's."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
 
 
 def default_use_flash(grad_accum: int, seq_len: int) -> Optional[bool]:
@@ -96,6 +108,11 @@ class Trainer:
                 raise NotImplementedError(f"train.{key}={t[key]!r} is not ported yet")
         if m.get("precond", "edm") != "edm":
             raise NotImplementedError(f"model.precond '{m['precond']}' is not ported (edm only)")
+        check_model_keys(m)
+        data = config["data"]
+        if data.get("streaming", False) and data.get("category") not in ("wds", "webdataset"):
+            # the JAX trainer's check (maskdit_tpu/train/trainer.py:225-233)
+            raise ValueError("data.streaming requires data.category: wds")
 
         self.grad_accum = t.get("grad_accum", 1)
         self.global_batch = t["batchsize"] * self.grad_accum
@@ -224,7 +241,7 @@ class Trainer:
                 prev_handlers[sig] = signal.signal(sig, request_stop)
             except ValueError:
                 pass  # not the main thread
-        generator = torch.Generator(self.device).manual_seed(self.seed + 1)
+        generator = torch.Generator(self.device)
         throughput = Throughput()
         running: list[dict] = []
         step = self.start_step
@@ -239,6 +256,7 @@ class Trainer:
                 progress = (step - self.start_step) / max(self.max_steps, 1)
                 ratio = float(self.mask_ratio_fn(progress))
                 step_fn = self._step_for_ratio(ratio)
+                generator.manual_seed(step_seed(self.seed + 1, step))
                 running.append(step_fn(self.state, to_device(host_batch, self.device), generator))
                 step += 1
                 throughput.update(1, self.global_batch)

@@ -176,6 +176,7 @@ def test_shared_memory_formulas():
     assert flash_big.bwd_smem_bytes(1024, 128) == 231936
     assert flash_big.fwd_smem_bytes(1000, 72) == flash_big.fwd_smem_bytes(1024, 72)
     assert not flash_big.supports(16, 2048, 72)
+    assert flash_big.bwd_smem_bytes(1024, 72, 4) == flash_big.bwd_smem_bytes(1024, 72)
     # bf16 runs the tensor-core forward (csrc/attention_fwd_mma.cuh): four
     # bf16 [64][hd16 + 8] tiles, hd16 = hd padded to 16, the same at every L,
     # so four blocks fit an SM at hd 72; fits() keeps reading the fp32 layout
@@ -188,6 +189,28 @@ def test_shared_memory_formulas():
     for hd in range(8, 129, 8):
         assert flash_big.mma_fwd_smem_bytes(hd) == 4 * 64 * (-(-hd // 16) * 16 + 8) * 2
         assert flash_big.fwd_smem_bytes(1024, hd, 2) < flash_big.fwd_smem_bytes(64, hd, 4)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_bf16_backward_shared_memory_does_not_grow_with_l(hd):
+    """The bf16 tensor-core backward's shared memory
+    (csrc/attention_bwd_mma.cuh, both backwards): the key kernel's six
+    bf16 [64][hd16 + 8] tiles (its K and V, the Q and dO rings) and its pb
+    and ds tiles, bf16 [64][72]; the query kernel's four tiles are fewer.
+    The same at every L and within a block's limit at every head dim; the
+    route (``fits``) still reads the fp32 layouts."""
+    hd16 = -(-hd // 16) * 16
+    want = 6 * 64 * (hd16 + 8) * 2 + 2 * 64 * 72 * 2
+    assert flash_batched.mma_bwd_smem_bytes(hd) == want > 4 * 64 * (hd16 + 8) * 2
+    for l in (64, 128, 256, 512, 777, 1024, 2048, 4096):
+        assert flash_big.bwd_smem_bytes(l, hd, 2) == want <= flash_batched.SMEM_LIMIT
+        assert flash_batched.bwd_smem_bytes(l, hd, 2) == want
+    assert flash_batched.bwd_kernel(torch.bfloat16, hd) == "mma"
+    assert flash_batched.bwd_kernel(torch.float32, hd) == "fma"
+    # at hd 72: 86,016 B (two blocks per SM), where the whole-row fp32
+    # layout needs 236,544 B at L 256
+    assert flash_batched.mma_bwd_smem_bytes(72) == 86016
+    assert flash_batched.bwd_smem_bytes(256, 72) == 236544
 
 
 def _variant_bwd(qkv, dout, h, scale, acc=torch.float64, round_p=True, round_ds=True):
@@ -307,6 +330,101 @@ def test_two_pass_forward_rounds_where_the_plain_versions_do(hd):
     online, _ = _two_pass_forward(q, k, v, scale, online_output=True)
     assert _share(packed(online), ref_packed) > 0.2
     assert _share(online, ref_o) > 0.2
+
+
+def _three_stage_bwd(qkv, dout, h, scale, tile=64, fault=None):
+    """The bf16 tensor-core backward's arithmetic (csrc/attention_bwd_mma.cuh,
+    kernels #2 and #4) in torch on the CPU, for qkv (N, L, 3D) and dout
+    (N, L, D) in bf16; returns dqkv in bf16. Row pass: over tiles of
+    ``tile`` keys a running row max m and a sum l rescaled by exp(m_old -
+    m_new), in fp32; then p = exp(s - m) / l per tile, pb = p rounded to
+    bf16, o += pb v in fp32, delta = sum(do * o) from the unrounded o. Query
+    pass: per key tile, p rebuilt from m and l, dp = do v^T, ds = p (dp -
+    delta) scale rounded to bf16, dq += ds k. Key pass: per tile of ``tile``
+    queries, dv += pb^T do and dk += ds^T q, in fp32. ``fault``:
+    'delta_from_rounded_o' rounds o to bf16 before delta; 'ds_from_pb' forms
+    ds from pb instead of p."""
+    n, l, three_d = qkv.shape
+    hd = three_d // 3 // h
+    dt = qkv.dtype
+    q, k, v = flash_big._heads(qkv, h)
+    do = dout.reshape(n, l, h, hd).permute(0, 2, 1, 3).float()
+    tiles = [slice(t, t + tile) for t in range(0, l, tile)]
+    every = slice(None)
+
+    def logits(keys, rows=every):
+        return q[:, :, rows] @ k[:, :, keys].transpose(-1, -2) * scale
+
+    m = torch.full((n, h, l, 1), float("-inf"))
+    lsum = torch.zeros(n, h, l, 1)
+    for keys in tiles:
+        s = logits(keys)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        lsum = lsum * torch.exp(m - m_new) + torch.exp(s - m_new).sum(-1, keepdim=True)
+        m = m_new
+
+    def probs(keys, rows=every):
+        return torch.exp(logits(keys, rows) - m[:, :, rows]) / lsum[:, :, rows]
+
+    o = torch.zeros_like(q)
+    for keys in tiles:
+        o = o + probs(keys).to(dt).float() @ v[:, :, keys]
+    if fault == "delta_from_rounded_o":
+        o = o.to(dt).float()
+    delta = (do * o).sum(-1, keepdim=True)
+
+    def dscores(keys, rows=every):
+        p = probs(keys, rows)
+        if fault == "ds_from_pb":
+            p = p.to(dt).float()
+        dp = do[:, :, rows] @ v[:, :, keys].transpose(-1, -2)
+        return (p * (dp - delta[:, :, rows]) * scale).to(dt).float()
+
+    dq = torch.zeros_like(q)
+    for keys in tiles:
+        dq = dq + dscores(keys) @ k[:, :, keys]
+    dk, dv = torch.zeros_like(q), torch.zeros_like(q)
+    for rows in tiles:  # every key block sums over the query tiles in order
+        dv = dv + probs(every, rows).to(dt).float().transpose(-1, -2) @ do[:, :, rows]
+        dk = dk + dscores(every, rows).transpose(-1, -2) @ q[:, :, rows]
+    dqkv = torch.stack([dq, dk, dv]).to(dt)  # (3, N, H, L, hd)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(n, l, three_d)
+
+
+def _bf16_pallas_bwd(fn, qkv, dout):
+    """The JAX custom VJP ``fn`` (a Pallas kernel pair, in interpret mode)
+    on bf16 inputs: dqkv as fp32 torch."""
+    x = jnp.asarray(qkv.float().numpy()).astype(jnp.bfloat16)
+    _, vjp = jax.vjp(fn, x)
+    (dx,) = vjp(jnp.asarray(dout.float().numpy()).astype(jnp.bfloat16))
+    return torch.from_numpy(np.array(dx.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2, 72), (1, 1024, 2, 32), (1, 777, 2, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_three_stage_backward_rounds_where_the_plain_versions_do(interpret_mode, shape):
+    """The premise of the bf16 tensor-core backward (#2 and #4): its three
+    stages over 64-row tiles, with p rebuilt from the saved m and l, delta
+    from the fp32 o and ds from the fp32 p, differ from both plain versions
+    (packed_attention_big_bwd_reference, packed_attention_bwd_reference) and,
+    at the JAX window's L, from the Pallas ``_big_bwd`` in interpret mode in
+    under 0.5% of the bf16 outputs (summation order: here 0.03-0.16%). A
+    moved rounding point differs in over 10%: delta from the bf16-rounded o
+    (12-15% here) or ds from pb instead of p (35-37%)."""
+    n, l, h, hd = shape
+    qkv, dout = _inputs(n, l, h, hd, seed=14 + l + hd)
+    x, g = torch.from_numpy(qkv).bfloat16(), torch.from_numpy(dout).bfloat16()
+    scale = hd ** -0.5
+    got = _three_stage_bwd(x, g, h, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    ref = flash_big.packed_attention_big_bwd_reference(x, g, h, scale)
+    assert _share(got, ref) < 0.005
+    assert _share(got, flash_batched.packed_attention_bwd_reference(x, g, h, scale)) < 0.005
+    if jax_big.supports(h, l, hd):
+        theirs = _bf16_pallas_bwd(lambda a: jax_big.packed_attention_big(a, h, scale), x, g)
+        assert _share(got, theirs) < 0.005
+    for fault in ("delta_from_rounded_o", "ds_from_pb"):
+        assert _share(_three_stage_bwd(x, g, h, scale, fault=fault), ref) > 0.1, fault
 
 
 def _rn32(x: Fraction) -> Fraction:

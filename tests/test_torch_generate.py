@@ -126,6 +126,33 @@ def test_cli_writes_latents_from_reference_checkpoint(nets, tmp_path, model_flag
     assert z.shape == (5, CIN, RES, RES) and np.isfinite(z).all()
 
 
+@pytest.mark.parametrize("key,value,default", [("pad_cls_token", "True", "False"),
+                                               ("ext_feature_dim", "16", "0")])
+def test_cli_raises_on_model_keys_it_does_not_build(nets, tmp_path, key, value, default):
+    """--config's model keys the JAX CLI reads (generate.py:150-151) and the
+    port does not build yet raise, where the port would otherwise sample a
+    different model; at their defaults the CLI samples."""
+    _, _, model = nets
+    ckpt = tmp_path / "tiny.pt"
+    torch.save({"ema": model.state_dict()}, ckpt)
+    argv = ["--ckpt_path", str(ckpt), "--no_decode", "--seeds", "0-1", "--num_steps", "2",
+            "--fp32", "--device", "cpu"]
+    for v, outdir in ((value, tmp_path / "raises"), (default, tmp_path / "samples")):
+        config = tmp_path / f"model-{v}.yaml"
+        config.write_text(
+            "model:\n  precond: edm\n  model_type: DiT-S/2\n"
+            f"  in_size: {RES}\n  in_channels: {CIN}\n  num_classes: {K}\n"
+            f"  use_decoder: True\n  mae_loss_coef: 0.1\n  {key}: {v}\n"
+        )
+        run = lambda: generate.main([*argv, "--outdir", str(outdir), "--config", str(config)])
+        if v == value:
+            with pytest.raises(NotImplementedError, match=f"model.{key}"):
+                run()
+            assert not outdir.exists()
+        else:
+            assert run()["images"] == 2
+
+
 def test_cli_without_no_decode_says_vae_is_not_ported(nets, tmp_path):
     with pytest.raises(NotImplementedError, match="VAE"):
         generate.main(["--ckpt_path", str(tmp_path / "none.pt"),

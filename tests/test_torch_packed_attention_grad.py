@@ -16,6 +16,7 @@ import torch
 
 from maskdit_tpu.ops import flash_batched as jax_fb
 from maskdit_tpu_torch.ops import flash_batched
+from tests.test_torch_flash_big import _bf16_pallas_bwd, _share, _three_stage_bwd
 
 # fp32 on both sides, five products of length L (<= 256) summed in other
 # orders: |dqkv| reaches ~2 at these inputs and the two differ by < 1e-6
@@ -49,6 +50,42 @@ def test_backward_matches_pallas_kernel(interpret_mode, shape):
     flash_batched.packed_attention(x, h, scale).backward(torch.from_numpy(dout))
     assert x.grad.shape == qkv.shape and x.grad.dtype == torch.float32
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(theirs), atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(3, 4, 77, 40)], ids=lambda s: "x".join(map(str, s)))
+def test_three_stage_backward_matches_plain_version_and_pallas_kernel(interpret_mode, shape):
+    """The bf16 tensor-core backward's three stages
+    (tests/test_torch_flash_big.py's emulation of csrc/attention_bwd_mma.cuh)
+    at the whole-row shapes, L not a multiple of its 64-row tiles included:
+    under 0.5% of the bf16 outputs differ from packed_attention_bwd_reference
+    and from the Pallas ``_packed_bwd`` in interpret mode (summation order),
+    over 10% where ds is formed from pb instead of p."""
+    n, h, l, hd = shape
+    qkv, dout = _inputs(n, h, l, hd, seed=20 + l + hd)
+    x, g = torch.from_numpy(qkv).bfloat16(), torch.from_numpy(dout).bfloat16()
+    scale = hd ** -0.5
+    got = _three_stage_bwd(x, g, h, scale)
+    ref = flash_batched.packed_attention_bwd_reference(x, g, h, scale)
+    assert _share(got, ref) < 0.005
+    theirs = _bf16_pallas_bwd(lambda a: jax_fb.packed_attention(a, h, scale), x, g)
+    assert _share(got, theirs) < 0.005
+    assert _share(_three_stage_bwd(x, g, h, scale, fault="ds_from_pb"), ref) > 0.1
+
+
+def test_bwd_smem_bytes_takes_the_element_size():
+    """bf16 at a head dim that is a multiple of 8 takes the tensor-core
+    kernels' layout, the same at every L (86,016 B at hd 72, where the fp32
+    layout needs 236,544 B at L 256, over a block's 232,448 B); fp32, and
+    bf16 at other head dims, the fp32-FMA kernels' layout, which grows with
+    L and which ``fits`` (the route) reads."""
+    assert flash_batched.bwd_smem_bytes(256, 72, 2) == flash_batched.bwd_smem_bytes(128, 72, 2)
+    assert flash_batched.bwd_smem_bytes(256, 72, 2) == 86016 <= flash_batched.SMEM_LIMIT
+    assert flash_batched.bwd_smem_bytes(256, 72, 4) == flash_batched.bwd_smem_bytes(256, 72)
+    assert flash_batched.bwd_smem_bytes(256, 72) == 236544 > flash_batched.SMEM_LIMIT
+    assert not flash_batched.fits(256, 72, True) and flash_batched.fits(256, 72, False)
+    assert flash_batched.bwd_smem_bytes(256, 20, 2) == flash_batched.bwd_smem_bytes(256, 20, 4)
+    assert flash_batched.bwd_kernel(torch.bfloat16, 20) == "fma"
+    assert flash_batched.bwd_smem_bytes(128, 72, 4) < flash_batched.bwd_smem_bytes(256, 72, 4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -135,6 +135,80 @@ def test_unported_options_raise(tiny_port, tmp_path):
             Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
 
 
+@pytest.mark.parametrize("override,error,default", [
+    ("model.pad_cls_token=true", NotImplementedError, "model.pad_cls_token=false"),
+    ("model.ext_feature_dim=16", NotImplementedError, "model.ext_feature_dim=0"),
+    ("data.streaming=true", ValueError, "data.streaming=false"),
+], ids=["pad_cls_token", "ext_feature_dim", "streaming"])
+def test_config_keys_the_port_would_ignore_raise(tiny_port, tmp_path, override, error, default):
+    """The JAX trainer builds a cls token and external features from these
+    model keys (maskdit_tpu/train/trainer.py:158-159) and refuses streaming
+    outside wds (:225-233); the port raises rather than train another model,
+    and takes each key at its default."""
+    key = override.split("=")[0]
+    cfg = cli.apply_overrides(cli.load_config(SMOKE), [override])
+    match = "data.streaming requires data.category: wds" if error is ValueError else key
+    with pytest.raises(error, match=match):
+        Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
+    cfg = cli.apply_overrides(cli.load_config(SMOKE), [default])
+    Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
+
+
+def _record_draws(trainer: Trainer, draws: list) -> None:
+    """Make each train step first record the first draws of the generator
+    it is handed (from a copy of it: the step's own draws are untouched)."""
+    real = trainer._step_for_ratio
+
+    def step_for_ratio(ratio):
+        step = real(ratio)
+
+        def run(state, batch, generator):
+            copy = torch.Generator(generator.device)
+            copy.set_state(generator.get_state())
+            draws.append(torch.rand(8, generator=copy))
+            return step(state, batch, generator)
+
+        return run
+
+    trainer._step_for_ratio = step_for_ratio
+
+
+def test_resumed_run_draws_what_a_straight_run_draws(tiny_port, tmp_path):
+    """A run of k steps resumed for k more draws, at steps k .. 2k-1, what a
+    straight run of 2k steps draws there (each step's draws depend on the
+    seed and the step, as the JAX trainer folds the step into its key), not
+    the draws of steps 0 .. k-1 again. With the same batch at every step (one
+    batch, no shuffle) the resumed run ends with the straight run's state,
+    bit for bit."""
+    k = 2
+    cfg = cli.apply_overrides(cli.load_config(SMOKE),
+                              ["data.length=8", "log.log_every=1", "log.ckpt_every=100"])
+
+    def trainer(results, steps, draws):
+        t = Trainer(cfg, results_dir=str(results), device="cpu", num_workers=1,
+                    max_steps_override=steps)
+        t.loader.shuffle = False  # the loader restarts at epoch 0 on resume
+        _record_draws(t, draws)
+        return t
+
+    straight_draws, resumed_draws = [], []
+    straight = trainer(tmp_path / "straight", 2 * k, straight_draws)
+    assert straight.train() == 2 * k
+    assert trainer(tmp_path / "resumed", k, resumed_draws).train() == k
+    resumed = trainer(tmp_path / "resumed", k, resumed_draws)
+    assert resumed.start_step == k and resumed.train() == 2 * k
+    assert len(straight_draws) == len(resumed_draws) == 2 * k
+    for a, b in zip(straight_draws, resumed_draws):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for s in range(k):
+        assert not torch.equal(straight_draws[k + s], straight_draws[s])
+    for name in ("params", "ema"):
+        assert torch.equal(getattr(straight.state, name), getattr(resumed.state, name)), name
+    for name in ("mu", "nu"):
+        assert torch.equal(getattr(straight.state.opt_state, name),
+                           getattr(resumed.state.opt_state, name)), name
+
+
 def test_chip_smoke_trains_the_released_config():
     """chip_smoke.py's JSON config is configs/train/imagenet256-latent.yaml's
     model and train sections, and its data shapes, except for the cuts it
