@@ -16,11 +16,13 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      update over all of DiT-XL/2's parameters; the blocked attention
      forward and backward at the 512-px shapes, at a ragged shape and at
      the unmasked 256-px encoder's, where one attention layer's route is
-     checked on the card; both bf16 forwards on the tensor cores (kernels
-     #3 and #5, csrc/attention_fwd_mma.cuh) and both bf16 backwards (#2 and
-     #4, csrc/attention_bwd_mma.cuh) at every head dim that is a multiple of
-     8 from 8 to 128; each backward row names the kernels that ran (mma or
-     fma);
+     checked on the card; every bf16 tensor-core kernel (the whole-row
+     forward #1, the blocked and flash forwards #3 and #5,
+     csrc/attention_fwd_mma.cuh, both packed backwards #2 and #4,
+     csrc/attention_bwd_mma.cuh, and the flash backward #6) at every head
+     dim that is a multiple of 8 from 8 to 128; each row of #1, #2, #4 and
+     #6 names the kernels that ran (mma or fma), and a bf16 one at such a
+     head dim that is not mma fails;
   4. sampling at 256 px (the serving path): a random DiT-XL/2 (decoder,
      MAE coef 0.1, 1000 classes, every parameter ~ N(0, 0.02^2)) saved as a
      reference ``{"ema": ...}`` checkpoint; ``maskdit_tpu_torch.generate``
@@ -100,6 +102,9 @@ ATTN_SHAPES = [
     ("train_encoder", TRAIN_BATCH, 128, 16, 72),
     ("train_decoder", TRAIN_BATCH, 256, 16, 32),
 ]
+# the whole-row forward (#1) also at a ragged shape: L not a multiple of the
+# 64-row tiles, hd 40
+ATTN_FWD_SHAPES = ATTN_SHAPES + [("ragged", 3, 77, 4, 40)]
 # kernel vs plain bound on max|kernel - plain| / max|plain| of the forward:
 # fp32 differs only by summation order; bf16 where that order flips one
 # rounding of p or of the output, by one bf16 ulp, at most 2^-7 of the
@@ -151,6 +156,9 @@ BIG_BWD_SHAPES = BIG_SHAPES[2:] + [RAGGED_BIG]
 # multiple of the flash window
 SWEEP_SHAPE = (2, 384, 4)
 SWEEP_HEAD_DIMS = range(8, 129, 8)
+# the whole-row forward (#1) over the same head dims at an L its route takes
+# at every one of them
+PACKED_SWEEP_SHAPE = (2, 128, 4)
 
 # ops/flash.py's kernels (#5, #6) at the use_flash path's 512-px shapes
 # (sampling: CFG batch 2 x 4 at L 1024; training: batch 32, the encoder at
@@ -375,8 +383,10 @@ def check_smem_formulas() -> None:
     fwd, bwd = flash_batched._library(), flash_batched._bwd_library()
     big, big_bwd = flash_big._library(), flash_big._bwd_library()
     fl, fl_bwd = flash._library(), flash._bwd_library()
-    for l, hd in ((128, 72), (256, 72), (256, 32), (512, 72), (777, 40), (1024, 32),
-                  (1024, 72), (1024, 128)):
+    # (896, 8) and (896, 16): bf16 past the whole-row tensor-core forward's
+    # limit, where the FMA kernel's layout holds
+    for l, hd in ((77, 40), (128, 72), (256, 72), (256, 32), (512, 72), (777, 40), (896, 8),
+                  (896, 16), (1024, 32), (1024, 72), (1024, 128)):
         for es in (2, 4):
             assert fwd.packed_attention_fwd_smem_bytes(l, hd, es) == \
                 flash_batched.fwd_smem_bytes(l, hd, es), (l, hd, es)
@@ -391,7 +401,8 @@ def check_smem_formulas() -> None:
                 flash.fwd_smem_bytes(l, hd, rows, 4), (l, hd, rows)
         assert fl.flash_fwd_smem_bytes(l, hd, flash.MMA_ROWS, 2) == \
             flash.fwd_smem_bytes(l, hd, flash.MMA_ROWS, 2), (l, hd)
-        assert fl_bwd.flash_bwd_smem_bytes(hd) == flash.bwd_smem_bytes(hd), hd
+        for es in (2, 4):
+            assert fl_bwd.flash_bwd_smem_bytes(hd, es) == flash.bwd_smem_bytes(hd, es), (hd, es)
     for l in (1408, 1536, 2048):  # where the flash forward's 32-row fp32 blocks stop fitting
         for rows in flash.BLOCK_ROWS:
             assert fl.flash_fwd_smem_bytes(l, 72, rows, 4) == flash.fwd_smem_bytes(l, 72, rows, 4)
@@ -404,9 +415,20 @@ def check_smem_formulas() -> None:
         assert bwd.packed_attention_bwd_smem_bytes(2048, hd, 2) == \
             big_bwd.packed_attention_big_bwd_smem_bytes(2048, hd, 2) == \
             flash_batched.mma_bwd_smem_bytes(hd), hd
-    log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 8 shapes "
-        "in bf16 and fp32, the flash forward's at 11, the tensor-core forward's and "
-        "backward's at 16 head dims")
+        assert fl_bwd.flash_bwd_smem_bytes(hd, 2) == flash.bwd_smem_bytes(hd, 2), hd
+        # the whole-row forward (#1): the tensor-core kernel at every L of
+        # the route up to 832, and its layout where it runs
+        for l in (77, 128, 256, 384, 600, 832):
+            assert fwd.packed_attention_fwd_smem_bytes(l, hd, 2) == \
+                flash_batched.fwd_smem_bytes(l, hd, 2), (l, hd)
+            if flash_batched.fits(l, hd, False):
+                assert flash_batched.fwd_kernel(torch.bfloat16, l, hd) == "mma", (l, hd)
+                assert fwd.packed_attention_fwd_smem_bytes(l, hd, 2) == \
+                    flash_batched.mma_fwd_smem_bytes(l, hd), (l, hd)
+    log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 11 shapes "
+        "in bf16 and fp32, the flash forward's at 14, the tensor-core kernels' (the blocked "
+        "forward, both packed backwards, the flash backward, the whole-row forward at 6 L) "
+        "at 16 head dims")
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
@@ -422,9 +444,18 @@ def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
     return err, bnd, share, ok
 
 
-def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -> dict:
+def check_variant(what: str, dtype: torch.dtype, hd: int, variant: str) -> None:
+    """A bf16 call at a head dim that is a multiple of 8 runs the
+    tensor-core kernels ('mma'), never the FMA ones."""
+    if dtype == torch.bfloat16 and hd % 8 == 0 and variant != "mma":
+        raise AssertionError(f"{what}: bf16 at hd {hd} ran the {variant} kernel, not mma")
+
+
+def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
+                       variant=None) -> dict:
     """The forward wrapper ``kernel`` against ``plain`` at each shape and
-    type: error, kernel, plain and library times, bound."""
+    type: error, kernel, plain and library times, bound. ``variant(dtype,
+    L, hd)``, where given, names the kernel that ran (mma or fma)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
     for name, n, l, h, hd in shapes:
@@ -444,7 +475,11 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
             library_ms = library_attention_ms(qkv, h, scale, iters)
             bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 2, 4)
             dt = dtype_name(dtype)
-            log(f"[{tag}] {name} N={n} L={l} H={h} hd={hd} {dt}: max_abs_err {err:.3e} "
+            ran = ""
+            if variant is not None:
+                ran = f" ({variant(dtype, l, hd)})"
+                check_variant(f"{tag} {name}", dtype, hd, variant(dtype, l, hd))
+            log(f"[{tag}] {name} N={n} L={l} H={h} hd={hd} {dt}{ran}: max_abs_err {err:.3e} "
                 f"(bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements "
                 f"differing {share:.5f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library (SDPA) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -452,8 +487,9 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
             if not (ok and launches == 1):
                 raise AssertionError(f"{tag} {name} {dt}: err {err} > {bnd}, share {share} "
                                      f"or {launches} launches")
-            results[(name, dt)] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by)
+            results[(name, dt)] = dict(err=err, share=share, ms=ms, plain_ms=plain_ms,
+                                       library_ms=library_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)
             del qkv
     free_device_memory()
     return results
@@ -484,6 +520,7 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
             library_ms = library_attention_ms(qkv, h, scale, iters, dout)
             bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 6, 7)
             dt = dtype_name(dtype)
+            check_variant(f"{tag} bwd {name}", dtype, hd, bwd_kernel(dtype, hd))
             log(f"[{tag}] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt} "
                 f"({bwd_kernel(dtype, hd)}): "
                 f"max_abs_err {err:.3e} (bound {bnd:.3e} = {BWD_REL_BOUND[dtype]:.0e} "
@@ -501,12 +538,49 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
     return results
 
 
+def check_packed_fwd_head_dims() -> None:
+    """The bf16 whole-row forward (#1) on the tensor cores launches once per
+    call and agrees with its plain version at every head dim of
+    SWEEP_HEAD_DIMS, at PACKED_SWEEP_SHAPE: FWD_REL_BOUND and
+    BF16_MISMATCH_BOUND."""
+    from maskdit_tpu_torch.ops import flash_batched
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    n, l, h = PACKED_SWEEP_SHAPE
+    kernel = flash_batched.packed_attention
+    worst, worst_share = 0.0, 0.0
+    for hd in SWEEP_HEAD_DIMS:
+        scale = hd ** -0.5
+        check_variant(f"whole-row forward hd sweep hd={hd}", bf16, hd,
+                      flash_batched.fwd_kernel(bf16, l, hd))
+        qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda").to(bf16)
+        before = kernel.launches
+        with torch.no_grad():
+            got = kernel(qkv, h, scale)
+        torch.cuda.synchronize()
+        launches = kernel.launches - before
+        err, bnd, share, ok = compare(got, flash_batched.packed_attention_reference(qkv, h, scale),
+                                      FWD_REL_BOUND[bf16], bf16)
+        if not (ok and launches == 1):
+            raise AssertionError(f"whole-row forward hd sweep hd={hd}: err {err} > {bnd}, share "
+                                 f"{share} or {launches} launches")
+        worst, worst_share = max(worst, err / bnd), max(worst_share, share)
+    log(f"[kernel] head dims: the bf16 whole-row forward (#1, mma) at (N, L, H) = "
+        f"{PACKED_SWEEP_SHAPE}, hd {SWEEP_HEAD_DIMS.start}-{SWEEP_HEAD_DIMS.stop - 1} step "
+        f"{SWEEP_HEAD_DIMS.step}: {len(SWEEP_HEAD_DIMS)} rows within their bounds; the worst "
+        f"error {worst:.3f} of its bound, the largest share of differing elements "
+        f"{worst_share:.5f}")
+
+
 def phase_kernels() -> dict:
     from maskdit_tpu_torch.ops import flash_batched
 
     check_smem_formulas()
-    return attention_fwd_rows("kernel", ATTN_SHAPES, flash_batched.packed_attention,
-                              flash_batched.packed_attention_reference, seed=0, iters=50)
+    check_packed_fwd_head_dims()
+    return attention_fwd_rows("kernel", ATTN_FWD_SHAPES, flash_batched.packed_attention,
+                              flash_batched.packed_attention_reference, seed=0, iters=50,
+                              variant=flash_batched.fwd_kernel)
 
 
 def phase_bwd_kernels() -> dict:
@@ -612,7 +686,9 @@ def flash_bwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype
                          do.view(n, h, l, hd))
     bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 5, 8, 1)
     dt = dtype_name(dtype)
-    log(f"[kernel-flash] bwd {name} N={n} L={l} H={h} hd={hd} {dt}: dq/dk/dv max_abs_err "
+    check_variant(f"flash bwd {name}", dtype, hd, flash.bwd_kernel(dtype))
+    log(f"[kernel-flash] bwd {name} N={n} L={l} H={h} hd={hd} {dt} ({flash.bwd_kernel(dtype)}): "
+        f"dq/dk/dv max_abs_err "
         f"{'/'.join(f'{c[0]:.3e}' for c in checks)} (bounds "
         f"{'/'.join(f'{c[1]:.3e}' for c in checks)} = {BWD_REL_BOUND[dtype]:.0e} x max|ref|), "
         f"elements differing {'/'.join(f'{c[2]:.5f}' for c in checks)}; kernel {ms:.4f} ms, "
@@ -736,12 +812,48 @@ def check_bwd_head_dims() -> None:
         f"its bound, the largest share of differing elements {worst_share:.5f}")
 
 
+def check_flash_bwd_head_dims() -> None:
+    """The bf16 flash backward (#6) on the tensor cores launches once per
+    call and agrees with its plain version (dq, dk, dv) at every head dim of
+    SWEEP_HEAD_DIMS, at SWEEP_SHAPE, on the forward kernel's residuals:
+    BWD_REL_BOUND and BF16_MISMATCH_BOUND."""
+    from maskdit_tpu_torch.ops import flash
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    bf16 = torch.bfloat16
+    n, l, h = SWEEP_SHAPE
+    check_variant("flash bwd hd sweep", bf16, 8, flash.bwd_kernel(bf16))
+    worst, worst_share = 0.0, 0.0
+    for hd in SWEEP_HEAD_DIMS:
+        scale = hd ** -0.5
+        q, k, v, do = (torch.randn(n * h, l, hd, generator=g, device="cuda").to(bf16)
+                       for _ in range(4))
+        o, lse = flash.flash_fwd(q, k, v, scale)
+        before = flash.flash_bwd.launches
+        got = flash.flash_bwd(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        launches = flash.flash_bwd.launches - before
+        ref = flash.flash_bwd_reference(q, k, v, o, lse, do, scale)
+        for a, b in zip(got, ref):
+            err, bnd, share, ok = compare(a, b, BWD_REL_BOUND[bf16], bf16)
+            if not (ok and launches == 1):
+                raise AssertionError(f"flash backward hd sweep hd={hd}: err {err} > {bnd}, share "
+                                     f"{share} or {launches} launches")
+            worst, worst_share = max(worst, err / bnd), max(worst_share, share)
+    log(f"[kernel-flash] head dims: the bf16 flash backward (#6, mma) at (N, L, H) = "
+        f"{SWEEP_SHAPE}, hd {SWEEP_HEAD_DIMS.start}-{SWEEP_HEAD_DIMS.stop - 1} step "
+        f"{SWEEP_HEAD_DIMS.step}: {len(SWEEP_HEAD_DIMS)} rows (dq, dk, dv) within their bounds; "
+        f"the worst error {worst:.3f} of its bound, the largest share of differing elements "
+        f"{worst_share:.5f}")
+
+
 def phase_flash_kernels() -> dict:
     """ops/flash.py's kernels (#5 and #6) over their window, both bf16
-    forwards over the head dims, then #5 and #6 at FLASH_SHAPES and
-    FLASH_BWD_SHAPES, bf16 and fp32."""
+    forwards and the bf16 flash backward over the head dims, then #5 and #6
+    at FLASH_SHAPES and FLASH_BWD_SHAPES, bf16 and fp32."""
     check_flash_window()
     check_fwd_head_dims()
+    check_flash_bwd_head_dims()
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {"fwd": {}, "bwd": {}}
     for key, shapes, row, iters in (("fwd", FLASH_SHAPES, flash_fwd_row, 10),
@@ -1374,7 +1486,7 @@ def main() -> None:
     count = lambda key: sum(p["launches"][key] for p in paths)
     print(json.dumps({"kernels": [
         kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",
-                    count("packed_fwd"), bf16(kernels, [s[0] for s in ATTN_SHAPES]),
+                    count("packed_fwd"), bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES]),
                     kernels[("encoder", "bfloat16")]),
         kernel_line("packed_attention_bwd", "packed_attention_bwd.cu", "flash_batched.py:177",
                     count("packed_bwd"), bf16(bwd, ["train_encoder", "train_decoder"]),

@@ -1,7 +1,9 @@
 // The bf16 attention backward on Hopper's tensor cores (sm_90a), shared by
 // packed_attention_bwd.cu (kernel #2, flash_batched._packed_bwd) and
-// packed_attention_big_bwd.cu (kernel #4, flash_big._big_bwd). Both compute,
-// per (sample, head), from q, k, v (rows of the packed qkv) and do:
+// packed_attention_big_bwd.cu (kernel #4, flash_big._big_bwd); flash_bwd.cu
+// (#6) builds its kernels from the helpers below, with its own rounding.
+// #2 and #4 compute, per (sample, head), from q, k, v (rows of the packed
+// qkv) and do:
 //   s = (q . k) * scale (fp32); m = max s; e = exp(s - m); l = sum e;
 //   p = e / l (fp32); pb = bf16(p); o = pb . v (fp32, not rounded);
 //   delta = sum(do * o) (fp32); dv = pb^T . do; dp = do . v^T;
@@ -57,9 +59,9 @@
 #include "attention_fwd_mma.cuh"
 
 namespace attention_bwd_mma {
-// Internal linkage: packed_attention_bwd.cu and packed_attention_big_bwd.cu
-// each build a copy into their own library, and both libraries are loaded
-// into one process. A template's static (launch_hd's ``configured`` flags)
+// Internal linkage: packed_attention_bwd.cu, packed_attention_big_bwd.cu
+// and flash_bwd.cu each build a copy into their own library, and all are
+// loaded into one process. A template's static (launch_hd's ``configured`` flags)
 // with external linkage is one object process-wide (a GNU unique symbol),
 // so the second library's kernels would skip their shared-memory opt-in.
 namespace {

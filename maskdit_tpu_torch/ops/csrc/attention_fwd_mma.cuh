@@ -1,6 +1,7 @@
 // The bf16 attention forward on Hopper's tensor cores (sm_90a), shared by
 // flash_fwd.cu (kernel #5, flash._flash_fwd) and packed_attention_big_fwd.cu
-// (kernel #3, flash_big._big_fwd). Both compute, per (sample, head):
+// (kernel #3, flash_big._big_fwd); packed_attention_fwd.cu (#1) builds its
+// one-pass kernel from the helpers below. Both compute, per (sample, head):
 //   s = (q . k) * scale in fp32; m = max s; p = exp(s - m); l = sum p;
 //   o = (p / l rounded to bf16) . v accumulated in fp32, stored in bf16;
 // #5 also writes lse = m + log l in fp32. They differ only in where a head's

@@ -4,33 +4,53 @@
 // (body _fwd_kernel). It reads the packed qkv Dense output (N, L, 3D) in
 // place and writes (N, L, D): head h reads q at features [h*hd, (h+1)*hd),
 // k at [D + h*hd, ...) and v at [2D + h*hd, ...) of each row. Logits and
-// softmax are fp32, the probabilities are rounded to the input type before
-// the product with v (as flash_batched.py:89 and attention.py:49 do), the
-// product accumulates in fp32 and the output is stored in the input type.
+// softmax are fp32 over the whole row: s = (q k) scale, m = max s, p =
+// exp(s - m), l = sum p; p / l is rounded once to the input type before the
+// product with v (flash_batched.py:89, attention.py:49), which accumulates
+// in fp32; the output is stored in the input type.
 //
-// What bounds it: at the sampling shapes (L=256, hd 72 or 32) one head's
-// K and V are 18-74 KB, so the kernel is bound by arithmetic, not by device
-// memory. This first version does that arithmetic with fp32 FMAs (hd=72 is
-// not a multiple of the 16-wide bf16 MMA k-step, and the fp32 path needs
-// FMAs anyway), so its ceiling is the card's fp32 rate, not its tensor
-// cores; the loads from shared memory that feed each FMA are the next limit.
+// What bounds it: the TPU kernel's two L x L x hd products, 4 N H L^2 hd
+// operations, against ~4 N L D elements of traffic: at the main path's
+// shapes (L 128 or 256) the card's memory rate and its tensor-core rate set
+// bounds within ~2x of each other, so both count.
 //
-// The simple design:
-//   * grid (ceil(L/32), H, N): one block per 32 queries of one head of one
-//     sample, so even a CFG batch of 2x8 gives 2048 blocks for 132 SMs;
-//   * the block copies the head's K (transposed to [hd][L]) and V ([L][hd])
-//     once into dynamic shared memory, with 16-byte loads where the strides
-//     allow; the TPU kernel's in-kernel tile transpose is not carried over;
-//   * the (32, L) fp32 logits never leave shared memory: each warp computes
-//     4 queries x 8 key columns per pass, the softmax runs over columns in
-//     fp32, and each warp then accumulates its 4 queries' outputs.
-// wgmma, TMA and pipelining are later work.
+// bf16 at a head dim that is a multiple of 8 (every model's, the main path):
+// the tensor cores, one pass over the keys with s kept on chip. The route
+// (flash_batched.fits) only sends shapes whose whole row fits a block, so
+// unlike the blocked forward (attention_fwd_mma.cuh's two passes) s is
+// formed once. Grid (ceil(L / 64), H, N), 4 warps of 16 queries, each
+// holding its Q rows as mma A fragments (mma.sync m16n8k16, bf16 in, fp32
+// accumulate; the header's tiles, cp.async rings, ldmatrix and div_rn):
+//   1. over the key tiles: S = Q K^T, the exact row max m, and s itself,
+//      which each thread keeps in shared memory in its own accumulator
+//      layout (float4 per n-tile, lane-major: no bank conflicts and no
+//      barrier), L / 2 floats per thread;
+//   2. over s on chip: e = exp(s - m), written back in place, l = sum e
+//      (by tiles, then across the quad);
+//   3. over the value tiles: p = div_rn(e, l), correctly rounded as e / l,
+//      rounded to bf16 in registers, where the m16n8 accumulators become
+//      the A fragments of o += P V.
+// Two products and one expf per logit. Keys past L get s = -inf; queries
+// past L are not stored. Shared memory: the K and V rings, 4 bf16
+// [64][hd16 + 8] tiles, and s, 64 x L fp32 (L padded to 64): 77,824 B at
+// (L 128, hd 72), 110,592 B at (256, 72), 86,016 B at (256, 32). Where
+// that exceeds a block's limit (hd 8 and 16 at L above 832, where the
+// route's fp32 layout may still fit) the FMA kernel below runs.
+//
+// fp32 (the parity path) and bf16 at other head dims keep the first
+// design, fp32 FMAs: grid (ceil(L/32), H, N); the block copies the head's K
+// (transposed to [hd][L]) and V once into shared memory, the (32, L) fp32
+// logits stay there, each warp computes 4 queries x 8 key columns per
+// pass, the softmax runs over columns in fp32, and each warp accumulates
+// its 4 queries' outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "attention_fwd_mma.cuh"
 
 namespace {
 
@@ -239,6 +259,231 @@ packed_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   }
 }
 
+// ---- bf16: the whole-row tensor-core kernel ---------------------------------
+namespace mma_fwd {
+
+using attention_fwd_mma::bf16;
+using attention_fwd_mma::cp_async_commit;
+using attention_fwd_mma::cp_async_wait;
+using attention_fwd_mma::div_rn;
+using attention_fwd_mma::kKeys;
+using attention_fwd_mma::kRows;
+using attention_fwd_mma::kThreads;
+using attention_fwd_mma::ldmatrix_x2_trans;
+using attention_fwd_mma::ldmatrix_x4;
+using attention_fwd_mma::ldmatrix_x4_trans;
+using attention_fwd_mma::load_tile;
+using attention_fwd_mma::mma;
+using attention_fwd_mma::pack_bf16;
+using attention_fwd_mma::PackedQkv;
+using attention_fwd_mma::padded_hd;
+using attention_fwd_mma::smem_addr;
+using attention_fwd_mma::tile_logits;
+using attention_fwd_mma::tile_stride;
+
+constexpr size_t kMaxSmem = 232448;  // a block's limit on sm_90
+
+// dynamic shared memory of one block at (L, hd): the K and V rings, 4 bf16
+// [64][hd16 + 8] tiles, and the block's s, 64 x L fp32 (L padded to 64)
+__host__ __device__ constexpr size_t smem_bytes(int l, int hd) {
+  return 4 * static_cast<size_t>(kKeys) * tile_stride(hd) * sizeof(bf16) +
+         static_cast<size_t>(kRows) * ((l + kKeys - 1) / kKeys * kKeys) * sizeof(float);
+}
+
+// this kernel runs (L, hd) in bf16: hd a multiple of 8, s within the limit
+__host__ __device__ constexpr bool takes(int l, int hd) {
+  return hd % 8 == 0 && hd <= attention_fwd_mma::kMaxHd && smem_bytes(l, hd) <= kMaxSmem;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+packed_attention_fwd_mma(PackedQkv layout, int L, float scale) {
+  constexpr int kSteps = padded_hd(HD) / 16;  // k-steps of Q.K^T
+  constexpr int kDimTiles = HD / 8;           // n-tiles of P.V
+  constexpr int kStride = tile_stride(HD);
+  constexpr int kTile = kKeys * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // K ring, 2 tiles
+  bf16* vs = ks + 2 * kTile;                     // V ring, 2 tiles; Q passes through vs[0]
+  const int ntiles = (L + kKeys - 1) / kKeys;
+  // this warp's s: per key tile 8 float4 (one per n-tile) for each lane
+  float4* sw = reinterpret_cast<float4*>(vs + 2 * kTile) + (threadIdx.x >> 5) * ntiles * 8 * 32 +
+               (threadIdx.x & 31);
+
+  const attention_fwd_mma::Head head = layout.head(L, HD);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q0 = blockIdx.x * kRows;
+
+  if (padded_hd(HD) != HD)
+    for (int r = tid; r < 4 * kKeys; r += kThreads)
+      *reinterpret_cast<uint4*>(ks + r * kStride + HD) = make_uint4(0u, 0u, 0u, 0u);
+
+  // ---- this warp's 16 queries as A fragments ---------------------------------
+  uint32_t qf[kSteps][4];
+  load_tile<HD>(vs, head.q, head.in_stride, q0, L);
+  load_tile<HD>(ks, head.k, head.in_stride, 0, L);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+    ldmatrix_x4(qf[kk], smem_addr(vs + (16 * warp + (lane & 15)) * kStride + 16 * kk +
+                                  ((lane >> 4) << 3)));
+
+  // ---- 1. s over all keys, kept on chip, and its exact row max (rows g,
+  //         g + 8) ---------------------------------------------------------------
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles)
+      load_tile<HD>(ks + ((t + 1) & 1) * kTile, head.k, head.in_stride, (t + 1) * kKeys, L);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float s[8][4];
+    tile_logits<HD>(s, qf, ks + (t & 1) * kTile, t * kKeys, L, scale);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
+      m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
+      sw[(t * 8 + j) * 32] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    }
+    __syncthreads();
+  }
+  // the quad's four threads hold the row's keys
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+  // the first value tile is in flight during step 2 (Q's tile is free)
+  load_tile<HD>(vs, head.v, head.in_stride, 0, L);
+  cp_async_commit();
+
+  // ---- 2. e = exp(s - m) in place, l = sum e ---------------------------------
+  float l[2] = {0.f, 0.f};
+  for (int t = 0; t < ntiles; ++t) {
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float4 x = sw[(t * 8 + j) * 32];
+      x.x = expf(x.x - m[0]);
+      x.y = expf(x.y - m[0]);
+      x.z = expf(x.z - m[1]);
+      x.w = expf(x.w - m[1]);
+      part[0] += x.x + x.y;
+      part[1] += x.z + x.w;
+      sw[(t * 8 + j) * 32] = x;
+    }
+    l[0] += part[0];
+    l[1] += part[1];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+
+  // ---- 3. o = (e / l rounded to bf16) . v ------------------------------------
+  float o[kDimTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDimTiles; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  // ldmatrix.trans of V rows: lanes 0-7 address keys 0-7 (b0), 8-15 keys
+  // 8-15 (b1) of the n-tile at dims d..d+7; lanes 16-31 the same at d+8
+  const int vkey = lane & 15;
+  const int vdim = (lane >> 4) << 3;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles)
+      load_tile<HD>(vs + ((t + 1) & 1) * kTile, head.v, head.in_stride, (t + 1) * kKeys, L);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // m16n8 accumulators of n-tiles 2kk, 2kk + 1 = the m16k16 A fragment of
+    // keys 16kk .. 16kk + 15
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 e = sw[(t * 8 + 2 * kk + h) * 32];
+        pa[kk][2 * h] = pack_bf16(div_rn(e.x, l[0], rl[0]), div_rn(e.y, l[0], rl[0]));
+        pa[kk][2 * h + 1] = pack_bf16(div_rn(e.z, l[1], rl[1]), div_rn(e.w, l[1], rl[1]));
+      }
+    const bf16* vt = vs + (t & 1) * kTile;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j + 1 < kDimTiles; j += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, smem_addr(vt + (16 * kk + vkey) * kStride + 8 * j + vdim));
+        mma(o[j], pa[kk], b[0], b[1]);
+        mma(o[j + 1], pa[kk], b[2], b[3]);
+      }
+      if (kDimTiles % 2) {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, smem_addr(vt + (16 * kk + vkey) * kStride + 8 * (kDimTiles - 1)));
+        mma(o[kDimTiles - 1], pa[kk], b[0], b[1]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- o in bf16: rows g and g + 8 of the warp, features 8j + 2t, +1 -------
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= L) continue;
+    bf16* out = head.o + static_cast<size_t>(row) * head.out_stride + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < kDimTiles; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16(o[j][2 * r], o[j][2 * r + 1]);
+  }
+}
+
+template <int HD>
+cudaError_t launch_hd(const PackedQkv& layout, int L, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(L, HD);
+  // raise the kernel's dynamic shared-memory limit on this device to the
+  // largest size asked for so far (internal linkage: this library's own)
+  static size_t configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > configured[dev]) {
+    err = cudaFuncSetAttribute(packed_attention_fwd_mma<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(packed_attention_fwd_mma<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured[dev] = smem;
+  }
+  packed_attention_fwd_mma<HD><<<layout.grid(L), kThreads, smem, stream>>>(layout, L, scale);
+  return cudaGetLastError();
+}
+
+// The kernel at head dim hd (a multiple of 8, at most 128): one
+// instantiation per hd, so every loop over hd unrolls.
+template <int HD = 8>
+cudaError_t launch(const PackedQkv& layout, int L, int hd, float scale, cudaStream_t stream) {
+  if (hd == HD) return launch_hd<HD>(layout, L, scale, stream);
+  if constexpr (HD < attention_fwd_mma::kMaxHd) {
+    return launch<HD + 8>(layout, L, hd, scale, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace mma_fwd
+
 template <typename T>
 cudaError_t launch(const void* qkv, void* out, int n, int l, int heads, int hd,
                    float scale, cudaStream_t stream) {
@@ -271,13 +516,16 @@ cudaError_t launch(const void* qkv, void* out, int n, int l, int heads, int hd,
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs; the caller checks it
-// against the device's limit before a launch.
+// against the device's limit before a launch. bf16 (esize 2) where the
+// tensor-core kernel takes (l, hd): its layout; else the FMA kernel's.
 size_t packed_attention_fwd_smem_bytes(int l, int hd, int esize) {
+  if (esize == 2 && mma_fwd::takes(l, hd)) return mma_fwd::smem_bytes(l, hd);
   return smem_layout((l + 31) & ~31, hd, esize).total;
 }
 
 // dtype: 0 = bfloat16, 1 = float32. qkv is (n, l, 3*heads*hd) contiguous and
-// out (n, l, heads*hd) contiguous, both on the current device. Returns the
+// out (n, l, heads*hd) contiguous, both on the current device; where bf16
+// takes the tensor-core kernel, qkv is 16-byte aligned. Returns the
 // cudaError_t of the launch (0 on success).
 int packed_attention_fwd(const void* qkv, void* out, int n, int l, int heads,
                          int hd, float scale, int dtype, void* stream) {
@@ -286,8 +534,16 @@ int packed_attention_fwd(const void* qkv, void* out, int n, int l, int heads,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return static_cast<int>(launch<__nv_bfloat16>(qkv, out, n, l, heads, hd, scale, s));
+    case 0: {
+      if (!mma_fwd::takes(l, hd))
+        return static_cast<int>(launch<__nv_bfloat16>(qkv, out, n, l, heads, hd, scale, s));
+      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      using mma_fwd::bf16;
+      const attention_fwd_mma::PackedQkv layout{static_cast<const bf16*>(qkv),
+                                                static_cast<bf16*>(out), n, heads};
+      return static_cast<int>(mma_fwd::launch(layout, l, hd, scale, s));
+    }
     case 1:
       return static_cast<int>(launch<float>(qkv, out, n, l, heads, hd, scale, s));
     default:

@@ -20,8 +20,10 @@ rounding points, so it has kernels of its own:
   * a CUDA tensor launches ``csrc/flash_fwd.cu`` (replaces ``_flash_fwd``;
     in bf16 the tensor-core kernel of ``csrc/attention_fwd_mma.cuh``,
     shared with ops/flash_big.py) and ``csrc/flash_bwd.cu`` (replaces
-    ``_flash_bwd``), or raises. They take a head dim that is a multiple of
-    8 up to 128; any other raises NotImplementedError.
+    ``_flash_bwd``; in bf16 tensor-core kernels that split p and ds
+    exactly into three bf16 pieces, see ``bwd_kernel``), or raises. They
+    take a head dim that is a multiple of 8 up to 128; any other raises
+    NotImplementedError.
 
 ``flash_fwd.launches`` and ``flash_bwd.launches`` count kernel launches
 and nothing else; ``flash_mha_plain`` applies the Function with the plain
@@ -84,14 +86,27 @@ def fwd_block_rows(l: int, hd: int, esize: int = 4) -> int:
     return next((r for r in BLOCK_ROWS if fwd_smem_bytes(l, hd, r) <= SMEM_LIMIT), 0)
 
 
-def bwd_smem_bytes(hd: int) -> int:
-    """Shared memory of the larger of the backward's two passes, the same
-    at every L (csrc/flash_bwd.cu): two fp32 [hd][32] operands of the
-    block, two buffers of two fp32 [64][hd + 1] tiles, and two (key pass)
-    or one (query pass) fp32 [64][32] blocks of p and ds."""
+def bwd_smem_bytes(hd: int, esize: int = 4) -> int:
+    """Shared memory of the larger of the backward's two kernels for inputs
+    of ``esize`` bytes, the same at every L (csrc/flash_bwd.cu). bf16 (2):
+    the tensor-core key kernel's six bf16 [64][hd16 + 8] tiles (its K and V,
+    the Q and dO rings; hd16 = hd padded to a multiple of 16) and its fp32
+    p^T and ds^T tiles, [64][72] each. fp32 (4): the FMA key pass's two fp32
+    [hd][32] operands of the block, two buffers of two fp32 [64][hd + 1]
+    tiles, and fp32 [64][32] blocks of p and ds."""
+    if esize == 2:
+        hd16 = -(-hd // 16) * 16
+        return 6 * TILE * (hd16 + 8) * 2 + 2 * TILE * (TILE + 8) * 4
     tiles = _align16(2 * hd * 32 * 4)
     p = _align16(tiles + 4 * TILE * (hd + 1) * 4)
     return _align16(p + TILE * 32 * 4) + TILE * 32 * 4
+
+
+def bwd_kernel(dtype: torch.dtype) -> str:
+    """Which backward kernels a call runs: 'mma', the tensor-core kernels
+    (p and ds split exactly into three bf16 pieces), in bf16; 'fma', the
+    fp32-FMA passes, in fp32."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def check_head_dim(name: str, shape: tuple) -> None:
@@ -158,7 +173,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib.flash_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_bwd.restype = ctypes.c_int
-    lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.flash_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_bwd_error_string.restype = ctypes.c_char_p
@@ -225,7 +240,7 @@ def _launch_bwd(q, k, v, o, lse, do, scale: float):
                             dv.data_ptr(), delta.data_ptr(), n, l, hd, scale,
                             DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     _raise_on("flash_bwd", lib, "flash_bwd_error_string", err, q.shape, q.dtype,
-              bwd_smem_bytes(hd))
+              bwd_smem_bytes(hd, q.element_size()))
     flash_bwd.launches += 1
     return dq, dk, dv
 

@@ -13,8 +13,9 @@ ops/flash_big.py too.
   * a CPU tensor goes to the plain PyTorch versions,
     ``packed_attention_reference`` and ``packed_attention_bwd_reference``;
   * a CUDA tensor launches the hand-written kernels in
-    ``csrc/packed_attention_fwd.cu`` (replaces the Pallas ``_packed_fwd``)
-    and ``csrc/packed_attention_bwd.cu`` (replaces ``_packed_bwd``; in bf16
+    ``csrc/packed_attention_fwd.cu`` (replaces the Pallas ``_packed_fwd``;
+    in bf16 a whole-row tensor-core kernel, see ``fwd_kernel``) and
+    ``csrc/packed_attention_bwd.cu`` (replaces ``_packed_bwd``; in bf16
     the tensor-core kernels of ``csrc/attention_bwd_mma.cuh``, shared with
     ops/flash_big.py, see ``bwd_kernel``), or raises.
 
@@ -46,10 +47,32 @@ def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
+def mma_fwd_smem_bytes(l: int, hd: int) -> int:
+    """Shared memory of one block of the bf16 tensor-core forward
+    (``mma_fwd::smem_bytes`` of csrc/packed_attention_fwd.cu): K and V rings
+    of two bf16 [64][hd16 + 8] tiles each, hd16 = hd padded to a multiple of
+    16, and the block's logits, fp32 [64][L] with L padded to 64."""
+    hd16 = -(-hd // 16) * 16
+    return 4 * 64 * (hd16 + 8) * 2 + 64 * (-(-l // 64) * 64) * 4
+
+
+def fwd_kernel(dtype: torch.dtype, l: int, hd: int) -> str:
+    """Which forward kernel a call runs: 'mma', the whole-row tensor-core
+    kernel, for bf16 at a head dim that is a multiple of 8 (every model's)
+    where its logits fit a block (every L of the route but L 833-1184 at
+    hd 8 and 833-864 at hd 16); 'fma', the fp32-FMA kernel, otherwise."""
+    return ("mma" if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= MAX_HEAD_DIM
+            and mma_fwd_smem_bytes(l, hd) <= SMEM_LIMIT else "fma")
+
+
 def fwd_smem_bytes(l: int, hd: int, esize: int) -> int:
-    """Shared memory of one forward block: ``smem_layout`` of
-    csrc/packed_attention_fwd.cu (q fp32 [hd][32], the head's K and V in
-    the input type, logits fp32 [L][32], two reductions), L padded to 32."""
+    """Shared memory of one forward block for inputs of ``esize`` bytes.
+    bf16 (2) where ``fwd_kernel`` is 'mma': ``mma_fwd_smem_bytes``. Else
+    ``smem_layout`` of csrc/packed_attention_fwd.cu's FMA kernel (q fp32
+    [hd][32], the head's K and V in the input type, logits fp32 [L][32],
+    two reductions), L padded to 32."""
+    if esize == 2 and fwd_kernel(torch.bfloat16, l, hd) == "mma":
+        return mma_fwd_smem_bytes(l, hd)
     lp = -(-l // 32) * 32
     k = _align16(hd * 32 * 4)
     v = _align16(k + hd * lp * esize)
@@ -243,8 +266,10 @@ def launch(name: str, library, entry: str, error: str, smem_bytes, qkv: torch.Te
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    hd = qkv.shape[-1] // 3 // num_heads
     out = launch("packed_attention", _library, "packed_attention_fwd",
-                 "packed_attention_error_string", fwd_smem_bytes, qkv, num_heads, scale)
+                 "packed_attention_error_string", fwd_smem_bytes, qkv, num_heads, scale,
+                 aligned=fwd_kernel(qkv.dtype, qkv.shape[1], hd) == "mma")
     packed_attention.launches += 1
     return out
 

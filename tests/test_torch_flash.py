@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from maskdit_tpu.ops import flash as jax_flash
 from maskdit_tpu_torch.ops import flash, flash_batched
 
@@ -212,6 +213,139 @@ def test_shared_memory_covers_the_whole_window():
             assert flash.fwd_block_rows(l, hd, 2) == flash.MMA_ROWS == 64
             assert flash.fwd_smem_bytes(l, hd, 64, 2) == flash.fwd_smem_bytes(128, hd, 64, 2)
             assert flash.fwd_smem_bytes(l, hd, 64, 2) <= 69632
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_bf16_backward_shared_memory(hd):
+    """What csrc/flash_bwd.cu's bf16 tensor-core kernels lay out, as the
+    module computes it: the key kernel's six bf16 [64][hd16 + 8] tiles (its
+    K and V, the Q and dO rings; hd16 = hd padded to 16) and its fp32 p^T
+    and ds^T tiles, [64][72] each; the query kernel's four tiles are fewer.
+    The same at every L, within a block's limit; two blocks fit an SM at
+    the model head dims. fp32 keeps the FMA passes' layout."""
+    hd16 = -(-hd // 16) * 16
+    want = 6 * 64 * (hd16 + 8) * 2 + 2 * 64 * 72 * 4
+    assert flash.bwd_smem_bytes(hd, 2) == want > 4 * 64 * (hd16 + 8) * 2
+    assert want <= flash_batched.SMEM_LIMIT
+    if hd in (32, 64, 72):
+        assert 2 * (want + 1024) <= 233472
+    assert flash.bwd_smem_bytes(hd) == flash.bwd_smem_bytes(hd, 4)
+    assert flash.bwd_kernel(torch.bfloat16) == "mma" and flash.bwd_kernel(torch.float32) == "fma"
+    assert flash.bwd_smem_bytes(72, 2) == 104448 and flash.bwd_smem_bytes(32, 2) == 67584
+
+
+def _split(x: torch.Tensor, pieces: int = 3) -> list:
+    """The bf16 tensor-core backward's split (csrc/flash_bwd.cu ``split3``)
+    of fp32 values into bf16 pieces: x0 = bf16(x), then each next piece the
+    bf16 of what the earlier ones leave, subtracted in fp32."""
+    out, rest = [], x
+    for _ in range(pieces):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return out
+
+
+def _spread(n: int, seed: int, signed: bool) -> torch.Tensor:
+    """fp32 values with random significands from 1 down to 1e-30, as p
+    (positive) and ds (both signs) take them."""
+    rng = np.random.default_rng(seed)
+    x = 10.0 ** rng.uniform(-30, 0, n)
+    if signed:
+        x *= rng.choice([-1.0, 1.0], n)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["p", "ds"])
+def test_three_bf16_pieces_are_exact(signed):
+    """The premise of #6's bf16 products: every fp32 value of p's and ds's
+    ranges is the sum of its three bf16 pieces, bit for bit; each fp32
+    subtraction of the split is exact and the last piece needs no rounding.
+    Two pieces (16 significand bits of fp32's 24) leave over 90% of the
+    values short (here ~96%)."""
+    x = _spread(20000, 31 + signed, signed)
+    x0, x1, x2 = _split(x)
+    exact = x0.double() + x1.double() + x2.double()
+    assert torch.equal(exact, x.double())
+    r1 = x.double() - x0.double()
+    assert torch.equal((x - x0.float()).double(), r1)
+    assert torch.equal((r1.float() - x1.float()).double(), r1 - x1.double())
+    assert torch.equal(x2.float().double(), r1 - x1.double())
+    two = x0.double() + x1.double()
+    assert (two == x.double()).double().mean().item() < 0.1
+
+
+def _split_bwd(q, k, v, o, lse, do, scale, pieces=3, tile=64):
+    """The bf16 tensor-core flash backward's arithmetic (csrc/flash_bwd.cu)
+    in torch on the CPU, for (B, L, hd) bf16 residuals: delta = sum(do * o)
+    from the stored o; per tile p = exp(s - lse) and ds = (p (dp - delta))
+    scale in fp32, each split into ``pieces`` bf16 pieces (``_split``) whose
+    products with the bf16 operand run in fp32; the query kernel adds
+    ds K over key tiles, the key kernel p^T dO and ds^T Q over query tiles,
+    piece by piece. Returns dq, dk, dv in bf16."""
+    b, l, _ = q.shape
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
+    lse = lse.reshape(b, l, 1)
+    delta = (gf * of).sum(-1, keepdim=True)
+    tiles = [slice(t, t + tile) for t in range(0, l, tile)]
+    every = slice(None)
+
+    def p_ds(rows, keys):
+        s = torch.matmul(qf[:, rows], kf[:, keys].transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, rows])
+        dp = torch.matmul(gf[:, rows], vf[:, keys].transpose(-1, -2))
+        return p, p * (dp - delta[:, rows]) * scale
+
+    def add(acc, x, y):
+        for piece in _split(x, pieces):
+            acc = acc + torch.matmul(piece.float(), y)
+        return acc
+
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for keys in tiles:
+        dq[:, :] = add(dq, p_ds(every, keys)[1], kf[:, keys])
+    for rows in tiles:
+        p, ds = p_ds(rows, every)
+        dv = add(dv, p.transpose(-1, -2), gf[:, rows])
+        dk = add(dk, ds.transpose(-1, -2), qf[:, rows])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 72), (4, 128, 32), (3, 384, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_backward_rounds_where_the_plain_versions_do(interpret_mode, shape):
+    """The premise of the bf16 tensor-core flash backward (#6): its products
+    on three exact bf16 pieces of p and ds agree with the plain version
+    (``flash_bwd_reference``) and with the bf16 Pallas ``_flash_bwd`` in
+    interpret mode within chip_smoke.py's bounds (BWD_REL_BOUND of max|ref|,
+    BF16_MISMATCH_BOUND of the elements differing); here summation order
+    only, under 0.1% (0.01-0.05%, as the plain version against the Pallas
+    kernel). Two pieces differ in several times more (0.19-0.32% here),
+    and one piece, p and ds rounded to bf16 as the packed backwards round
+    them, in more elements than the bound allows (~42%)."""
+    bf16 = torch.bfloat16
+    rel, bound = chip_smoke.BWD_REL_BOUND[bf16], chip_smoke.BF16_MISMATCH_BOUND
+    (q, k, v, g), (tq, tk, tv, tg) = _both(_inputs(shape, sum(shape) + 5), "bfloat16")
+    scale = shape[-1] ** -0.5
+    _, residuals = jax_flash._flash_fwd(q, k, v, scale)
+    theirs = jax_flash._flash_bwd(scale, residuals, g)
+    o = torch.from_numpy(np.array(residuals[3].astype(jnp.float32))).to(bf16)
+    lse = torch.from_numpy(np.array(residuals[4]))
+    plain = flash.flash_bwd_reference(tq, tk, tv, o, lse, tg, scale)
+    got = _split_bwd(tq, tk, tv, o, lse, tg, scale)
+
+    def shares(pieces):
+        grads = _split_bwd(tq, tk, tv, o, lse, tg, scale, pieces=pieces)
+        return [((a.float() - b.float()).abs() > 0).float().mean().item()
+                for a, b in zip(grads, plain)]
+
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, plain, theirs):
+        assert a.dtype == bf16
+        for ref in (b.float(), torch.from_numpy(np.array(c.astype(jnp.float32)))):
+            diff = (a.float() - ref).abs()
+            assert diff.max().item() <= rel * ref.abs().max().item(), name
+            assert (diff > 0).float().mean().item() < min(0.001, bound), name
+    assert max(shares(2)) > 0.0015
+    assert max(shares(1)) > bound
 
 
 @pytest.mark.cuda

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from maskdit_tpu.ops import flash_batched as jax_fb
 from maskdit_tpu.ops import flash_big as jax_big
 from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
 
@@ -330,6 +332,93 @@ def test_two_pass_forward_rounds_where_the_plain_versions_do(hd):
     online, _ = _two_pass_forward(q, k, v, scale, online_output=True)
     assert _share(packed(online), ref_packed) > 0.2
     assert _share(online, ref_o) > 0.2
+
+
+def _whole_row_forward(qkv, h, scale, tile=64, fault=None):
+    """The bf16 whole-row tensor-core forward's arithmetic
+    (csrc/packed_attention_fwd.cu, kernel #1) in torch on the CPU, for qkv
+    (N, L, 3D) in bf16: s once over the whole row in fp32, the exact row max
+    m, e = exp(s - m), l summed by 64-key tiles, p = e / l (div_rn is the
+    correctly rounded division) rounded to bf16, o = p v accumulated over
+    the tiles in fp32. ``fault='unnormalised'``: e rounded to bf16 before
+    the division, o = (bf16(e) v) / l."""
+    n, l, three_d = qkv.shape
+    q, k, v = flash_big._heads(qkv, h)
+    tiles = [slice(t, t + tile) for t in range(0, l, tile)]
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    lsum = sum(e[..., keys].sum(-1, keepdim=True) for keys in tiles)
+    o = torch.zeros_like(q)
+    for keys in tiles:
+        if fault == "unnormalised":
+            o = o + torch.matmul(e[..., keys].to(qkv.dtype).float(), v[:, :, keys]) / lsum
+        else:
+            o = o + torch.matmul((e[..., keys] / lsum).to(qkv.dtype).float(), v[:, :, keys])
+    return o.permute(0, 2, 1, 3).reshape(n, l, three_d // 3).to(qkv.dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 4, 72), (2, 256, 4, 32), (3, 77, 4, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_whole_row_forward_rounds_where_the_plain_versions_do(interpret_mode, shape):
+    """The premise of the bf16 whole-row tensor-core forward (#1): s formed
+    once, the exact max, l summed by tiles and p / l rounded once agree with
+    the plain version (``packed_attention_reference``) and with the bf16
+    Pallas ``_packed_fwd`` in interpret mode within chip_smoke.py's bounds
+    (FWD_REL_BOUND of max|ref|, BF16_MISMATCH_BOUND of the elements
+    differing); here summation order only, under 0.5%. Rounding the
+    unnormalised e instead differs in over 20%."""
+    bf16 = torch.bfloat16
+    rel, bound = chip_smoke.FWD_REL_BOUND[bf16], chip_smoke.BF16_MISMATCH_BOUND
+    n, l, h, hd = shape
+    qkv, _ = _inputs(n, l, h, hd, seed=15 + l + hd)
+    x = torch.from_numpy(qkv).to(bf16)
+    scale = hd ** -0.5
+    got = _whole_row_forward(x, h, scale)
+    assert got.dtype == bf16 and got.shape == (n, l, h * hd)
+    theirs, _ = jax_fb._packed_fwd(jnp.asarray(qkv).astype(jnp.bfloat16), h, scale)
+    refs = (flash_batched.packed_attention_reference(x, h, scale).float(),
+            torch.from_numpy(np.array(theirs.astype(jnp.float32))))
+    for ref in refs:
+        diff = (got.float() - ref).abs()
+        assert diff.max().item() <= rel * ref.abs().max().item()
+        assert _share(got, ref) < min(0.005, bound)
+    assert _share(_whole_row_forward(x, h, scale, fault="unnormalised"), refs[0]) > 0.2
+
+
+def test_whole_row_forward_shared_memory():
+    """The bf16 whole-row tensor-core forward's shared memory
+    (csrc/packed_attention_fwd.cu ``mma_fwd::smem_bytes``): the K and V
+    rings, four bf16 [64][hd16 + 8] tiles, and the block's logits, fp32
+    [64][L] with L padded to 64. Two blocks fit an SM at the main path's
+    shapes; it takes every bf16 shape the route sends the whole-row kernel
+    at a head dim that is a multiple of 8 but hd 8 at L 833-1184 and hd 16
+    at L 833-864, which keep the FMA kernel (and its layout) as other head
+    dims do."""
+    assert flash_batched.mma_fwd_smem_bytes(128, 72) == 77824
+    assert flash_batched.mma_fwd_smem_bytes(256, 72) == 110592
+    assert flash_batched.mma_fwd_smem_bytes(256, 32) == 86016
+    assert flash_batched.mma_fwd_smem_bytes(77, 40) == flash_batched.mma_fwd_smem_bytes(128, 40)
+    for l, hd in ((128, 72), (256, 72), (256, 32)):
+        assert 2 * (flash_batched.mma_fwd_smem_bytes(l, hd) + 1024) <= 233472
+    bf16 = torch.bfloat16
+    for hd in range(8, 129, 8):
+        hd16 = -(-hd // 16) * 16
+        for l in range(1, 1300, 7):
+            want = 4 * 64 * (hd16 + 8) * 2 + 64 * (-(-l // 64) * 64) * 4
+            assert flash_batched.mma_fwd_smem_bytes(l, hd) == want
+            if not flash_batched.fits(l, hd, False):
+                continue
+            kernel = flash_batched.fwd_kernel(bf16, l, hd)
+            corner = 832 < l <= {8: 1184, 16: 864}.get(hd, 0)
+            assert kernel == ("fma" if corner else "mma"), (l, hd)
+            lp = -(-l // 32) * 32  # the FMA kernel's: K, V bf16, q, logits fp32
+            fma = 128 * hd + 2 * hd * lp * 2 + 128 * lp + 2048
+            assert flash_batched.fwd_smem_bytes(l, hd, 2) == (want if kernel == "mma" else fma)
+            assert flash_batched.fwd_smem_bytes(l, hd, 2) <= flash_batched.SMEM_LIMIT
+    assert flash_batched.fwd_kernel(torch.float32, 256, 72) == "fma"
+    assert flash_batched.fwd_kernel(bf16, 77, 20) == "fma"
+    # fp32 (and the route, which reads it) keep the FMA layout
+    assert flash_batched.fwd_smem_bytes(256, 72, 4) == 191488
 
 
 def _three_stage_bwd(qkv, dout, h, scale, tile=64, fault=None):
