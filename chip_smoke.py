@@ -53,7 +53,23 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      batch 32, cut to 6 steps: 72 flash-forward launches (the checkpoint
      recomputes each layer's forward in the backward), 36 flash-backward
      and one fused-update launch per step; train-step parity kernels vs
-     plain and, in fp32, flash vs the blocked kernels; a profile.
+     plain and, in fp32, flash vs the blocked kernels; a profile;
+  9. the evaluation path (it runs after 5.): [vae] the full SD-VAE
+     (weights ~ N(0, 0.02^2), GroupNorm scales about 1, saved in the
+     released autoencoder_kl.pth layout) decoding the latents of 4. and
+     5. and encoding a 256-px batch, card vs CPU in fp32 with TF32 off (the
+     CPU decodes the first images of each batch), ms per image against the
+     fp32 bound, peak memory, and the decode with TF32 on measured once;
+     [main-png] the generate CLI at 256 px without --no_decode (8 seeds,
+     CFG 1.5, 40 steps, 2844 packed-kernel launches): 8 PNGs read back by
+     the port's codec, images/s including the decode; [eval] ``fid ref``
+     over those PNGs (random detector), ``eval_latent`` on
+     configs/test/maskdit-256.yaml (as JSON) with 16 seeds to a finite FID
+     against them, the detector card vs CPU, the evaluator CLI on two npz
+     batches, InceptionV3 ms per image; [train-eval] 6. runs with
+     ``--enable_eval``: after its last step's checkpoint the eval hook
+     samples 8 seeds, decodes them and writes a finite eval/fid at step 12
+     to metrics.jsonl.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -219,6 +235,24 @@ SAMPLE_CONFIG_512 = {"model": {
     "num_classes": 1000, "use_decoder": True, "ext_feature_dim": 0, "pad_cls_token": False,
     "mask_ratio": 0.5, "mae_loss_coef": 0.1, "class_dropout_prob": 0.1,
 }}
+# configs/test/maskdit-256.yaml's model and eval sections (what the eval
+# CLI reads), as JSON; phase_eval points eval.ref_path at the statistics of
+# [main-png]'s PNGs (ImageNet's are not in the repository).
+# tests/test_torch_evals.py holds it equal to the YAML
+EVAL_CONFIG_256 = {"model": {**SAMPLE_CONFIG_512["model"], "in_size": 32},
+                   "eval": {"batchsize": 50, "ref_path": (
+                       "assets/fid_stats/fid_stats_imagenet256_guided_diffusion.npz")}}
+EVAL_SEEDS = 16  # two batches of SEEDS
+# the card decodes [main]'s and [main-512]'s whole batches; the CPU's fp32
+# reference decodes their first images only (each image is decoded on its
+# own: GroupNorm and the attention are per image), 2.5 s per 256-px image
+VAE_CPU_IMAGES = {256: 2, 512: 1}
+# the evaluation path: card vs CPU in fp32 with TF32 off on both (cuDNN's and
+# oneDNN's summation orders; measured ~1e-6 on the CPU against the JAX
+# package), as max error relative to max|ref|
+VAE_REL_BOUND = 1e-4
+INCEPTION_REL_BOUND = 1e-4
+INCEPTION_BATCH = 64  # the FID CLIs' default batch
 # attention calls per train step (28 encoder + 8 decoder blocks), each
 # once forward and once backward; one fused update per step
 ATTN_PER_STEP = DEPTH + DECODER_DEPTH
@@ -1200,11 +1234,12 @@ def profile_forward(model, x, sigma, y, tag: str) -> None:
                    f"one CFG denoiser evaluation (batch {x.shape[0]} x 2, {x.shape[-1] * 8} px)")
 
 
-def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=()) -> dict:
+def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), options=(),
+              extra=None) -> dict:
     """The train main path through the CLI on ``config`` with the CLI
-    ``overrides``, with the launch counts set to 0 before it; checks the
-    losses and that each step launched the kernels ``per_step`` names that
-    many times, and no other."""
+    ``options`` and config ``overrides``, with the launch counts set to 0
+    before it; checks the losses and that each step launched the kernels
+    ``per_step`` names that many times, the run ``extra`` more, and no other."""
     from maskdit_tpu_torch.train import main as train_main
     from maskdit_tpu_torch.train.cli import apply_overrides
     from maskdit_tpu_torch.utils.profiling import (
@@ -1222,7 +1257,7 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=()) ->
     free_device_memory()
     reset_launches()
     out = train_main(["--config", path, "--results_dir", results, "--device", "cuda",
-                      "--num_workers", "4", *overrides])
+                      "--num_workers", "4", *options, *overrides])
     launches = read_launches()
     steps, history = out["step"], out["history"]
     config = apply_overrides(json.loads(json.dumps(config)), overrides)
@@ -1232,7 +1267,9 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=()) ->
         f"losses {[round(x, 4) for x in losses]}")
     if steps != max_steps or len(losses) != max_steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: {steps} steps, losses {losses}")
-    expect_launches(tag, launches, **{name: n * steps for name, n in per_step.items()})
+    extra = extra or {}
+    expect_launches(tag, launches, **{name: per_step.get(name, 0) * steps + extra.get(name, 0)
+                                      for name in {*per_step, *extra}})
     warm = history[1:]  # the first window holds steps 1-2 (warm-up)
     seconds = sum(LOG_EVERY / r["steps_per_sec"] for r in warm)
     warm_steps = LOG_EVERY * len(warm)
@@ -1246,13 +1283,30 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=()) ->
         f"{peak_bf16_tflops(name):.0f} TFLOP/s bf16 ({flops / 1e9:.1f} GFLOP/image), peak memory "
         f"{peak:.2f} GiB; per window images/s {[round(r['images_per_sec'], 2) for r in history]}")
     return dict(launches=launches, images_per_s=ips, ms_per_step=seconds / warm_steps * 1e3,
-                mfu=util, peak_gib=peak, results=results)
+                mfu=util, peak_gib=peak, results=results, exp_dir=out["exp_dir"])
 
 
-def phase_train() -> dict:
-    """The 256-px train main path, then resume from its checkpoint."""
+def phase_train(vae_path: str, stats: str) -> dict:
+    """The 256-px train main path with ``--enable_eval`` ([train-eval]: the
+    checkpoint after the last step, ``log.ckpt_every`` 12, runs the eval hook
+    on seeds 0-7, CFG 1.5, 40 steps, [vae]'s file and the random detector
+    against [eval]'s statistics; metrics.jsonl must hold a finite eval/fid at
+    step 12), then resume from that checkpoint. The hook rides on the
+    checkpoint the run writes anyway: a run of its own would write another
+    10.9 GiB, past what the card's machine lets one call write to its disk."""
+    options = ("--enable_eval", "--eval_seeds", f"0-{SEEDS - 1}", "--cfg_scale", str(CFG),
+               "--num_steps", str(STEPS), "--max_batch_size", str(SEEDS),
+               "--num_expected", str(SEEDS), "--pretrained_path", vae_path, "--random_detector")
     out = run_train("train", TRAIN_CONFIG, 32, dict(packed_fwd=ATTN_PER_STEP,
-                                                   packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
+                                                   packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
+                    (f"log.ckpt_every={TRAIN_STEPS}", f"eval.ref_path={stats}"), options,
+                    extra=dict(packed_fwd=(2 * STEPS - 1) * (DEPTH + DECODER_DEPTH)))
+    with open(os.path.join(out["exp_dir"], "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "eval/fid" in r]
+    log(f"[train-eval] the eval hook after the step-{TRAIN_STEPS} checkpoint: {evals}")
+    if len(evals) != 1 or evals[0]["step"] != TRAIN_STEPS or not np.isfinite(evals[0]["eval/fid"]):
+        raise AssertionError(f"train-eval: eval records {evals}")
+    out["eval_fid"] = evals[0]["eval/fid"]
     out["resume"] = check_resume(out["results"])
     return out
 
@@ -1427,6 +1481,240 @@ def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = 
     free_device_memory()
 
 
+def conv_flops(module: torch.nn.Module, fn) -> float:
+    """Operations of the Conv2d and Linear layers of ``module`` in one call
+    of ``fn`` (2 per multiply-add), counted by forward hooks."""
+    total = [0.0]
+
+    def hook(m, inputs, out):
+        if isinstance(m, torch.nn.Conv2d):
+            total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * np.prod(m.kernel_size)
+        else:
+            total[0] += 2.0 * out.numel() * m.in_features
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def vae_decode_flops(vae, z: torch.Tensor) -> float:
+    """Operations of ``vae.decode(z)`` per image: its convolutions and the
+    mid-block attention's two products (2 * 2 * (hw)^2 * C)."""
+    convs = conv_flops(vae, lambda: vae.decode(z))
+    c = vae.decoder.mid.attn_1.q.in_channels
+    hw = z.shape[-1] * z.shape[-2]
+    return (convs + 4.0 * z.shape[0] * hw * hw * c) / z.shape[0]
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+
+
+def check_rel(tag: str, what: str, got: torch.Tensor, ref: torch.Tensor, bound: float) -> float:
+    err = rel_err(got, ref)
+    log(f"[{tag}] {what}: card vs CPU max rel err {err:.3e} (bound {bound:.0e}), finite "
+        f"{bool(torch.isfinite(got).all())}")
+    if not (torch.isfinite(got).all() and err <= bound):
+        raise AssertionError(f"{tag} {what}: {err} > {bound}")
+    return err
+
+
+def phase_vae() -> dict:
+    """The full SD-VAE with weights ~ N(0, 0.02^2) (GroupNorm scales 1 + that)
+    from seed 1, saved in the
+    released ``autoencoder_kl.pth`` layout; decode of [main]'s and
+    [main-512]'s latents and encode_moments of a 256-px batch on the card vs
+    the same module on the CPU (fp32, TF32 off); per-image times against the
+    fp32 bound, peak memory; the decode with TF32 on, once, as a measurement."""
+    from maskdit_tpu_torch.models.vae import AutoencoderKL
+    from maskdit_tpu_torch.sampling.generate import to_uint8
+    from maskdit_tpu_torch.utils.port import load_vae
+
+    vae = AutoencoderKL().cuda().eval().requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for p in vae.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+        # GroupNorm scales about 1, not 0.02: each norm would otherwise shrink
+        # the signal 50-fold and every PNG come out mid-gray (pixel std ~3)
+        for m in vae.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.weight.add_(1.0)
+    path = os.path.join(SCRATCH, "autoencoder_kl.pth")
+    torch.save({k: v.cpu() for k, v in vae.state_dict().items()}, path)
+    cpu = load_vae(path)
+    n_params = sum(p.numel() for p in vae.parameters())
+    log(f"[vae] SD-VAE (ch 128, mult 1/2/4/4), {n_params} params ~ N(0, 0.02^2) (GroupNorm "
+        f"scales 1 + N(0, 0.02^2)), seed 1; "
+        f"saved to {os.path.basename(path)}; torch threads {torch.get_num_threads()}")
+    out = {"path": path}
+    for res, sub in ((256, "samples"), (512, "samples-512")):
+        z = torch.from_numpy(np.load(os.path.join(SCRATCH, sub, "latents_000000.npy")))
+        zc = z.cuda()
+        free_device_memory()
+        got = vae.decode(zc)
+        peak = torch.cuda.max_memory_allocated() / 1024 ** 3
+        k = VAE_CPU_IMAGES[res]
+        t0 = time.perf_counter()
+        ref = cpu.decode(z[:k])
+        cpu_s = time.perf_counter() - t0
+        err = check_rel("vae", f"decode {tuple(z.shape)} -> {tuple(got.shape)}, its first {k} "
+                        f"image(s)", got[:k], ref, VAE_REL_BOUND)
+        n = z.shape[0]
+        ms = cuda_ms(lambda: vae.decode(zc), 3) / n
+        flops = vae_decode_flops(vae, zc)
+        bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        scale = 1.0 / vae.scale_factor
+        raw = lambda: vae.decoder(vae.post_quant_conv(scale * zc))
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = raw()
+                tf32_ms = cuda_ms(raw, 3) / n
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        moved = float((to_uint8(tf32.cpu().numpy()) != to_uint8(got.cpu().numpy())).mean())
+        log(f"[vae] decode at {res} px, batch {n}, fp32: {ms:.3f} ms/image, "
+            f"{flops / 1e9:.1f} GFLOP/image, bound {bound_ms:.3f} ms/image at 67 TFLOP/s "
+            f"({bound_ms / ms:.3f} of it), peak memory {peak:.2f} GiB; CPU reference "
+            f"{cpu_s:.1f} s; TF32 on: {tf32_ms:.3f} ms/image, PNG values moved "
+            f"{moved:.5f}, max rel change {rel_err(tf32, got.cpu()):.3e}")
+        out[res] = dict(ms=ms, gflop=flops / 1e9, bound_ms=bound_ms, peak_gib=peak, err=err,
+                        tf32_ms=tf32_ms, tf32_moved=moved)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (2, 3, 256, 256))
+                         .astype(np.float32))
+    got = vae.encode_moments(x.cuda())
+    out["encode_err"] = check_rel("vae", "encode_moments (2, 3, 256, 256)", got,
+                                  cpu.encode_moments(x), VAE_REL_BOUND)
+    del vae, cpu
+    free_device_memory()
+    return out
+
+
+def read_pngs(folder: str, count: int, side: int) -> np.ndarray:
+    """The ``{seed:06d}.png`` files of ``folder``, read by the port's codec,
+    as uint8 NCHW; each must be side x side RGB."""
+    from maskdit_tpu_torch.utils.png import read_png
+
+    names = sorted(n for n in os.listdir(folder) if n.endswith(".png"))
+    if names != [f"{s:06d}.png" for s in range(count)]:
+        raise AssertionError(f"{folder}: PNGs {names}")
+    images = np.stack([read_png(os.path.join(folder, n)) for n in names])
+    if images.shape != (count, side, side, 3) or images.dtype != np.uint8:
+        raise AssertionError(f"{folder}: images {images.shape} {images.dtype}")
+    return images.transpose(0, 3, 1, 2)
+
+
+def phase_main_png(ckpt: str, vae_path: str) -> dict:
+    """The generate CLI at 256 px without --no_decode: 8 seeds, CFG 1.5, 40
+    steps, decoded by [vae]'s file into PNGs; then the PNG writes alone."""
+    from maskdit_tpu_torch import generate
+    from maskdit_tpu_torch.sampling.generate import save_images
+
+    outdir = os.path.join(SCRATCH, "samples-png")
+    argv = [
+        "--ckpt_path", ckpt, "--outdir", outdir, "--pretrained_path", vae_path,
+        "--seeds", f"0-{SEEDS - 1}", "--max_batch_size", str(SEEDS),
+        "--cfg_scale", str(CFG), "--num_steps", str(STEPS),
+        "--model_type", "DiT-XL/2", "--image_size", "32", "--image_channels", "4",
+        "--num_classes", "1000", "--use_decoder", "True", "--mae_loss_coef", "0.1",
+    ]
+    reset_launches()
+    result = generate.main(argv)
+    launches = read_launches()
+    images = read_pngs(outdir, SEEDS, 256)
+    t0 = time.perf_counter()
+    save_images(images.transpose(0, 2, 3, 1), range(SEEDS), os.path.join(SCRATCH, "png-writes"))
+    write_ms = (time.perf_counter() - t0) / SEEDS * 1e3
+    ips = result["images"] / result["seconds"]
+    log(f"[main-png] {SEEDS} PNGs {images.shape[1:]} uint8, pixel mean "
+        f"{float(images.mean()):.2f}, std {float(images.std()):.2f}; {result['seconds']:.3f} s: "
+        f"{ips:.3f} images/s including the decode (first batch, no warm-up), decode "
+        f"{result['decode_seconds']:.3f} s ({result['decode_seconds'] / SEEDS * 1e3:.1f} "
+        f"ms/image); the PNG writes alone (the port's codec, zlib level 6) {write_ms:.2f} "
+        f"ms/image")
+    expect_launches("main-png", launches, packed_fwd=(2 * STEPS - 1) * (DEPTH + DECODER_DEPTH))
+    return dict(images_per_s=ips, seconds=result["seconds"], write_ms=write_ms,
+                decode_seconds=result["decode_seconds"], launches=launches, outdir=outdir)
+
+
+def phase_eval(ckpt: str, vae_path: str, png_dir: str) -> dict:
+    """Reference statistics of [main-png]'s PNGs (fid ref, random detector);
+    eval_latent at 256 px, 16 seeds, to a finite FID against them; the
+    detector on the card vs the CPU on those PNGs; the evaluator CLI on two
+    npz batches; Inception ms per image."""
+    import scipy
+
+    from maskdit_tpu_torch import eval_latent, evaluator
+    from maskdit_tpu_torch import fid as fid_cli
+    from maskdit_tpu_torch.evals.evaluator import png_folder_to_npz
+    from maskdit_tpu_torch.evals.inception import make_detector, preprocess, random_state_dict
+    from maskdit_tpu_torch.utils.precision import exact_fp32
+
+    stats = os.path.join(SCRATCH, "ref-stats.npz")
+    fid_cli.main(["ref", "--data", png_dir, "--dest", stats, "--random_detector"])
+    config = os.path.join(SCRATCH, "maskdit-256-eval.json")
+    with open(config, "w") as f:
+        json.dump({**EVAL_CONFIG_256, "eval": {**EVAL_CONFIG_256["eval"], "ref_path": stats}}, f)
+    reset_launches()
+    result = eval_latent.main([
+        "--config", config, "--ckpt_path", ckpt, "--outdir", os.path.join(SCRATCH, "eval"),
+        "--seeds", f"0-{EVAL_SEEDS - 1}", "--cfg_scale", str(CFG), "--num_steps", str(STEPS),
+        "--max_batch_size", str(SEEDS), "--num_expected", str(EVAL_SEEDS),
+        "--pretrained_path", vae_path, "--random_detector"])
+    launches = read_launches()
+    read_pngs(result["outdir"], EVAL_SEEDS, 256)
+    log(f"[eval] eval_latent: {EVAL_SEEDS} PNGs in {result['seconds']:.3f} s, FID "
+        f"{result['fid']} against [main-png]'s statistics (random detector: the value only "
+        f"checks the machinery)")
+    if not np.isfinite(result["fid"]):
+        raise AssertionError(f"eval: FID {result['fid']}")
+    expect_launches("eval", launches,
+                    packed_fwd=EVAL_SEEDS // SEEDS * (2 * STEPS - 1) * (DEPTH + DECODER_DEPTH))
+
+    images = read_pngs(png_dir, SEEDS, 256)
+    state = random_state_dict(0)
+    card, cpu = make_detector(state, "cuda"), make_detector(state, "cpu")
+    got, ref = card(images), cpu(images)
+    errs = {k: check_rel("eval", f"detector {k} {got[k].shape}", torch.from_numpy(got[k]),
+                         torch.from_numpy(ref[k]), INCEPTION_REL_BOUND) for k in ref}
+
+    batches = []
+    for name, folder in (("ref", png_dir), ("sample", result["outdir"])):
+        batches.append(os.path.join(SCRATCH, f"{name}-batch.npz"))
+        png_folder_to_npz(folder, batches[-1])
+    metrics = evaluator.main([*batches, "--random_detector"])
+    log(f"[eval] evaluator (scipy {scipy.__version__}): {metrics}")
+    if not (len(metrics) == 5 and all(np.isfinite(v) for v in metrics.values())
+            and 0 <= metrics["precision"] <= 1 and 0 <= metrics["recall"] <= 1):
+        raise AssertionError(f"eval: evaluator metrics {metrics}")
+
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (INCEPTION_BATCH, 3, 256, 256), dtype=np.uint8)).cuda()
+    net = card.net
+
+    def detect():
+        with torch.no_grad(), exact_fp32():
+            net(preprocess(x))
+
+    ms = cuda_ms(detect, 5) / INCEPTION_BATCH
+    flops = conv_flops(net, detect) / INCEPTION_BATCH
+    bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    log(f"[eval] InceptionV3 at batch {INCEPTION_BATCH} (256 px -> 299), fp32: {ms:.3f} "
+        f"ms/image, {flops / 1e9:.2f} GFLOP/image, bound {bound_ms:.4f} ms/image at 67 "
+        f"TFLOP/s ({bound_ms / ms:.3f} of it)")
+    del card, cpu, net
+    free_device_memory()
+    return dict(fid=result["fid"], launches=launches, stats=stats, detector_err=errs,
+                metrics=metrics, inception_ms=ms, inception_gflop=flops / 1e9,
+                inception_bound_ms=bound_ms)
+
+
 def kernel_line(name: str, source: str, replaces: str, launches: int, err: float,
                 row: dict) -> dict:
     return {"name": name, "route": "cuda", "source": f"maskdit_tpu_torch/ops/csrc/{source}",
@@ -1438,26 +1726,41 @@ def kernel_line(name: str, source: str, replaces: str, launches: int, err: float
 
 def main() -> None:
     t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_device()
     phase_build()
+    mark("build")
     kernels = phase_kernels()
     bwd = phase_bwd_kernels()
     adam = phase_adam_kernel()
     big = phase_big_kernels()
     flash_k = phase_flash_kernels()
+    mark("kernel rows")
     try:
         ckpt = phase_weights()
         main_path = phase_main(ckpt)
         parity = phase_model_parity(ckpt)
         main_512 = phase_main_512(ckpt)
         parity_512 = phase_model_parity(ckpt, "parity-512", 64, SEEDS_512, ("kernel",))
-        train = phase_train()
+        mark("sampling")
+        vae = phase_vae()
+        mark("vae")
+        main_png = phase_main_png(ckpt, vae["path"])
+        mark("main-png")
+        evals = phase_eval(ckpt, vae["path"], main_png["outdir"])
+        mark("eval")
+        train = phase_train(vae["path"], evals["stats"])
         parity_train = phase_parity_train()
         phase_train_profile()
+        mark("train (with train-eval)")
         train_512 = run_train("train-512", TRAIN_CONFIG_512, 64, dict(
             big_fwd=ATTN_PER_STEP, big_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
         parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
         phase_train_profile("train-profile-512", 64, TRAIN_BATCH_512, 2)
+        mark("train-512")
         parity_flash = phase_flash_parity(ckpt)
         # the checkpoint recomputes each layer's forward in the backward
         train_flash = run_train("train-flash", TRAIN_CONFIG_512, 64, dict(
@@ -1480,9 +1783,14 @@ def main() -> None:
         f"bf16 {parity_flash['bfloat16']:.3e}, fp32 {parity_flash['float32']:.3e}; training "
         f"{train_flash['images_per_s']:.2f} images/s, {train_flash['ms_per_step']:.1f} ms/step, "
         f"MFU {train_flash['mfu']:.4f}, peak {train_flash['peak_gib']:.2f} GiB; train parity "
-        f"{parity_train_flash}; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+        f"{parity_train_flash}; evaluation: VAE decode {vae[256]['ms']:.3f} ms/image at 256 px, "
+        f"{vae[512]['ms']:.3f} at 512, sampling 256 with the decode {main_png['images_per_s']:.3f} "
+        f"images/s (cold), InceptionV3 "
+        f"{evals['inception_ms']:.3f} ms/image, eval_latent FID "
+        f"{evals['fid']:.4f}, train-eval FID {train['eval_fid']:.4f} (random weights); "
+        f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
-    paths = (main_path, train, main_512, train_512, train_flash)
+    paths = (main_path, train, main_512, train_512, train_flash, main_png, evals)
     count = lambda key: sum(p["launches"][key] for p in paths)
     print(json.dumps({"kernels": [
         kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",

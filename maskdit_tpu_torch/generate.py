@@ -2,14 +2,17 @@
 
 Usage:
   python -m maskdit_tpu_torch.generate --ckpt_path <ckpt.pt> --outdir out \
-      --seeds 0-63 --no_decode [--class_idx 207] [--cfg_scale 1.5] \
-      [--num_steps 40] [--config configs/test/maskdit-256.yaml] ...
+      --seeds 0-63 [--class_idx 207] [--cfg_scale 1.5] [--num_steps 40] \
+      [--config configs/test/maskdit-256.yaml] \
+      [--pretrained_path assets/stable_diffusion/autoencoder_kl.pth] ...
 
 Loads the EMA weights of a reference ``.pt`` checkpoint, samples with the
-EDM (or ablation) sampler on one device, rank 0 of world 1, and writes the
-latents of each batch as ``latents_<first seed>.npy``. Decoding to PNGs
-waits for the VAE's port, so ``--no_decode`` is required for now. The
-model computes in bf16 unless ``--fp32``.
+EDM (or ablation) sampler on one device, rank 0 of world 1, decodes each
+batch with the SD-VAE of ``--pretrained_path`` (the released
+``autoencoder_kl.pth`` layout, fp32) and writes ``{seed:06d}.png``.
+``--no_decode`` writes the latents of each batch as
+``latents_<first seed>.npy`` instead. The model computes in bf16 unless
+``--fp32``.
 """
 
 from __future__ import annotations
@@ -22,14 +25,26 @@ from typing import Optional, Sequence
 import torch
 
 from maskdit_tpu_torch.models import DIT_CONFIGS, check_model_keys, create_model
-from maskdit_tpu_torch.sampling.generate import (
-    VAE_NOT_PORTED,
-    SamplerConfig,
-    generate_with_params,
-)
+from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
 from maskdit_tpu_torch.utils import config as config_lib
 from maskdit_tpu_torch.utils.ckpt import load_into, load_reference_checkpoint
 from maskdit_tpu_torch.utils.logging import Logger, parse_float_none, parse_int_list, str2bool
+from maskdit_tpu_torch.utils.port import load_vae
+
+
+class TimedVAE:
+    """A VAE whose ``decode`` adds its device time to ``seconds``."""
+
+    def __init__(self, vae, device: torch.device):
+        self.vae, self.device, self.seconds = vae, device, 0.0
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        _synchronize(self.device)
+        t0 = time.perf_counter()
+        out = self.vae.decode(z)
+        _synchronize(self.device)
+        self.seconds += time.perf_counter() - t0
+        return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,8 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--scaling", type=str, default=None,
                         choices=["vp", "none"])
     parser.add_argument("--no_decode", action="store_true",
-                        help="save raw latents as .npy (required until the "
-                        "VAE is ported)")
+                        help="save raw latents as .npy instead of decoded PNGs")
+    parser.add_argument("--pretrained_path", type=str,
+                        default="assets/stable_diffusion/autoencoder_kl.pth",
+                        help="SD-VAE weights (autoencoder_kl.pth layout) for the decode")
     parser.add_argument("--image_size", type=int, default=32)
     parser.add_argument("--image_channels", type=int, default=4)
     parser.add_argument("--num_classes", type=int, default=1000)
@@ -73,8 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the CLI; returns {'images': n, 'seconds': t} for the sampling
-    itself (weights loaded, device synchronised at both ends)."""
+    """Run the CLI; returns {'images': n, 'seconds': t, 'decode_seconds':
+    d}: t is the whole generation (sampling, the decode and the file writes;
+    weights loaded, device synchronised at both ends), d the decode's part
+    of it (0 with ``--no_decode``)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.config is not None:
@@ -89,8 +108,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         args.num_classes = m.num_classes
         args.use_decoder = m.use_decoder
         args.mae_loss_coef = m.get("mae_loss_coef", 0)
-    if not args.no_decode:
-        raise NotImplementedError(VAE_NOT_PORTED)
 
     os.makedirs(args.outdir, exist_ok=True)
     device = torch.device(args.device)
@@ -109,6 +126,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                   strict=args.use_strict_load)
         model = model.to(device).eval()
         print(f"loaded weights from {args.ckpt_path}")
+        vae = None
+        if not args.no_decode:
+            vae = TimedVAE(load_vae(args.pretrained_path).to(device), device)
+            print(f"loaded the VAE from {args.pretrained_path}")
 
         sampler_cfg = SamplerConfig(
             num_steps=args.num_steps,
@@ -119,19 +140,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             schedule=args.schedule,
             scaling=args.scaling,
         )
-        print(f"generating {len(args.seeds)} latents to {args.outdir} "
+        what = "latents" if vae is None else "images"
+        print(f"generating {len(args.seeds)} {what} to {args.outdir} "
               f"(cfg={args.cfg_scale}, steps={args.num_steps}, device={device})")
         _synchronize(device)
         t0 = time.perf_counter()
         generate_with_params(
             model, args.seeds, args.outdir, sampler_cfg,
             class_idx=args.class_idx, max_batch_size=args.max_batch_size,
-            save_latents=True,
+            save_latents=vae is None, vae=vae,
         )
         _synchronize(device)
         seconds = time.perf_counter() - t0
-        print(f"Done: {len(args.seeds)} latents in {seconds:.3f} s")
-    return {"images": len(args.seeds), "seconds": seconds}
+        decode_seconds = 0.0 if vae is None else vae.seconds
+        n = len(args.seeds)
+        print(f"Done: {n} {what} in {seconds:.3f} s ({n / seconds:.3f} {what}/s); "
+              f"sampling and writes {seconds - decode_seconds:.3f} s, "
+              f"decode {decode_seconds:.3f} s")
+    return {"images": n, "seconds": seconds, "decode_seconds": decode_seconds}
 
 
 def _synchronize(device: torch.device) -> None:

@@ -1,10 +1,12 @@
-"""Batch generation: seeds -> sampled latents -> files.
+"""Batch generation: seeds -> sampled latents -> decoded PNGs (or latents).
 
 Counterpart of maskdit_tpu/sampling/generate.py (reference:
 generate_with_net, sample.py:230-296). Per-seed determinism comes from
 StackedRandomGenerator, and seeds are rank-strided (sample.py:232-235) so
-any world size produces the same images. The port writes latents as
-``.npy``; decoding them to PNGs waits for the VAE's port.
+any world size produces the same images. With a VAE each batch is decoded
+(halving the batch where the device runs out of memory, as the reference's
+recur_decode does) and written as ``{seed:06d}.png`` through the port's own
+PNG codec; without one the latents go to ``.npy`` files.
 """
 
 from __future__ import annotations
@@ -19,12 +21,8 @@ import torch.nn.functional as F
 
 from maskdit_tpu_torch.models.precond import EDMPrecond
 from maskdit_tpu_torch.sampling.edm import ablation_sampler, edm_sampler
+from maskdit_tpu_torch.utils.png import write_png
 from maskdit_tpu_torch.utils.rng import StackedRandomGenerator
-
-VAE_NOT_PORTED = (
-    "VAE decode is not ported to maskdit_tpu_torch yet (models/vae.py); "
-    "write latents with --no_decode / save_latents=True"
-)
 
 
 @dataclass
@@ -87,6 +85,21 @@ def make_sample_fn(
     return sample
 
 
+def decode_images(vae, z: torch.Tensor, max_split: int = 4) -> np.ndarray:
+    """``vae.decode(z)`` as a numpy array. Where the device runs out of
+    memory the batch is decoded again in 2, 4, ... parts, up to
+    ``2 ** max_split`` (reference recur_decode; the JAX package's
+    ``decode_images``); any other error propagates at once."""
+    for split in range(max_split + 1):
+        parts = min(2 ** split, z.shape[0])
+        try:
+            return torch.cat([vae.decode(part).cpu() for part in z.tensor_split(parts)]).numpy()
+        except torch.cuda.OutOfMemoryError:
+            if split == max_split or parts == z.shape[0]:
+                raise
+    raise AssertionError("unreachable")
+
+
 def to_uint8(images: np.ndarray) -> np.ndarray:
     """[-1,1] NCHW float -> uint8 NHWC (reference: sample.py:287)."""
     arr = np.clip((images + 1.0) * 127.5, 0, 255).astype(np.uint8)
@@ -96,18 +109,14 @@ def to_uint8(images: np.ndarray) -> np.ndarray:
 def save_images(
     images_np: np.ndarray, seeds: Sequence[int], outdir: str, subdirs: bool = False
 ) -> None:
-    from PIL import Image
-
+    """uint8 NHWC images -> ``{seed:06d}.png`` (gray or RGB), under
+    thousand-seed subdirectories with ``subdirs``."""
     for seed, image_np in zip(seeds, images_np):
         image_dir = (
             os.path.join(outdir, f"{seed - seed % 1000:06d}") if subdirs else outdir
         )
         os.makedirs(image_dir, exist_ok=True)
-        path = os.path.join(image_dir, f"{seed:06d}.png")
-        if image_np.shape[2] == 1:
-            Image.fromarray(image_np[:, :, 0], "L").save(path)
-        else:
-            Image.fromarray(image_np, "RGB").save(path)
+        write_png(os.path.join(image_dir, f"{seed:06d}.png"), image_np)
 
 
 def generate_with_params(
@@ -120,17 +129,20 @@ def generate_with_params(
     rank: int = 0,
     world: int = 1,
     save_latents: bool = False,
+    vae=None,
 ) -> Optional[np.ndarray]:
     """Sample ``seeds`` with ``model`` (which carries its weights and device).
 
     Seed batching mirrors sample.py:232-235: equal batches, then
-    rank-strided assignment. With ``outdir`` None the stacked latents are
-    returned; otherwise each batch goes to
-    ``outdir/latents_<first seed>.npy``, which needs ``save_latents``
-    until the VAE is ported.
+    rank-strided assignment. With a ``vae`` (an ``AutoencoderKL`` on the
+    model's device) each batch is decoded and, with ``outdir``, written as
+    ``{seed:06d}.png``; without one the batch's latents go to
+    ``outdir/latents_<first seed>.npy``, which needs ``save_latents``. With
+    ``outdir`` None the stacked uint8 NHWC images (or the latents) are
+    returned.
     """
-    if outdir is not None and not save_latents:
-        raise NotImplementedError(VAE_NOT_PORTED)
+    if outdir is not None and vae is None and not save_latents:
+        raise ValueError("need a VAE to write PNGs; pass vae, or save_latents=True")
     device = next(model.parameters()).device
     seeds = list(seeds)
     num_batches = ((len(seeds) - 1) // (max_batch_size * world) + 1) * world
@@ -153,12 +165,15 @@ def generate_with_params(
         churn = None
         if sampler_cfg.S_churn > 0:
             churn = torch.Generator(device).manual_seed(int(batch_seeds[0]))
-        z = sample_fn(latents, labels, churn).cpu().numpy()
+        z = sample_fn(latents, labels, churn)
+        out = to_uint8(decode_images(vae, z)) if vae is not None else z.cpu().numpy()
         if outdir is None:
-            collected.append(z)
+            collected.append(out)
+        elif vae is not None:
+            save_images(out, batch_seeds.tolist(), outdir)
         else:
             os.makedirs(outdir, exist_ok=True)
-            np.save(os.path.join(outdir, f"latents_{int(batch_seeds[0]):06d}.npy"), z)
+            np.save(os.path.join(outdir, f"latents_{int(batch_seeds[0]):06d}.npy"), out)
     if outdir is None and collected:
         return np.concatenate(collected)
     return None

@@ -8,8 +8,12 @@
 
 The config is the JAX package's YAML schema, or a ``.json`` file of the
 same schema (the card's machine need not have PyYAML). One device, rank 0
-of world 1; the mesh, coordinator and in-training eval flags of the JAX
-CLI are not ported. Only ``data.category: synthetic`` is read so far.
+of world 1; the mesh and coordinator flags of the JAX CLI are not ported.
+Only ``data.category: synthetic`` is read so far. ``--enable_eval`` runs
+the in-training FID after each checkpoint (``make_eval_hook``): the EMA
+weights sample ``--eval_seeds``, the SD-VAE of ``--pretrained_path``
+decodes them to PNGs, and their FID against ``eval.ref_path`` goes to
+``metrics.jsonl`` as ``eval/fid``.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ def validate(cfg: dict) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from maskdit_tpu_torch.fid import add_detector_args
     from maskdit_tpu_torch.utils.logging import parse_str_none
 
     parser = argparse.ArgumentParser("training parameters")
@@ -86,8 +91,54 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_steps", type=int, default=None,
                         help="override config.train.max_num_steps")
     parser.add_argument("--device", type=str, default="cuda", help="torch device to train on")
+    # in-training FID (reference: train.py:273-287)
+    parser.add_argument("--enable_eval", action="store_true")
+    parser.add_argument("--eval_seeds", type=str, default="0-9999")
+    parser.add_argument("--cfg_scale", type=str, default="None")
+    parser.add_argument("--num_steps", type=int, default=40)
+    parser.add_argument("--max_batch_size", type=int, default=50)
+    parser.add_argument("--num_expected", type=int, default=10000)
+    parser.add_argument("--fid_batch_size", type=int, default=64)
+    parser.add_argument("--pretrained_path", type=str,
+                        default="assets/stable_diffusion/autoencoder_kl.pth")
+    add_detector_args(parser)
     parser.add_argument("overrides", nargs="*", help="config overrides: a.b.c=value")
     return parser
+
+
+def make_eval_hook(cfg: dict, args: argparse.Namespace):
+    """``hook(step, ema) -> {'fid': value}``: the EMA weights sample
+    ``--eval_seeds`` into ``<results_dir>/fid/edm-steps<N>-ckpt<step>_cfg<scale>``
+    as PNGs, whose FID against ``eval.ref_path`` it returns (the JAX CLI's
+    ``make_eval_hook``, train.py:40-105). Without ``--cfg_scale`` the
+    config's first ``eval.cfg_scales`` entry is used, where it has one."""
+    from maskdit_tpu_torch.eval_latent import build_model
+    from maskdit_tpu_torch.evals import fid as fid_lib
+    from maskdit_tpu_torch.fid import build_detector
+    from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
+    from maskdit_tpu_torch.utils.logging import parse_float_none, parse_int_list
+    from maskdit_tpu_torch.utils.port import load_vae
+
+    seeds = parse_int_list(args.eval_seeds)
+    cfg_scale = parse_float_none(args.cfg_scale)
+    scales = cfg.get("eval", {}).get("cfg_scales")
+    if cfg_scale is None and scales:
+        cfg_scale = float(scales[0])
+    eval_model = build_model(cfg["model"], args.device)
+    vae = load_vae(args.pretrained_path).to(args.device)
+    detector = build_detector(args)
+
+    def hook(step: int, ema: dict) -> dict:
+        eval_model.load_state_dict(ema)
+        outdir = os.path.join(args.results_dir, "fid",
+                              f"edm-steps{args.num_steps}-ckpt{step}_cfg{cfg_scale}")
+        generate_with_params(eval_model, seeds, outdir,
+                             SamplerConfig(num_steps=args.num_steps, cfg_scale=cfg_scale),
+                             max_batch_size=args.max_batch_size, vae=vae)
+        return {"fid": fid_lib.calc(outdir, cfg["eval"]["ref_path"], args.num_expected,
+                                    args.global_seed, args.fid_batch_size, detector)}
+
+    return hook
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict[str, Any]:
@@ -107,6 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict[str, Any]:
         num_workers=args.num_workers,
         max_steps_override=args.max_steps,
         device=args.device,
+        eval_hook=make_eval_hook(cfg, args) if args.enable_eval else None,
     )
     with Logger(os.path.join(trainer.exp_dir, "log.txt"), "a+"):
         step = trainer.train()

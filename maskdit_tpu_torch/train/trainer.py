@@ -1,14 +1,15 @@
 """Config-driven training loop on one device.
 
 Counterpart of maskdit_tpu/train/trainer.py (the reference train.py:35-291)
-without the mesh, sharding, orbax, WDS streaming, the eval hook and
-pad-to-max masking. Kept: the experiment naming, mask-ratio bucketing with
-one train step per bucket, the learning-rate schedule mirror for logging,
-resume from the newest checkpoint (each step's draws are seeded from the
-seed and the step, so a resumed run draws what a straight run would), the
-save on SIGTERM/SIGINT, and the log line (loss, steps/s, images/s, MFU, peak
-device memory). Model keys the port does not build yet raise (see
-``check_model_keys``).
+without the mesh, sharding, orbax, WDS streaming and pad-to-max masking.
+Kept: the experiment naming, mask-ratio bucketing with one train step per
+bucket, the learning-rate schedule mirror for logging, resume from the
+newest checkpoint (each step's draws are seeded from the seed and the step,
+so a resumed run draws what a straight run would), the save on
+SIGTERM/SIGINT, the log line (loss, steps/s, images/s, MFU, peak device
+memory) and the eval hook (``eval_hook(step, ema)`` after each checkpoint,
+its metrics logged as ``eval/<name>``). Model keys the port does not build
+yet raise (see ``check_model_keys``).
 
 On a CUDA device every attention call and every optimizer update launches
 the port's kernels; there is no switch. ``model.use_flash`` picks the
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import os
 import signal
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -98,7 +99,11 @@ class Trainer:
         num_workers: int = 2,
         max_steps_override: Optional[int] = None,
         device: str = "cuda",
+        eval_hook: Optional[Callable[[int, dict], dict]] = None,
     ):
+        # eval_hook(step, ema) -> metrics, with ema the EMA weights under the
+        # state-dict keys; run after each checkpoint (reference train.py:273-287)
+        self.eval_hook = eval_hook
         self.config = config
         self.seed = seed
         self.device = torch.device(device)
@@ -267,6 +272,13 @@ class Trainer:
                 if step % ckpt_every == 0:
                     self.ckpt_mgr.save(step, self.state.checkpoint())
                     print(f"checkpoint saved at step {step}", flush=True)
+                    if self.eval_hook is not None:
+                        eval_metrics = self.eval_hook(step, self.state.named(self.state.ema))
+                        print(f"(step={step:07d}) eval: {eval_metrics}", flush=True)
+                        if eval_metrics:
+                            self.metrics.log({f"eval/{k}": v for k, v in eval_metrics.items()},
+                                             step)
+                        throughput.reset()
             if running:
                 self._log(step, running, ratio, throughput)
             if step not in self.ckpt_mgr.all_steps():

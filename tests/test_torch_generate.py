@@ -2,9 +2,12 @@
 
 ``make_sample_fn`` of both packages samples the same injected latents and
 labels with the same weights (fp32, 4 EDM steps, CFG 1.5: 7 evaluations of
-the tiny model); then the port's CLI runs from a reference-layout ``.pt``.
+the tiny model); then the port's CLI runs from a reference-layout ``.pt``,
+writing latents or, through a full-config SD-VAE with random weights, PNGs;
+and ``eval_latent`` runs from the checkpoint to an FID.
 """
 
+import json
 import os
 
 import jax
@@ -16,15 +19,19 @@ import torch
 from maskdit_tpu.models import create_model as jax_create_model
 from maskdit_tpu.sampling.generate import SamplerConfig as JaxSamplerConfig
 from maskdit_tpu.sampling.generate import make_sample_fn as jax_make_sample_fn
-from maskdit_tpu_torch import generate
+from maskdit_tpu_torch import eval_latent, generate
+from maskdit_tpu_torch import fid as fid_cli
 from maskdit_tpu_torch.models import create_model
 from maskdit_tpu_torch.sampling.generate import (
     SamplerConfig,
     generate_with_params,
     make_sample_fn,
+    to_uint8,
 )
-from maskdit_tpu_torch.utils.port import state_dict_from_flax
+from maskdit_tpu_torch.utils.png import read_png, write_png
+from maskdit_tpu_torch.utils.port import load_vae, state_dict_from_flax
 from tests.test_torch_model import MODEL_KW, patch_tiny_port
+from tests.test_torch_vae import write_random_vae
 
 # 7 evaluations of a random-weight model in fp32, summed in other orders
 # on the two sides: the sampler's own bound (1e-4 / 1e-5) widened 10x in atol
@@ -153,10 +160,74 @@ def test_cli_raises_on_model_keys_it_does_not_build(nets, tmp_path, key, value, 
             assert run()["images"] == 2
 
 
-def test_cli_without_no_decode_says_vae_is_not_ported(nets, tmp_path):
-    with pytest.raises(NotImplementedError, match="VAE"):
-        generate.main(["--ckpt_path", str(tmp_path / "none.pt"),
-                       "--outdir", str(tmp_path), "--device", "cpu"])
+@pytest.fixture(scope="module")
+def vae_path(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("vae") / "autoencoder_kl.pth")
+    write_random_vae(path)
+    return path
+
+
+def test_cli_writes_pngs_of_the_decoded_latents(nets, tmp_path, vae_path, capsys):
+    """Without --no_decode the CLI decodes with the SD-VAE of
+    --pretrained_path (the full config, random weights) and writes
+    ``{seed:06d}.png``: ``to_uint8`` of the VAE's decode of the very latents
+    the same CLI samples with --no_decode."""
+    _, _, model = nets
+    ckpt = tmp_path / "tiny.pt"
+    torch.save({"ema": model.state_dict()}, ckpt)
+    argv = ["--ckpt_path", str(ckpt), "--seeds", "0-4", "--max_batch_size", "5",
+            "--cfg_scale", "1.5", "--num_steps", "3", "--fp32", "--device", "cpu",
+            "--model_type", "DiT-S/2", "--image_size", str(RES), "--num_classes", str(K),
+            "--use_decoder", "True", "--mae_loss_coef", "0.1"]
+    latents = generate.main([*argv, "--outdir", str(tmp_path / "z"), "--no_decode"])
+    assert latents["decode_seconds"] == 0.0
+    result = generate.main([*argv, "--outdir", str(tmp_path / "png"),
+                            "--pretrained_path", vae_path])
+    assert result["images"] == 5 and 0 < result["decode_seconds"] < result["seconds"]
+    assert "decode" in capsys.readouterr().out
+    files = sorted(os.listdir(tmp_path / "png"))
+    assert files == [f"{s:06d}.png" for s in range(5)] + ["log.txt"]
+    z = torch.from_numpy(np.load(tmp_path / "z" / "latents_000000.npy"))
+    want = to_uint8(load_vae(vae_path).decode(z).numpy())
+    assert want.shape == (5, 8 * RES, 8 * RES, 3) and len(np.unique(want)) > 10
+    for s in range(5):
+        np.testing.assert_array_equal(read_png(str(tmp_path / "png" / f"{s:06d}.png")), want[s])
+
+
+@pytest.mark.parametrize("skip_fid", [False, True])
+def test_eval_latent_end_to_end(nets, tmp_path, vae_path, skip_fid):
+    """config + checkpoint -> PNGs -> FID against ``eval.ref_path`` (reference
+    statistics of other PNGs, from the port's ``fid ref``), random detector."""
+    _, _, model = nets
+    ckpt = tmp_path / "tiny.pt"
+    torch.save({"ema": model.state_dict(), "args": {}}, ckpt)
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(12)
+    for i in range(4):
+        write_png(str(data / f"{i}.png"), rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+    stats = str(tmp_path / "ref.npz")
+    fid_cli.main(["ref", "--data", str(data), "--dest", stats, "--random_detector",
+                  "--batch", "4", "--device", "cpu"])
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({
+        "model": {"precond": "edm", "model_type": "DiT-S/2", "in_size": RES,
+                  "in_channels": CIN, "num_classes": K, "use_decoder": True,
+                  "ext_feature_dim": 0, "pad_cls_token": False, "mae_loss_coef": 0.1},
+        "eval": {"batchsize": 4, "ref_path": stats},
+    }))
+    argv = ["--config", str(config), "--ckpt_path", str(ckpt), "--outdir", str(tmp_path / "out"),
+            "--seeds", "0-3", "--cfg_scale", "1.5", "--num_steps", "2", "--max_batch_size", "2",
+            "--num_expected", "4", "--fid_batch_size", "4", "--pretrained_path", vae_path,
+            "--random_detector", "--device", "cpu"]
+    out = eval_latent.main(argv + ["--skip_fid"] * skip_fid)
+    assert out["outdir"] == str(tmp_path / "out" / "edm-steps2-cfg1.5")
+    assert sorted(os.listdir(out["outdir"])) == [f"{s:06d}.png" for s in range(4)]
+    assert read_png(os.path.join(out["outdir"], "000003.png")).shape == (64, 64, 3)
+    if skip_fid:
+        assert out["fid"] is None
+    else:
+        assert np.isfinite(out["fid"]) and out["fid"] > 0
 
 
 def test_to_uint8_and_save_images_match_jax(tmp_path):

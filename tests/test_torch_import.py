@@ -4,7 +4,8 @@ Checked in a fresh interpreter: this test process has jax and maskdit_tpu
 loaded already (tests/conftest.py imports them). The JAX package's
 ``utils/logging.py`` and ``utils/config.py`` import no jax, so a check for
 jax alone misses an import of them: the check forbids every module named
-``maskdit_tpu`` or ``maskdit_tpu.*`` as well.
+``maskdit_tpu`` or ``maskdit_tpu.*`` as well. The evaluation path's modules
+also import no Pillow, which the card's machine need not have.
 """
 
 import os
@@ -17,7 +18,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "maskdit_tpu_torch",
     "maskdit_tpu_torch.generate",
+    "maskdit_tpu_torch.eval_latent",
+    "maskdit_tpu_torch.evaluator",
+    "maskdit_tpu_torch.fid",
+    "maskdit_tpu_torch.evals",
+    "maskdit_tpu_torch.evals.evaluator",
+    "maskdit_tpu_torch.evals.fid",
+    "maskdit_tpu_torch.evals.inception",
     "maskdit_tpu_torch.models",
+    "maskdit_tpu_torch.models.vae",
     "maskdit_tpu_torch.ops.flash",
     "maskdit_tpu_torch.ops.flash_batched",
     "maskdit_tpu_torch.ops.flash_big",
@@ -25,14 +34,28 @@ MODULES = [
     "maskdit_tpu_torch.models.masking",
     "maskdit_tpu_torch.sampling.generate",
     "maskdit_tpu_torch.data",
+    "maskdit_tpu_torch.data.datasets",
     "maskdit_tpu_torch.train",
     "maskdit_tpu_torch.train.cli",
     "maskdit_tpu_torch.train.trainer",
     "maskdit_tpu_torch.utils.ckpt",
     "maskdit_tpu_torch.utils.config",
     "maskdit_tpu_torch.utils.logging",
+    "maskdit_tpu_torch.utils.png",
     "maskdit_tpu_torch.utils.port",
+    "maskdit_tpu_torch.utils.precision",
     "maskdit_tpu_torch.utils.profiling",
+]
+# the evaluation path: seeds -> PNGs -> FID runs where Pillow is missing
+PNG_PATH = [
+    "maskdit_tpu_torch.generate",
+    "maskdit_tpu_torch.eval_latent",
+    "maskdit_tpu_torch.fid",
+    "maskdit_tpu_torch.evaluator",
+    "maskdit_tpu_torch.evals",
+    "maskdit_tpu_torch.models.vae",
+    "maskdit_tpu_torch.utils.png",
+    "maskdit_tpu_torch.train.cli",
 ]
 
 FORBIDDEN = (
@@ -61,6 +84,19 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         f"assert set({MODULES!r}) <= set(sys.modules)\n"
         + FORBIDDEN
+    )
+    proc = _run(code)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_evaluation_path_imports_no_pillow():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PNG_PATH!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'PIL' or m.startswith('PIL.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
     )
     proc = _run(code)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

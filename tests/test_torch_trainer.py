@@ -12,6 +12,7 @@ import os
 import signal
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -207,6 +208,66 @@ def test_resumed_run_draws_what_a_straight_run_draws(tiny_port, tmp_path):
     for name in ("mu", "nu"):
         assert torch.equal(getattr(straight.state.opt_state, name),
                            getattr(resumed.state.opt_state, name)), name
+
+
+def test_eval_hook_runs_after_each_checkpoint_on_the_ema(tiny_port, tmp_path):
+    """``Trainer(eval_hook=...)`` calls ``hook(step, ema)`` after each
+    checkpoint, with the EMA weights that checkpoint saved, and logs what it
+    returns as ``eval/<name>`` at that step (JAX trainer.py:419-427)."""
+    cfg = cli.apply_overrides(cli.load_config(SMOKE), ["log.log_every=1", "log.ckpt_every=2"])
+    calls = []
+
+    def hook(step, ema):
+        calls.append((step, {k: v.clone() for k, v in ema.items()}))
+        return {"fid": 10.0 + step, "is": 2.0}
+
+    trainer = Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1,
+                      max_steps_override=5, eval_hook=hook)
+    assert trainer.train() == 5
+    assert [step for step, _ in calls] == [2, 4]
+    for step, ema in calls:
+        saved = trainer.ckpt_mgr.restore(step)["ema"]
+        assert sorted(ema) == sorted(saved)
+        assert all(torch.equal(ema[k], saved[k]) for k in saved)
+    with open(os.path.join(trainer.exp_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    evals = [r for r in records if "eval/fid" in r]
+    assert [(r["step"], r["eval/fid"], r["eval/is"]) for r in evals] == [(2, 12.0, 2.0),
+                                                                           (4, 14.0, 2.0)]
+
+
+def test_cli_enable_eval_writes_fid(tiny_port, tmp_path):
+    """``--enable_eval`` at tiny dims: after the step-2 checkpoint the EMA
+    samples 4 seeds, a full-config SD-VAE (random weights) decodes them to
+    PNGs, and their FID against ``eval.ref_path`` (random detector) goes to
+    metrics.jsonl."""
+    from maskdit_tpu_torch.evals import fid as fid_lib
+    from maskdit_tpu_torch.evals.inception import make_detector, random_state_dict
+    from maskdit_tpu_torch.utils.png import read_png, write_png
+    from tests.test_torch_vae import write_random_vae
+
+    vae = str(tmp_path / "autoencoder_kl.pth")
+    write_random_vae(vae)
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        write_png(str(data / f"{i}.png"), rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
+    stats = str(tmp_path / "ref.npz")
+    fid_lib.ref(str(data), stats, 3, make_detector(random_state_dict(0), "cpu"))
+    results = str(tmp_path / "results")
+    out = cli.main([*ARGS[:-2], "log.log_every=1", "log.ckpt_every=2", f"eval.ref_path={stats}",
+                    "--results_dir", results, "--max_steps", "2", "--enable_eval",
+                    "--eval_seeds", "0-3", "--cfg_scale", "1.5", "--num_steps", "2",
+                    "--max_batch_size", "4", "--num_expected", "4", "--fid_batch_size", "4",
+                    "--pretrained_path", vae, "--random_detector"])
+    assert out["step"] == 2
+    with open(os.path.join(out["exp_dir"], "metrics.jsonl")) as f:
+        (record,) = [json.loads(line) for line in f if "eval/fid" in line]
+    assert record["step"] == 2 and np.isfinite(record["eval/fid"])
+    pngs = os.path.join(results, "fid", "edm-steps2-ckpt2_cfg1.5")
+    assert sorted(os.listdir(pngs)) == [f"{s:06d}.png" for s in range(4)]
+    assert read_png(os.path.join(pngs, "000000.png")).shape == (128, 128, 3)
 
 
 def test_chip_smoke_trains_the_released_config():
