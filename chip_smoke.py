@@ -36,21 +36,23 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      calls through the blocked kernel; model parity at 512; warm images/s;
      a profile of one evaluation;
   6. training at 256 px: ``maskdit_tpu_torch.train.main`` on the released
-     256-px config at its batch of 128, cut to 12 steps, on synthetic
-     latents; checks finite losses, 36 + 36 attention launches and one
+     256-px config at its batch of 128, cut to 12 steps, on [extract]'s
+     latent LMDB (native reader); checks finite losses, 36 + 36 attention launches and one
      fused-update launch per step, and that resuming from the checkpoint
      restores it exactly; train-step parity kernels vs plain in fp32 and
      bf16; a profile of one train step;
   7. training at 512 px: the same CLI on the released 512-px config at its
-     batch of 32, cut to 8 steps, 36 + 36 blocked-attention launches and
+     batch of 32, cut to 8 steps, on [extract]'s WebDataset shards
+     (indexed), 36 + 36 blocked-attention launches and
      one fused-update launch per step; train-step parity; a profile;
   8. the ``use_flash`` path (ops/flash.py, kernels #5 and #6): both kernels
      against their plain versions at every L of their window (bf16, head
      dims 32, 64, 72), then timed at the 512-px shapes, at the edges of
      the window and at an odd head dim; one CFG denoiser evaluation at
      512 px with ``use_flash=True``, kernels vs plain; the train CLI on the
-     released 512-px config with the override ``model.use_flash=true``, at
-     batch 32, cut to 6 steps: 72 flash-forward launches (the checkpoint
+     released 512-px config with the overrides ``model.use_flash=true`` and
+     ``data.streaming=true`` (the shards streamed), at batch 32, cut to 6
+     steps: 72 flash-forward launches (the checkpoint
      recomputes each layer's forward in the backward), 36 flash-backward
      and one fused-update launch per step; train-step parity kernels vs
      plain and, in fp32, flash vs the blocked kernels; a profile;
@@ -69,7 +71,21 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      batches, InceptionV3 ms per image; [train-eval] 6. runs with
      ``--enable_eval``: after its last step's checkpoint the eval hook
      samples 8 seeds, decodes them and writes a finite eval/fid at step 12
-     to metrics.jsonl.
+     to metrics.jsonl;
+ 10. the data path (it runs after [vae], before 6.): [extract] 64 seeded
+     PNGs (smooth content, 8 class folders, half about 400 x 300, half with
+     a short side >= 512) through ``maskdit_tpu_torch.extract_latent
+     --resolution 256 --xflip`` on the card with [vae]'s weights (128
+     records), the first 16 at 512 px (32 records) and ``lmdb2wds
+     --maxcount 8`` (4 shards): the native reader, the counts, the crop
+     against a direct call, the first image's card moments against a CPU
+     fp32 encode; encode ms per image against the fp32 bound, the host
+     crop, the LMDB write rate, the loaders' batches/s against the
+     synthetic dataset's;
+ 11. [overfit-gate] tools/torch_overfit_gate.py at its defaults (2000 fp32
+     steps of a tiny DiT-S/2 on 8 latents through the port's Trainer, then
+     sampled back): fails unless the verdict passes; its fp32 launches of
+     the whole-row attention and the update count in the kernels line.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -95,15 +111,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 
 # configs/train/imagenet256-latent.yaml as JSON (the card's machine need
-# not have PyYAML), with the cuts TRAIN_CUTS lists: synthetic latents (the
-# ImageNet latents are not in the repository) and 12 steps, for the
-# smoke's time; the released batch of 128; logged every 2 steps so that
-# the warm window leaves out the first two. tests/test_torch_trainer.py
-# holds the rest equal to the YAML.
+# not have PyYAML), with data.root at [extract]'s latent LMDB (64 seeded
+# PNGs and their flips: 128 records, one batch of 128 per epoch) and the
+# cut TRAIN_CUTS lists: 12 steps, for the smoke's time; logged every 2
+# steps so that the warm window leaves out the first two.
+# tests/test_torch_trainer.py holds the rest equal to the YAML.
 TRAIN_STEPS, TRAIN_BATCH, LOG_EVERY = 12, 128, 2
 # the same for configs/train/imagenet512-latent.yaml: 8 steps at the
-# released batch of 32; tests/test_torch_512.py holds it to the YAML
+# released batch of 32, over [extract]'s 4 WebDataset shards (16 PNGs and
+# their flips at 512 px); tests/test_torch_512.py holds it to the YAML
 TRAIN_STEPS_512, TRAIN_BATCH_512 = 8, 32
+
+# [extract]: seeded PNGs in an ImageFolder tree of EXTRACT_CLASSES class
+# folders; the first EXTRACT_IMAGES_512 of them also at 512 px; the 512-px
+# LMDB in shards of WDS_MAXCOUNT records
+EXTRACT_IMAGES, EXTRACT_CLASSES, EXTRACT_IMAGES_512, WDS_MAXCOUNT = 64, 8, 16, 8
+LATENT_ROOT = os.path.join(SCRATCH, "latents")
+TRAIN_DATA_ROOT = os.path.join(LATENT_ROOT, "imagenet_256_latent_lmdb")
+TRAIN_DATA_ROOT_512 = os.path.join(SCRATCH, "wds-512")
+LOADER_BATCHES = 20  # batches timed per loader, after its first
 
 SEEDS, STEPS, CFG = 8, 40, 1.5
 SEEDS_512 = 4
@@ -205,8 +231,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 TRAIN_CONFIG = {
-    "data": {"dataset": "imagenet256-latent", "category": "synthetic", "resolution": 32,
-             "num_channels": 4, "length": TRAIN_STEPS * TRAIN_BATCH},
+    "data": {"dataset": "imagenet256-latent", "category": "lmdb", "resolution": 32,
+             "num_channels": 4, "random_flip": True, "root": TRAIN_DATA_ROOT,
+             "feat_path": "None"},
     "model": {"precond": "edm", "model_type": "DiT-XL/2", "in_size": 32, "in_channels": 4,
               "num_classes": 1000, "use_decoder": True, "ext_feature_dim": 0,
               "pad_cls_token": False, "mask_ratio": 0.5, "mask_ratio_fn": "constant",
@@ -216,18 +243,17 @@ TRAIN_CONFIG = {
               "lr_rampup_kimg": 0, "xflip": False, "max_num_steps": TRAIN_STEPS},
     "log": {"log_every": LOG_EVERY, "ckpt_every": 50000, "tag": "chip-smoke"},
 }
-TRAIN_CUTS = {"data.category": ("lmdb", "synthetic"),
-              "train.max_num_steps": (2000000, TRAIN_STEPS)}
+TRAIN_CUTS = {"train.max_num_steps": (2000000, TRAIN_STEPS)}
 TRAIN_CONFIG_512 = {
-    "data": {"dataset": "imagenet512-latent", "category": "synthetic", "resolution": 64,
-             "num_channels": 4, "length": TRAIN_STEPS_512 * TRAIN_BATCH_512},
+    "data": {"dataset": "imagenet512-latent", "category": "webdataset", "resolution": 64,
+             "num_channels": 4, "root": TRAIN_DATA_ROOT_512, "total_num": 1281167,
+             "streaming": False, "shuffle_buffer": 1000},
     "model": {**TRAIN_CONFIG["model"], "in_size": 64},
     "train": {**TRAIN_CONFIG["train"], "batchsize": TRAIN_BATCH_512, "epochs": 2000,
               "max_num_steps": TRAIN_STEPS_512},
     "log": {"log_every": LOG_EVERY, "ckpt_every": 50000, "tag": "chip-smoke-512"},
 }
-TRAIN_CUTS_512 = {"data.category": ("webdataset", "synthetic"),
-                  "train.max_num_steps": (2000000, TRAIN_STEPS_512)}
+TRAIN_CUTS_512 = {"train.max_num_steps": (2000000, TRAIN_STEPS_512)}
 # configs/test/maskdit-512.yaml's model section (what the generate CLI
 # reads), as JSON; tests/test_torch_512.py holds it equal to the YAML
 SAMPLE_CONFIG_512 = {"model": {
@@ -1715,6 +1741,238 @@ def phase_eval(ckpt: str, vae_path: str, png_dir: str) -> dict:
                 inception_bound_ms=bound_ms)
 
 
+def smooth_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """An RGB uint8 image of smooth, low-frequency content: a random 7 x 9
+    grid of colours, upsampled bilinearly to h x w."""
+    grid = rng.uniform(0, 255, (7, 9, 3))
+
+    def axis(n: int, size: int):
+        pos = np.linspace(0, size - 1, n)
+        lo = np.minimum(np.floor(pos).astype(int), size - 2)
+        return lo, pos - lo
+
+    y0, fy = axis(h, 7)
+    x0, fx = axis(w, 9)
+    rows = grid[y0] * (1 - fy[:, None, None]) + grid[y0 + 1] * fy[:, None, None]
+    out = rows[:, x0] * (1 - fx[None, :, None]) + rows[:, x0 + 1] * fx[None, :, None]
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+def write_image_tree(root: str, count: int, seed: int) -> list[str]:
+    """``count`` PNGs in ``root/train/<class>/`` (EXTRACT_CLASSES classes,
+    by index); even indices about 400 x 300, odd ones with a short side of
+    at least 512, so that the crop's BOX halvings run at 256 px."""
+    from maskdit_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(count):
+        if i % 2 == 0:
+            h, w = int(rng.integers(280, 321)), int(rng.integers(380, 421))
+        else:
+            short, extra = int(rng.integers(512, 641)), int(rng.integers(0, 201))
+            h, w = (short, short + extra) if rng.random() < 0.5 else (short + extra, short)
+        path = os.path.join(root, "train", f"n{i % EXTRACT_CLASSES:08d}", f"{i:04d}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_png(path, smooth_image(rng, h, w))
+        paths.append(path)
+    return paths
+
+
+def vae_encode_flops(vae, x: torch.Tensor) -> float:
+    """Operations of ``vae.encode_moments(x)`` per image: its convolutions
+    and the mid-block attention's two products (2 * 2 * (hw)^2 * C)."""
+    convs = conv_flops(vae, lambda: vae.encode_moments(x))
+    c = vae.encoder.mid.attn_1.q.in_channels
+    hw = (x.shape[-1] // 8) * (x.shape[-2] // 8)
+    return (convs + 4.0 * x.shape[0] * hw * hw * c) / x.shape[0]
+
+
+def loader_rate(batches) -> float:
+    """Batches per second of an iterator of batches, after its first."""
+    it = iter(batches)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(LOADER_BATCHES):
+        next(it)
+    return LOADER_BATCHES / (time.perf_counter() - t0)
+
+
+def phase_extract(vae_path: str) -> dict:
+    """The data path: 64 seeded PNGs (8 class folders) through
+    ``maskdit_tpu_torch.extract_latent --resolution 256 --xflip`` on the
+    card with [vae]'s weights (128 records, [train]'s data); the first 16
+    through ``--resolution 512 --xflip`` (32 records), then ``lmdb2wds
+    --maxcount 8`` (4 shards, [train-512]'s and [train-flash]'s data).
+    Checks the native reader, the counts and ``length``, the crop against a
+    direct call of the port's numpy resample, and the first image's card
+    moments against a CPU fp32 encode of the same crop. Reports encode
+    ms/image against the fp32 bound, the host crop, the LMDB write rate and
+    the loaders' batches/s against the synthetic dataset's."""
+    from maskdit_tpu_torch import extract_latent, lmdb2wds
+    from maskdit_tpu_torch.data.datasets import (
+        ImageNetLatentDataset,
+        SyntheticLatentDataset,
+        center_crop_arr,
+        imagenet_lmdb_dataset,
+        to_rgb,
+        write_latent_lmdb,
+    )
+    from maskdit_tpu_torch.data.loader import DataLoader
+    from maskdit_tpu_torch.data.native_io import open_reader
+    from maskdit_tpu_torch.data.wds import StreamingWDSLoader, WebDatasetLatents, index_tar
+    from maskdit_tpu_torch.utils.png import read_png
+    from maskdit_tpu_torch.utils.port import load_vae
+
+    images, images_512 = os.path.join(SCRATCH, "images"), os.path.join(SCRATCH, "images-512")
+    for d in (images, images_512, LATENT_ROOT, TRAIN_DATA_ROOT_512):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_image_tree(images, EXTRACT_IMAGES, seed=5)
+    for path in paths[:EXTRACT_IMAGES_512]:
+        dest = os.path.join(images_512, os.path.relpath(path, images))
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        shutil.copy(path, dest)
+    sizes = [read_png(p).shape[:2] for p in paths]
+    mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    log(f"[extract] {EXTRACT_IMAGES} PNGs ({mb:.1f} MB, sides {min(min(s) for s in sizes)}-"
+        f"{max(max(s) for s in sizes)} px, {sum(min(s) >= 512 for s in sizes)} with a short "
+        f"side >= 512) in {EXTRACT_CLASSES} classes, written in {time.perf_counter() - t0:.1f} s")
+
+    out = {}
+    for res, root, count in ((256, images, EXTRACT_IMAGES), (512, images_512, EXTRACT_IMAGES_512)):
+        free_device_memory()
+        result = extract_latent.main(["--data_dir", root, "--ckpt", vae_path, "--resolution",
+                                      str(res), "--xflip", "--outdir", LATENT_ROOT,
+                                      "--device", "cuda"])
+        db = open_reader(result["outdir"])
+        length = db.get(b"length")
+        log(f"[extract] extract_latent at {res} px --xflip: {result['count']} records in "
+            f"{result['seconds']:.2f} s (encode {result['encode_seconds']:.2f} s), image cache "
+            f"reader {result['reader']}, LMDB reader {db.kind}, length {length!r}, "
+            f"{len(db)} keys")
+        if (result["count"] != 2 * count or length != str(2 * count).encode()
+                or len(db) != 4 * count + 1 or result["reader"] != "native"
+                or db.kind != "native"):
+            raise AssertionError(f"extract at {res} px: {result}, length {length!r}, "
+                                 f"{len(db)} keys, reader {db.kind}")
+        db.close()
+        out[res] = dict(seconds=result["seconds"], encode_seconds=result["encode_seconds"])
+
+    shards = lmdb2wds.main(["--datadir", os.path.join(LATENT_ROOT, "imagenet_512_latent_lmdb"),
+                            "--outdir", TRAIN_DATA_ROOT_512, "--resolution", "64",
+                            "--maxcount", str(WDS_MAXCOUNT)])
+    counts = [len(index_tar(p)) for p in shards]
+    log(f"[extract] lmdb2wds --maxcount {WDS_MAXCOUNT}: {len(shards)} shards of {counts} records")
+    if counts != [WDS_MAXCOUNT] * (2 * EXTRACT_IMAGES_512 // WDS_MAXCOUNT):
+        raise AssertionError(f"extract: shards {counts}")
+
+    # the crop through the image cache vs a direct call; the card's moments
+    # of the first image vs the CPU's
+    ds = imagenet_lmdb_dataset(os.path.join(images, "train"), resolution=256)
+    crop, onehot = ds[0]
+    direct = center_crop_arr(to_rgb(read_png(paths[0])), 256).transpose(2, 0, 1)
+    if crop.shape != (3, 256, 256) or not np.array_equal(crop, direct):
+        raise AssertionError("extract: the image cache's crop differs from center_crop_arr")
+    db = open_reader(os.path.join(TRAIN_DATA_ROOT, "train"))
+    got = torch.from_numpy(np.frombuffer(db.get(b"z-0"), np.float32).reshape(1, 8, 32, 32).copy())
+    label = int(db.get(b"y-0"))
+    x0 = torch.from_numpy(crop.astype(np.float32)[None] / 127.5 - 1.0)
+    cpu = load_vae(vae_path)
+    out["moments_err"] = check_rel("extract", "z-0 (the card's encode) vs a CPU fp32 encode "
+                                   "of the same crop", got, cpu.encode_moments(x0),
+                                   VAE_REL_BOUND)
+    if label != int(np.argmax(onehot)):
+        raise AssertionError(f"extract: y-0 {label} != class {int(np.argmax(onehot))}")
+    del cpu
+
+    # timings: the encoder on the card, the host crop, the LMDB writer
+    vae = load_vae(vae_path).cuda()
+    for res, n in ((256, 16), (512, 8)):
+        dsr = ds if res == 256 else imagenet_lmdb_dataset(os.path.join(images_512, "train"),
+                                                          resolution=512)
+        x = torch.from_numpy(np.stack([dsr[i][0] for i in range(n)]).astype(np.float32)
+                             / 127.5 - 1.0).cuda()
+        free_device_memory()
+        ms = cuda_ms(lambda: vae.encode_moments(x), 3) / n
+        peak = torch.cuda.max_memory_allocated() / 1024 ** 3
+        flops = vae_encode_flops(vae, x)
+        bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        log(f"[extract] encode_moments at {res} px, batch {n}, fp32: {ms:.3f} ms/image, "
+            f"{flops / 1e9:.1f} GFLOP/image, bound {bound_ms:.3f} ms/image at 67 TFLOP/s "
+            f"({bound_ms / ms:.3f} of it), peak memory {peak:.2f} GiB")
+        out[res].update(encode_ms=ms, gflop=flops / 1e9, bound_ms=bound_ms, peak_gib=peak)
+    del vae, x
+    free_device_memory()
+    t0 = time.perf_counter()
+    for i in range(EXTRACT_IMAGES):
+        ds[i]
+    item_ms = (time.perf_counter() - t0) / EXTRACT_IMAGES * 1e3
+    decoded = [to_rgb(read_png(p)) for p in paths]
+    t0 = time.perf_counter()
+    for arr in decoded:
+        center_crop_arr(arr, 256)
+    crop_ms = (time.perf_counter() - t0) / EXTRACT_IMAGES * 1e3
+    moments = np.stack([np.frombuffer(db.get(f"z-{i}".encode()), np.float32)
+                        for i in range(2 * EXTRACT_IMAGES)]).reshape(-1, 8, 32, 32)
+    db.close()
+    t0 = time.perf_counter()
+    write_path = os.path.join(SCRATCH, "write-test")
+    write_latent_lmdb(write_path, moments, np.arange(len(moments)) % EXTRACT_CLASSES)
+    write_mb_s = os.path.getsize(os.path.join(write_path, "data.mdb")) / 1e6 / (
+        time.perf_counter() - t0)
+    log(f"[extract] host (the card's machine, {os.cpu_count()} cores): PNG decode + crop to "
+        f"256 px {item_ms:.2f} ms/image through the image cache, the crop alone "
+        f"{crop_ms:.2f} ms/image; latent LMDB write "
+        f"{write_mb_s:.1f} MB/s ({len(moments)} records of 32 KiB)")
+    out.update(item_ms=item_ms, crop_ms=crop_ms, write_mb_s=write_mb_s)
+
+    rates = {}
+    for name, make in (
+        ("lmdb native", lambda: ImageNetLatentDataset(TRAIN_DATA_ROOT, 32)),
+        ("lmdb python", lambda: ImageNetLatentDataset(TRAIN_DATA_ROOT, 32, native=False)),
+        ("synthetic", lambda: SyntheticLatentDataset(2 * EXTRACT_IMAGES, 32)),
+    ):
+        rates[name] = loader_rate(DataLoader(make(), TRAIN_BATCH, num_workers=4))
+    for name, make in (
+        ("wds indexed", lambda: DataLoader(WebDatasetLatents(TRAIN_DATA_ROOT_512), TRAIN_BATCH_512,
+                                           num_workers=4)),
+        ("wds streaming", lambda: StreamingWDSLoader(TRAIN_DATA_ROOT_512, TRAIN_BATCH_512)),
+        ("synthetic 512", lambda: DataLoader(SyntheticLatentDataset(2 * EXTRACT_IMAGES_512, 64),
+                                             TRAIN_BATCH_512, num_workers=4)),
+    ):
+        rates[name] = loader_rate(make())
+    log(f"[extract] loader batches/s over {LOADER_BATCHES} batches (4 worker threads): batch "
+        f"{TRAIN_BATCH} at 32 x 32 " + ", ".join(f"{k} {v:.2f}" for k, v in list(rates.items())[:3])
+        + f"; batch {TRAIN_BATCH_512} at 64 x 64 "
+        + ", ".join(f"{k} {v:.2f}" for k, v in list(rates.items())[3:]))
+    out["loader_batches_per_s"] = rates
+    return out
+
+
+def phase_overfit_gate() -> dict:
+    """tools/torch_overfit_gate.py at its defaults on the card (2000 fp32
+    steps of the tiny DiT-S/2, 18-step sampler, 8 classes); fails unless
+    the verdict passes. Its launches: per step 4 encoder + 2 decoder
+    attention calls forward and backward and one update; per class 35
+    evaluations of 6 attention calls."""
+    from tools.torch_overfit_gate import run_gate
+
+    free_device_memory()
+    reset_launches()
+    t0 = time.perf_counter()
+    verdict = run_gate(out=os.path.join(SCRATCH, "overfit-gate"), device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[overfit-gate] {json.dumps(verdict)}; {seconds:.1f} s")
+    if not verdict["passed"]:
+        raise AssertionError(f"overfit-gate: {verdict}")
+    steps, blocks, classes, evals = 2000, 4 + 2, 8, 2 * 18 - 1
+    expect_launches("overfit-gate", launches, packed_fwd=steps * blocks + classes * evals * blocks,
+                    packed_bwd=steps * blocks, adam=steps)
+    return dict(verdict=verdict, seconds=seconds, launches=launches)
+
+
 def kernel_line(name: str, source: str, replaces: str, launches: int, err: float,
                 row: dict) -> dict:
     return {"name": name, "route": "cuda", "source": f"maskdit_tpu_torch/ops/csrc/{source}",
@@ -1748,6 +2006,8 @@ def main() -> None:
         mark("sampling")
         vae = phase_vae()
         mark("vae")
+        extract = phase_extract(vae["path"])
+        mark("extract")
         main_png = phase_main_png(ckpt, vae["path"])
         mark("main-png")
         evals = phase_eval(ckpt, vae["path"], main_png["outdir"])
@@ -1765,10 +2025,14 @@ def main() -> None:
         # the checkpoint recomputes each layer's forward in the backward
         train_flash = run_train("train-flash", TRAIN_CONFIG_512, 64, dict(
             flash_fwd=2 * ATTN_PER_STEP, flash_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
-            ("model.use_flash=true", f"train.max_num_steps={TRAIN_STEPS_FLASH}"))
+            ("model.use_flash=true", "data.streaming=true",
+             f"train.max_num_steps={TRAIN_STEPS_FLASH}"))
         parity_train_flash = phase_parity_train("parity-train-flash", 64, PARITY_BATCH_512,
                                                 use_flash=True)
         phase_train_profile("train-profile-flash", 64, TRAIN_BATCH_512, 2, use_flash=True)
+        mark("train-flash")
+        gate = phase_overfit_gate()
+        mark("overfit-gate")
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     log(f"[summary] {smi}: sampling 256 {main_path['images_per_s']:.3f} images/s (cold), "
@@ -1787,10 +2051,14 @@ def main() -> None:
         f"{vae[512]['ms']:.3f} at 512, sampling 256 with the decode {main_png['images_per_s']:.3f} "
         f"images/s (cold), InceptionV3 "
         f"{evals['inception_ms']:.3f} ms/image, eval_latent FID "
-        f"{evals['fid']:.4f}, train-eval FID {train['eval_fid']:.4f} (random weights); "
+        f"{evals['fid']:.4f}, train-eval FID {train['eval_fid']:.4f} (random weights); data: "
+        f"encode {extract[256]['encode_ms']:.3f} / {extract[512]['encode_ms']:.3f} ms/image at "
+        f"256 / 512 px, host crop {extract['crop_ms']:.2f} ms/image, LMDB write "
+        f"{extract['write_mb_s']:.1f} MB/s, loader batches/s {extract['loader_batches_per_s']}; "
+        f"overfit gate {gate['verdict']} in {gate['seconds']:.1f} s; "
         f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
-    paths = (main_path, train, main_512, train_512, train_flash, main_png, evals)
+    paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate)
     count = lambda key: sum(p["launches"][key] for p in paths)
     print(json.dumps({"kernels": [
         kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",

@@ -11,8 +11,9 @@ imported, and nothing here imports jax.
 Ported so far: the EDM sampling path (EDMPrecond over MaskDiT, the EDM and
 ablation samplers, the generate CLI with the SD-VAE decode to PNGs), the
 masked training path (masking, the EDM + MAE loss, the train step, the
-trainer with its eval hook and the train CLI, on synthetic latents), the
-evaluation path (InceptionV3, FID / IS / sFID / precision-recall, the fid,
+trainer with its eval hook and the train CLI), the latent data path (the
+latent LMDB with a native reader, WebDataset shards, the extract_latent and
+lmdb2wds CLIs), the evaluation path (InceptionV3, FID / IS / sFID / precision-recall, the fid,
 evaluator and eval_latent CLIs), and all seven kernels of the JAX package
 (ops/csrc/).
 """

@@ -9,7 +9,10 @@
 The config is the JAX package's YAML schema, or a ``.json`` file of the
 same schema (the card's machine need not have PyYAML). One device, rank 0
 of world 1; the mesh and coordinator flags of the JAX CLI are not ported.
-Only ``data.category: synthetic`` is read so far. ``--enable_eval`` runs
+``data.category`` is ``lmdb`` (the latent LMDB that
+``python -m maskdit_tpu_torch.extract_latent`` writes), ``webdataset`` /
+``wds`` (the shards of ``python -m maskdit_tpu_torch.lmdb2wds``, indexed, or
+streamed with ``data.streaming=true``) or ``synthetic``. ``--enable_eval`` runs
 the in-training FID after each checkpoint (``make_eval_hook``): the EMA
 weights sample ``--eval_seeds``, the SD-VAE of ``--pretrained_path``
 decodes them to PNGs, and their FID against ``eval.ref_path`` goes to

@@ -1,8 +1,9 @@
 """Config-driven training loop on one device.
 
 Counterpart of maskdit_tpu/train/trainer.py (the reference train.py:35-291)
-without the mesh, sharding, orbax, WDS streaming and pad-to-max masking.
-Kept: the experiment naming, mask-ratio bucketing with one train step per
+without the mesh, sharding, orbax and pad-to-max masking. Kept: the data
+categories (synthetic, the latent LMDB, WebDataset shards indexed or
+streamed), the experiment naming, mask-ratio bucketing with one train step per
 bucket, the learning-rate schedule mirror for logging, resume from the
 newest checkpoint (each step's draws are seeded from the seed and the step,
 so a resumed run draws what a straight run would), the save on
@@ -26,8 +27,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from maskdit_tpu_torch.data.datasets import SyntheticLatentDataset
+from maskdit_tpu_torch.data.datasets import Dataset, ImageNetLatentDataset, SyntheticLatentDataset
 from maskdit_tpu_torch.data.loader import DataLoader, prefetch, to_device
+from maskdit_tpu_torch.data.wds import StreamingWDSLoader, WebDatasetLatents
 from maskdit_tpu_torch.models.precond import check_model_keys, create_model
 from maskdit_tpu_torch.train.schedules import bucket_ratio, get_mask_ratio_fn
 from maskdit_tpu_torch.train.state import create_train_state, make_optimizer, make_train_step
@@ -62,20 +64,39 @@ def default_use_flash(grad_accum: int, seq_len: int) -> Optional[bool]:
     return False if (grad_accum > 1 and seq_len < 512) else None
 
 
-def build_dataset(config: dict) -> SyntheticLatentDataset:
-    data = config["data"]
+def build_dataset(config: dict) -> Dataset:
+    """The training dataset that ``data.category`` names (the JAX trainer's
+    ``build_dataset``, maskdit_tpu/train/trainer.py:52-82): ``synthetic``,
+    ``lmdb`` (the latent LMDB at ``data.root``, with ``train.xflip``'s
+    stored flips, read by the native reader) or
+    ``wds`` / ``webdataset`` (the shards at ``data.root``, indexed)."""
+    data, m = config["data"], config["model"]
     category = data.get("category", "lmdb")
-    if category != "synthetic":
-        raise NotImplementedError(
-            f"data.category '{category}': the port reads the synthetic latent "
-            "dataset only so far"
+    if category == "synthetic":
+        return SyntheticLatentDataset(
+            length=data.get("length", 512),
+            resolution=data["resolution"],
+            num_channels=data["num_channels"],
+            label_dim=m["num_classes"],
         )
-    return SyntheticLatentDataset(
-        length=data.get("length", 512),
-        resolution=data["resolution"],
-        num_channels=data["num_channels"],
-        label_dim=config["model"]["num_classes"],
-    )
+    if category == "lmdb":
+        return ImageNetLatentDataset(
+            data["root"],
+            resolution=data["resolution"],
+            num_channels=data["num_channels"],
+            xflip=config["train"].get("xflip", False),
+            feat_path=data.get("feat_path"),
+            feat_dim=m.get("ext_feature_dim", 0),
+            label_dim=m["num_classes"],
+        )
+    if category in ("wds", "webdataset"):
+        return WebDatasetLatents(
+            data["root"],
+            resolution=data["resolution"],
+            num_channels=data["num_channels"],
+            label_dim=m["num_classes"],
+        )
+    raise ValueError(f"unknown data.category '{category}'")
 
 
 def experiment_name(config: dict, global_batch: int) -> str:
@@ -167,11 +188,26 @@ class Trainer:
             self.start_step = self.state.step
             print(f"resumed from step {self.start_step}")
 
-        self.dataset = build_dataset(config)
-        self.loader = DataLoader(
-            self.dataset, self.global_batch, shuffle=True, seed=seed,
-            num_workers=num_workers, resample=config["data"].get("resampled", False),
-        )
+        if data.get("streaming", False):
+            # whole shards read linearly (the IO pattern network storage
+            # needs; reference train_wds.py:35-42), rank 0 of world 1
+            self.dataset = None
+            self.loader = StreamingWDSLoader(
+                data["root"], self.global_batch, label_dim=m["num_classes"], seed=seed,
+                shuffle_buffer=data.get("shuffle_buffer", 1000),
+                resample=data.get("resampled", False),
+            )
+            source = f"{data['root']} (streamed shards)"
+        else:
+            self.dataset = build_dataset(config)
+            self.loader = DataLoader(
+                self.dataset, self.global_batch, shuffle=True, seed=seed,
+                num_workers=num_workers, resample=data.get("resampled", False),
+            )
+            source = f"{len(self.dataset):,} samples"
+            if isinstance(self.dataset, ImageNetLatentDataset):
+                source += f", {self.dataset.reader_kind} LMDB reader"
+        self.data_source = source
         self.metrics = MetricLogger(self.exp_dir, config=config)
         self.peak_tflops = (
             peak_bf16_tflops(torch.cuda.get_device_name(self.device))
@@ -252,7 +288,7 @@ class Trainer:
         step = self.start_step
         ratio = float(self.mask_ratio_fn(0.0))
         print(f"training {self.exp_name}: global batch {self.global_batch}, "
-              f"{len(self.dataset):,} samples, max {self.max_steps} steps, "
+              f"{self.data_source}, max {self.max_steps} steps, "
               f"device {self.device}", flush=True)
         try:
             for host_batch in prefetch(iter(self.loader)):

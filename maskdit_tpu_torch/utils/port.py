@@ -23,7 +23,7 @@ layout); conv kernels go (kh, kw, I, O) -> (O, I, kh, kw). ``load_vae`` and
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -165,12 +165,13 @@ def inception_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_vae(path: str) -> torch.nn.Module:
-    """The port's AutoencoderKL (full SD config) from an
-    ``autoencoder_kl.pth`` file, loaded strictly, on the CPU, in eval mode."""
+def load_vae(path: str, vae: Optional[torch.nn.Module] = None) -> torch.nn.Module:
+    """The port's AutoencoderKL (full SD config, or the module ``vae``) from
+    an ``autoencoder_kl.pth`` file, loaded strictly, on the CPU, in eval
+    mode."""
     from maskdit_tpu_torch.models.vae import AutoencoderKL
 
-    vae = AutoencoderKL()
+    vae = AutoencoderKL() if vae is None else vae
     vae.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
     return vae.eval().requires_grad_(False)
 

@@ -354,8 +354,9 @@ def test_chip_smoke_samples_the_released_512_config():
 
 def test_chip_smoke_trains_the_released_512_config():
     """chip_smoke.py's JSON config is configs/train/imagenet512-latent.yaml's
-    model and train sections, and its data shapes, except for the cuts it
-    lists in TRAIN_CUTS_512."""
+    model, train and data sections (WebDataset shards, indexed) but for
+    data.root, which is [extract]'s shards, and the cuts it lists in
+    TRAIN_CUTS_512."""
     released = jax_config.load(TRAIN_512).to_container()
     smoke = chip_smoke.TRAIN_CONFIG_512
     cuts = chip_smoke.TRAIN_CUTS_512
@@ -364,8 +365,8 @@ def test_chip_smoke_trains_the_released_512_config():
         for key, value in released[section].items():
             if f"{section}.{key}" not in cuts:
                 assert smoke[section][key] == value, f"{section}.{key}"
-    for key in ("dataset", "resolution", "num_channels"):
-        assert smoke["data"][key] == released["data"][key]
+    assert smoke["data"] == {**released["data"], "root": chip_smoke.TRAIN_DATA_ROOT_512}
+    assert smoke["data"]["category"] == "webdataset"
     for path, (was, now) in cuts.items():
         section, key = path.split(".")
         assert released[section][key] == was and smoke[section][key] == now, path
@@ -407,11 +408,17 @@ def test_generate_cli_runs_the_512_config_on_the_cpu(tiny_xl, tmp_path):
 
 
 def test_train_cli_runs_the_512_config_on_the_cpu(tiny_xl, tmp_path):
+    from maskdit_tpu_torch.data.wds import write_wds_shards
+
     path = tmp_path / "train-512.json"
     path.write_text(__import__("json").dumps(chip_smoke.TRAIN_CONFIG_512))
+    rng = np.random.default_rng(0)
+    shards = str(tmp_path / "wds")
+    write_wds_shards([(f"{i:07d}", rng.normal(size=(2 * CIN, RES, RES)).astype(np.float32), i)
+                      for i in range(4)], shards, maxcount=2)
     out = cli.main(["--config", str(path), "--results_dir", str(tmp_path / "results"),
                     "--device", "cpu", "--num_workers", "1", "--max_steps", "1",
-                    "train.batchsize=2", "data.length=4"])
+                    "train.batchsize=2", f"data.root={shards}"])
     assert out["step"] == 1 and np.isfinite(out["history"][0]["losses"]).all()
     # the encoder at the 512 kept tokens, the decoder at all 1024
     assert tiny_xl == [(2, 512, 3 * 144), (2, L_FULL, 3 * 64)]

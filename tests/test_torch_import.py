@@ -4,7 +4,8 @@ Checked in a fresh interpreter: this test process has jax and maskdit_tpu
 loaded already (tests/conftest.py imports them). The JAX package's
 ``utils/logging.py`` and ``utils/config.py`` import no jax, so a check for
 jax alone misses an import of them: the check forbids every module named
-``maskdit_tpu`` or ``maskdit_tpu.*`` as well. The evaluation path's modules
+``maskdit_tpu`` or ``maskdit_tpu.*`` as well, in the port, in chip_smoke.py
+and in tools/torch_overfit_gate.py. The evaluation and data paths' modules
 also import no Pillow, which the card's machine need not have.
 """
 
@@ -35,6 +36,11 @@ MODULES = [
     "maskdit_tpu_torch.sampling.generate",
     "maskdit_tpu_torch.data",
     "maskdit_tpu_torch.data.datasets",
+    "maskdit_tpu_torch.data.lmdb_lite",
+    "maskdit_tpu_torch.data.native_io",
+    "maskdit_tpu_torch.data.wds",
+    "maskdit_tpu_torch.extract_latent",
+    "maskdit_tpu_torch.lmdb2wds",
     "maskdit_tpu_torch.train",
     "maskdit_tpu_torch.train.cli",
     "maskdit_tpu_torch.train.trainer",
@@ -56,6 +62,13 @@ PNG_PATH = [
     "maskdit_tpu_torch.models.vae",
     "maskdit_tpu_torch.utils.png",
     "maskdit_tpu_torch.train.cli",
+]
+# the data path: images -> latents -> shards -> training, on the same machine
+DATA_PATH = [
+    "maskdit_tpu_torch.data",
+    "maskdit_tpu_torch.extract_latent",
+    "maskdit_tpu_torch.lmdb2wds",
+    "maskdit_tpu_torch.train.trainer",
 ]
 
 FORBIDDEN = (
@@ -89,27 +102,37 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
-def test_evaluation_path_imports_no_pillow():
-    code = (
+def _imports_no_pillow(modules: list) -> str:
+    return (
         "import importlib, sys\n"
-        f"for m in {PNG_PATH!r}:\n"
+        f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'PIL' or m.startswith('PIL.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    proc = _run(code)
+
+
+def test_evaluation_path_imports_no_pillow():
+    proc = _run(_imports_no_pillow(PNG_PATH))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
-def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py drives the port alone. Its phases import the port
-    inside functions, so every module that any import statement in the
-    script names is imported too, after the script's own top level."""
-    code = (
+def test_data_path_imports_no_pillow():
+    """Latent extraction decodes PNGs with the port's codec and crops them
+    with its own resample."""
+    proc = _run(_imports_no_pillow(DATA_PATH))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def _script_imports(path: str, must_name: str) -> str:
+    """Code that runs the script ``path`` as a module (not as __main__) and
+    then imports every module that any import statement in it names (its
+    phases import the port inside functions)."""
+    return (
         "import ast, importlib, runpy, sys\n"
-        "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
-        "tree = ast.parse(open('chip_smoke.py').read())\n"
+        f"runpy.run_path({path!r}, run_name='script')\n"
+        f"tree = ast.parse(open({path!r}).read())\n"
         "names = set()\n"
         "for node in ast.walk(tree):\n"
         "    if isinstance(node, ast.Import):\n"
@@ -121,10 +144,20 @@ def test_chip_smoke_imports_no_jax():
         "                importlib.import_module(f'{node.module}.{a.name}')\n"
         "            except ImportError:\n"
         "                pass\n"
-        "assert 'maskdit_tpu_torch.train' in names, sorted(names)\n"
+        f"assert {must_name!r} in names, sorted(names)\n"
         "for m in sorted(names):\n"
         "    importlib.import_module(m)\n"
         + FORBIDDEN
     )
-    proc = _run(code)
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py drives the port alone."""
+    proc = _run(_script_imports("chip_smoke.py", "maskdit_tpu_torch.train"))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_torch_overfit_gate_imports_no_jax():
+    """tools/torch_overfit_gate.py runs on the card's machine, which has no jax."""
+    proc = _run(_script_imports("tools/torch_overfit_gate.py", "maskdit_tpu_torch.train.trainer"))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -129,8 +129,7 @@ def test_json_config_and_overrides(tmp_path):
 
 
 def test_unported_options_raise(tiny_port, tmp_path):
-    for override in ("train.amp_grads=true", "train.ema_every=2", "train.pad_to_max=true",
-                     "data.category=lmdb"):
+    for override in ("train.amp_grads=true", "train.ema_every=2", "train.pad_to_max=true"):
         cfg = cli.apply_overrides(cli.load_config(SMOKE), [override])
         with pytest.raises(NotImplementedError):
             Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
@@ -272,14 +271,14 @@ def test_cli_enable_eval_writes_fid(tiny_port, tmp_path):
 
 def test_chip_smoke_trains_the_released_config():
     """chip_smoke.py's JSON config is configs/train/imagenet256-latent.yaml's
-    model and train sections, and its data shapes, except for the cuts it
-    lists in TRAIN_CUTS."""
+    model, train and data sections (the latent LMDB) but for data.root, which
+    is [extract]'s LMDB, and the cuts it lists in TRAIN_CUTS."""
     released = config_lib.load(RELEASED).to_container()
     smoke = chip_smoke.TRAIN_CONFIG
     for section in ("model", "train"):
         assert set(smoke[section]) == set(released[section]), section
-    for key in ("dataset", "resolution", "num_channels"):
-        assert smoke["data"][key] == released["data"][key]
+    assert smoke["data"] == {**released["data"], "root": chip_smoke.TRAIN_DATA_ROOT}
+    assert smoke["data"]["category"] == "lmdb"
     for path, (was, now) in chip_smoke.TRAIN_CUTS.items():
         section, key = path.split(".")
         assert released[section][key] == was and smoke[section][key] == now, path
