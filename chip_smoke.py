@@ -85,7 +85,27 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
  11. [overfit-gate] tools/torch_overfit_gate.py at its defaults (2000 fp32
      steps of a tiny DiT-S/2 on 8 latents through the port's Trainer, then
      sampled back): fails unless the verdict passes; its fp32 launches of
-     the whole-row attention and the update count in the kernels line.
+     the whole-row attention and the update count in the kernels line;
+ 12. the train-step options (after 6.): [kernel] fused adam in every
+     variant of ADAM_VARIANTS (a bf16 gradient, bf16 mu and nu, the EMA
+     off), the new ones bit for bit with the plain version (nu's
+     stochastic rounding by Philox4x32-10 included), and the rounding's
+     statistics over 2^20 values; [parity-train-options] one bf16 step
+     with amp_grads, a bf16 accumulator over 2 micro-batches, bf16 mu and
+     nu and ema_every 2, kernels vs plain (and kernel #7 bit for bit on the
+     step's own gradient); [train-options] the train CLI with those
+     options at a global batch of 2 x 64, 8 steps, 72 + 72 attention
+     launches and one update per step, beside [train]'s times;
+ 13. data parallelism on the one card, each phase a ``torch.distributed.run``
+     of this script's workers (``--worker TAG``): [parity-ddp] two gloo
+     ranks, one fp32 step on an injected global batch of 32: the replicas
+     equal bit for bit and within [parity-train]'s fp32 bounds of one
+     process's step; [train-ddp] the train CLI in two gloo ranks sharing
+     the card, 4 steps at a global batch of 64: finite losses, one log line
+     per logged step (rank 0's), equal parameter digests; [train-ddp-nccl]
+     one NCCL rank against the same 4 steps without a process group: equal
+     bit for bit. These CLI runs write no checkpoint (a call may write 45
+     GiB; [train] holds the writes and the resume).
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -101,6 +121,7 @@ import json
 import os
 import shutil
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -222,6 +243,24 @@ ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
 # operations per parameter of the update (fused_adam_ema.cu's update():
 # m 3, v 4, the denominator 3, p 4, the EMA 3)
 ADAM_OPS = 17
+# the kernel's variants, (g, mu, nu, EMA): the first two (fp32 g and nu,
+# the EMA on) keep their FMA contraction and are held to the bound above;
+# every other one computes with the plain version's roundings and is held
+# to it bit for bit, nu's stochastic rounding included. Which path runs
+# each: [train] / the gate, moment_dtype, amp_grads, nu_dtype, the
+# [train-options] steps with and without the EMA, ema_every alone
+ADAM_VARIANTS = [
+    (torch.float32, torch.float32, torch.float32, True),
+    (torch.float32, torch.bfloat16, torch.float32, True),
+    (torch.bfloat16, torch.float32, torch.float32, True),
+    (torch.float32, torch.float32, torch.bfloat16, True),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, True),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, False),
+    (torch.float32, torch.float32, torch.float32, False),
+]
+# stochastic rounding on the card: over SR_VALUES copies of a value a
+# fraction f of a bf16 gap above 1.0, the mean is within 2% of a gap
+SR_VALUES = 1 << 20
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # bf16 on the tensor cores, fp32 outside them, and HBM3's rate. A bound is
@@ -244,6 +283,27 @@ TRAIN_CONFIG = {
     "log": {"log_every": LOG_EVERY, "ckpt_every": 50000, "tag": "chip-smoke"},
 }
 TRAIN_CUTS = {"train.max_num_steps": (2000000, TRAIN_STEPS)}
+# [train-options]: TRAIN_CONFIG with every train-step option of the JAX
+# trainer on: bf16 gradients, a bf16 accumulator over 2 micro-batches of 64
+# (the global batch of 128 as [train]'s), bf16 mu and nu (stochastically
+# rounded), the EMA every 2nd step with decay^2. use_flash null keeps the
+# packed kernels (default_use_flash picks the plain attention for
+# accumulation at L < 512: ROADMAP.md C2)
+TRAIN_OPTIONS_STEPS, TRAIN_OPTIONS_MICRO, TRAIN_OPTIONS_ACCUM = 8, 64, 2
+TRAIN_OPTIONS = (
+    f"train.batchsize={TRAIN_OPTIONS_MICRO}", f"train.grad_accum={TRAIN_OPTIONS_ACCUM}",
+    "train.amp_grads=true", "train.accum_dtype=bfloat16", "train.moment_dtype=bfloat16",
+    "train.nu_dtype=bfloat16", "train.ema_every=2", "model.use_flash=null",
+    f"train.max_num_steps={TRAIN_OPTIONS_STEPS}",
+)
+# data parallelism on the one card: two ranks share it over gloo (NCCL
+# refuses two ranks on one device), the NCCL path runs with one rank.
+# [parity-ddp]: one fp32 step on an injected global batch; [train-ddp] and
+# [train-ddp-nccl]: the train CLI for DDP_STEPS steps at a global batch of
+# DDP_BATCH
+PARITY_DDP_BATCH, DDP_STEPS, DDP_BATCH = 32, 4, 64
+DDP_OVERRIDES = (f"train.max_num_steps={DDP_STEPS}",)
+WORKER_TIMEOUT = 300
 TRAIN_CONFIG_512 = {
     "data": {"dataset": "imagenet512-latent", "category": "webdataset", "resolution": 64,
              "num_channels": 4, "root": TRAIN_DATA_ROOT_512, "total_num": 1281167,
@@ -933,10 +993,10 @@ def xl2_numel() -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def library_adam_ms(grads, p, e, scalars, iters: int) -> float:
-    """Two PyTorch calls for the same update, as a yardstick only:
-    ``torch.optim.Adam(fused=True).step()`` and one ``torch._foreach_lerp_``
-    for the EMA."""
+def library_adam_ms(grads, p, e, scalars, iters: int, with_ema: bool = True) -> float:
+    """One PyTorch call of the same update: torch.optim.Adam(fused=True)
+    .step() (the same math in fp32) and, with the EMA, torch._foreach_lerp_
+    of the EMA towards the new params."""
     param = torch.nn.Parameter(p.clone())
     param.grad = grads
     ema = e.clone()
@@ -945,59 +1005,117 @@ def library_adam_ms(grads, p, e, scalars, iters: int) -> float:
 
     def update():
         opt.step()
-        torch._foreach_lerp_([ema], [param.detach()], scalars["one_minus_decay"])
+        if with_ema:
+            torch._foreach_lerp_([ema], [param.detach()], scalars["one_minus_decay"])
 
     ms = cuda_ms(update, iters)
     del param, ema, opt
     return ms
 
 
+def adam_variant_name(variant) -> str:
+    g, m, v, ema = variant
+    return (f"g {dtype_name(g)}, mu {dtype_name(m)}, nu {dtype_name(v)}, "
+            f"EMA {'on' if ema else 'off'}")
+
+
+def check_stochastic_rounding() -> dict:
+    """The kernel's bf16 nu on the card: with b2 = 0 and (1 - b2) = x, g = 1,
+    it stores SR(x) for SR_VALUES elements; for x a fraction f of a gap
+    above 1.0 the mean lands within 2% of the gap of x and every value is
+    1.0 or 1.0 + gap; a bf16 value (f = 0) stays exact."""
+    from maskdit_tpu_torch.ops import fused_adam
+
+    lo, gap = 1.0, 2.0 ** -7
+    out = {}
+    for count, f in enumerate((0.0, 0.25, 0.5, 0.75)):
+        x = lo + f * gap
+        scalars = fused_adam.adam_scalars(1e-4, 7, 0.9, 0.999, 1e-8, 0.9999)
+        scalars.update(b2=0.0, one_minus_b2=x)
+        ones, zeros = torch.ones(SR_VALUES, device="cuda"), torch.zeros(SR_VALUES, device="cuda")
+        nu = torch.zeros(SR_VALUES, device="cuda", dtype=torch.bfloat16)
+        fused_adam.launch(ones, zeros.clone(), zeros.clone(), nu, zeros.clone(), scalars,
+                          sr_count=count)
+        values = nu.float()
+        off = abs(float(values.double().mean()) - x) / gap
+        seen = sorted(values.unique().tolist())
+        ok = off < 0.02 and set(seen) <= ({lo} if f == 0 else {lo, lo + gap})
+        out[f] = off
+        if not ok:
+            raise AssertionError(f"stochastic rounding of {x}: mean off by {off} gaps, "
+                                 f"values {seen}")
+    log(f"[kernel] fused adam, stochastic rounding of nu over {SR_VALUES} values: |mean - x| "
+        f"in bf16 gaps at f = 0, 0.25, 0.5, 0.75 of a gap above 1.0: "
+        f"{[f'{v:.2e}' for v in out.values()]} (bound 0.02); bf16 values exact, the rest one "
+        f"of their two neighbours")
+    return out
+
+
 def phase_adam_kernel() -> dict:
+    """Kernel #7 over all of DiT-XL/2's parameters in each of ADAM_VARIANTS,
+    against its plain version, with the kernel's, the plain version's and
+    (where one PyTorch call computes the same function) the library's time
+    and the bytes bound; then its stochastic rounding."""
     from maskdit_tpu_torch.ops import fused_adam
 
     n = xl2_numel()
     g = torch.Generator(device="cuda").manual_seed(2)
     rnd = lambda: torch.randn(n, generator=g, device="cuda")
-    grads, p, e, v = rnd(), rnd(), rnd(), rnd().abs_().mul_(1e-2)
+    grads, p, e, v, m = rnd(), rnd(), rnd(), rnd().abs_().mul_(1e-2), rnd().mul_(0.1)
     scalars = fused_adam.adam_scalars(1e-4, 7, 0.9, 0.999, 1e-8, 0.9999)
     out = {}
-    for m_dtype in (torch.float32, torch.bfloat16):
-        m = rnd().mul_(0.1).to(m_dtype)
-        want = fused_adam.fused_adam_ema_reference(grads, p, m, v, e, **scalars)
-        got = [t.clone() for t in (p, m, v, e)]
+    for variant in ADAM_VARIANTS:
+        g_dt, m_dt, v_dt, with_ema = variant
+        args = (grads.to(g_dt), p, m.to(m_dt), v.to(v_dt), e)
+        want = fused_adam.fused_adam_ema_reference(*args, **scalars, sr_count=6,
+                                                   with_ema=with_ema)
+        got = [t.clone() for t in args[1:]]
         before = fused_adam.fused_adam_ema.launches
-        fused_adam.fused_adam_ema(grads, *got, lr=1e-4, count_inc=7)
+        fused_adam.launch(args[0], *got, scalars, sr_count=6, with_ema=with_ema)
         torch.cuda.synchronize()
         launches = fused_adam.fused_adam_ema.launches - before
+        exact = variant not in ADAM_VARIANTS[:2]
         err, ok = 0.0, launches == 1
         for name, a, b in zip(("p", "m", "v", "ema"), got, want):
             diff = (a.float() - b.float()).abs()
             err = max(err, diff.max().item())
-            if name == "m" and m_dtype == torch.bfloat16:
-                tol = b.float().abs() * 2.0 ** -7 + ADAM_ATOL
+            if exact:
+                ok = ok and torch.equal(a, b)
+            elif name == "m" and m_dt == torch.bfloat16:
+                ok = ok and bool((diff <= b.float().abs() * 2.0 ** -7 + ADAM_ATOL).all())
             else:
-                tol = b.float().abs() * ADAM_RTOL + ADAM_ATOL
-            ok = ok and bool((diff <= tol).all())
-            del diff, tol
-        dt = dtype_name(m_dtype)
-        ms = cuda_ms(lambda: fused_adam.fused_adam_ema(grads, *got, lr=1e-4, count_inc=7), 10)
-        plain_ms = cuda_ms(lambda: fused_adam.fused_adam_ema_reference(grads, p, m, v, e, **scalars), 5)
-        moved = n * (4 * 4 + 4 * 3 + 2 * m.element_size())  # reads g,p,v,e,m; writes p,v,e,m
-        bound_ms, bound_by = bound(ADAM_OPS * n, moved, torch.float32)
-        log(f"[kernel] fused adam over {n} params (DiT-XL/2), mu {dt}: max_abs_err {err:.3e} "
-            f"(bound per element {ADAM_RTOL:.0e}|ref| + {ADAM_ATOL:.0e}); kernel {ms:.4f} ms "
-            f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), {bound_ms / ms:.3f} of it; launches per update {launches}")
+                ok = ok and bool((diff <= b.float().abs() * ADAM_RTOL + ADAM_ATOL).all())
+            del diff
+        ms = cuda_ms(lambda: fused_adam.launch(args[0], *got, scalars, sr_count=6,
+                                               with_ema=with_ema), 10)
+        plain_ms = cuda_ms(lambda: fused_adam.fused_adam_ema_reference(
+            *args, **scalars, sr_count=6, with_ema=with_ema), 3)
+        # reads g, p, m, v (and e); writes p, m, v (and e)
+        moved = n * (args[0].element_size() + 8 + 2 * args[2].element_size()
+                     + 2 * args[3].element_size() + (8 if with_ema else 0))
+        ops = ADAM_OPS - (0 if with_ema else 3)
+        bound_ms, bound_by = bound(ops * n, moved, torch.float32)
+        library_ms = None
+        if g_dt == m_dt == v_dt == torch.float32:  # Adam(fused) keeps all in fp32
+            library_ms = library_adam_ms(args[0], p, e, scalars, 10, with_ema)
+        name = adam_variant_name(variant)
+        log(f"[kernel] fused adam over {n} params (DiT-XL/2), {name}: max_abs_err {err:.3e} "
+            + ("(bit for bit)" if exact else f"(bound per element {ADAM_RTOL:.0e}|ref| + "
+               f"{ADAM_ATOL:.0e})")
+            + f"; kernel {ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s, {moved / n:.0f} B/param), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.3f} of it; library "
+            + ("none (no PyTorch call keeps these dtypes)" if library_ms is None else
+               f"{library_ms:.4f} ms ({ms / library_ms:.2f}x)")
+            + f"; launches per update {launches}")
         if not ok:
-            raise AssertionError(f"fused_adam_ema mu {dt}: err {err}, launches {launches}")
-        out[dt] = dict(err=err, ms=ms, plain_ms=plain_ms, gbps=moved / ms / 1e6,
-                       bound_ms=bound_ms, bound_by=bound_by)
-        del m, want, got
+            raise AssertionError(f"fused_adam_ema {name}: err {err}, launches {launches}")
+        out[variant] = dict(err=err, ms=ms, plain_ms=plain_ms, gbps=moved / ms / 1e6,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        del args, want, got
+    del grads, p, e, v, m
     free_device_memory()
-    out["float32"]["library_ms"] = library_adam_ms(grads, p, e, scalars, 10)
-    log(f"[kernel] fused adam, library: torch.optim.Adam(fused=True).step() + "
-        f"torch._foreach_lerp_ (two calls), fp32 mu: {out['float32']['library_ms']:.4f} ms")
-    del grads, p, e, v
+    out["sr"] = check_stochastic_rounding()
     free_device_memory()
     return out
 
@@ -1260,12 +1378,38 @@ def profile_forward(model, x, sigma, y, tag: str) -> None:
                    f"one CFG denoiser evaluation (batch {x.shape[0]} x 2, {x.shape[-1] * 8} px)")
 
 
+@contextlib.contextmanager
+def no_checkpoint_writes():
+    """The trainer's checkpoints are recorded, not written: a call on the
+    card's machine may write 45 GiB, and [train], [train-512] and
+    [train-flash] write three 10.9-GiB checkpoints of DiT-XL/2 already
+    ([train] holds the writes and the resume)."""
+    from maskdit_tpu_torch.utils.ckpt import CheckpointManager
+
+    save = CheckpointManager.save
+    CheckpointManager.save = lambda self, step, ckpt: self.path(step)
+    try:
+        yield
+    finally:
+        CheckpointManager.save = save
+
+
+def params_digest(params: torch.Tensor) -> str:
+    """sha256 of a flat parameter buffer's bytes (bit-for-bit comparisons
+    across processes)."""
+    import hashlib
+
+    return hashlib.sha256(params.detach().cpu().numpy().tobytes()).hexdigest()
+
+
 def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), options=(),
-              extra=None) -> dict:
+              extra=None, write_checkpoints: bool = True, digest: bool = False) -> dict:
     """The train main path through the CLI on ``config`` with the CLI
     ``options`` and config ``overrides``, with the launch counts set to 0
     before it; checks the losses and that each step launched the kernels
-    ``per_step`` names that many times, the run ``extra`` more, and no other."""
+    ``per_step`` names that many times, the run ``extra`` more, and no other.
+    Without ``write_checkpoints`` the run's checkpoints are not written;
+    with ``digest`` the result holds the final parameters' sha256."""
     from maskdit_tpu_torch.train import main as train_main
     from maskdit_tpu_torch.train.cli import apply_overrides
     from maskdit_tpu_torch.utils.profiling import (
@@ -1281,13 +1425,19 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), op
     results = os.path.join(SCRATCH, tag)
     shutil.rmtree(results, ignore_errors=True)
     free_device_memory()
+    ctx = contextlib.nullcontext() if write_checkpoints else no_checkpoint_writes()
     reset_launches()
-    out = train_main(["--config", path, "--results_dir", results, "--device", "cuda",
-                      "--num_workers", "4", *options, *overrides])
+    with ctx:
+        out = train_main(["--config", path, "--results_dir", results, "--device", "cuda",
+                          "--num_workers", "4", *options, *overrides])
     launches = read_launches()
     steps, history = out["step"], out["history"]
+    state = out.pop("state")
+    digest = params_digest(state.params) if digest else None
+    del state
     config = apply_overrides(json.loads(json.dumps(config)), overrides)
-    batch, max_steps = config["train"]["batchsize"], config["train"]["max_num_steps"]
+    t = config["train"]
+    batch, max_steps = t["batchsize"] * t.get("grad_accum", 1), t["max_num_steps"]
     losses = [x for r in history for x in r["losses"]]
     log(f"[{tag}] {steps} steps of DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16: "
         f"losses {[round(x, 4) for x in losses]}")
@@ -1309,7 +1459,8 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), op
         f"{peak_bf16_tflops(name):.0f} TFLOP/s bf16 ({flops / 1e9:.1f} GFLOP/image), peak memory "
         f"{peak:.2f} GiB; per window images/s {[round(r['images_per_sec'], 2) for r in history]}")
     return dict(launches=launches, images_per_s=ips, ms_per_step=seconds / warm_steps * 1e3,
-                mfu=util, peak_gib=peak, results=results, exp_dir=out["exp_dir"])
+                mfu=util, peak_gib=peak, results=results, exp_dir=out["exp_dir"],
+                losses=losses, digest=digest)
 
 
 def phase_train(vae_path: str, stats: str) -> dict:
@@ -1364,16 +1515,17 @@ def check_resume(results: str) -> bool:
     return same
 
 
-def train_parity_state(dtype: torch.dtype, seed: int, res: int, batch: int, use_flash=None):
+def train_parity_state(dtype: torch.dtype, seed: int, res: int, batch: int, use_flash=None,
+                       **opt_kw):
     """A DiT-XL/2 train state with random weights and a non-trivial Adam
     state (count 10, mu ~ N(0, 1e-4^2), nu ~ |N(0, 1e-7^2)|), the same for
-    the same seed."""
+    the same seed; ``opt_kw`` go to make_optimizer (the moments' dtypes)."""
     from maskdit_tpu_torch.train.state import create_train_state, make_optimizer
 
     torch.manual_seed(seed)
     model = build_model(dtype, res, use_flash).cuda()
     random_weights_(model)
-    opt = make_optimizer(1e-4, batch)
+    opt = make_optimizer(1e-4, batch, **opt_kw)
     state = create_train_state(model, opt)
     g = torch.Generator(device="cuda").manual_seed(seed)
     state.opt_state.count = 10
@@ -1475,6 +1627,292 @@ def phase_parity_train(tag: str = "parity-train", res: int = 32, n: int = PARITY
         del got, ref
     free_device_memory()
     return out
+
+
+def state_tensors(state) -> dict:
+    """A train state's gradient and p / ema / mu / nu, per parameter (views)."""
+    out = {f"grad.{k}": v for k, v in state.named(state.grads).items()}
+    for name, flat in (("p", state.params), ("ema", state.ema), ("mu", state.opt_state.mu),
+                       ("nu", state.opt_state.nu)):
+        out.update({f"{name}.{k}": v for k, v in state.named(flat).items()})
+    return out
+
+
+def phase_parity_train_options(res: int = 32, n: int = PARITY_BATCH) -> dict:
+    """One bf16 train step with every option of [train-options] (amp_grads,
+    a bf16 accumulator over 2 micro-batches, bf16 mu and nu, ema_every 2 on
+    an EMA step: decay^2) from one state with the same injected draws,
+    through the kernels and through the plain attention and update, held
+    to [parity-train]'s bf16 bounds; and kernel #7 bit for bit: the plain
+    update of the kernel step's own gradient from the state before it gives
+    the kernel's p, mu, nu and EMA."""
+    from maskdit_tpu_torch.ops import fused_adam
+    from maskdit_tpu_torch.train.state import make_train_step
+
+    batch, draws = parity_batch(res, n)
+    kw = dict(grad_accum=2, amp_grads=True, accum_dtype="bfloat16", ema_every=2)
+    results = []
+    for plain in (False, True):
+        free_device_memory()
+        state, opt = train_parity_state(torch.bfloat16, 4, res, n, moment_dtype="bfloat16",
+                                        nu_dtype="bfloat16")
+        state.step = 1  # (1 + 1) % 2 == 0: the EMA moves, with decay^2
+        before = [t.clone() for t in (state.params, state.opt_state.mu, state.opt_state.nu,
+                                      state.ema)]
+        count = state.opt_state.count
+        step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999, **kw)
+        ctx = contextlib.ExitStack()
+        if plain:
+            ctx.enter_context(plain_attention())
+            ctx.enter_context(plain_update())
+        reset_launches()
+        with ctx:
+            metrics = step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if not plain:
+            expect_launches("parity-train-options", launches, packed_fwd=2 * ATTN_PER_STEP,
+                            packed_bwd=2 * ATTN_PER_STEP, adam=ADAM_PER_STEP)
+            if state.grads.dtype != torch.bfloat16 or state.opt_state.nu.dtype != torch.bfloat16:
+                raise AssertionError("parity-train-options: the options did not take")
+            fused_adam.fused_adam_ema_plain(
+                state.grads, *before, lr=opt.lr_at(count), count_inc=count + 1,
+                ema_decay=0.9999 ** 2)
+            same = [torch.equal(a, b) for a, b in zip(
+                before, (state.params, state.opt_state.mu, state.opt_state.nu, state.ema))]
+            log(f"[parity-train-options] kernel #7 (g, mu, nu bf16, EMA on) vs its plain "
+                f"version on the step's own gradient: p, mu, nu, EMA equal bit for bit {same}")
+            if not all(same):
+                raise AssertionError(f"parity-train-options: kernel #7 vs plain {same}")
+        del before
+        results.append(dict(loss=float(metrics["loss"]), grads={
+            k: v.clone() for k, v in state.named(state.grads).items()}, state={
+            k: v.clone() for k, v in state_tensors(state).items() if not k.startswith("grad.")}))
+        del state, opt, step, metrics
+    out = compare_steps("parity-train-options", "amp_grads, bf16 accumulator x2, bf16 mu and "
+                        "nu, ema_every 2: kernels vs plain", torch.bfloat16, res, n, *results)
+    del results
+    free_device_memory()
+    return out
+
+
+def phase_train_options(train: dict) -> dict:
+    """The train CLI on TRAIN_CONFIG with TRAIN_OPTIONS: finite losses, 36 +
+    36 attention launches per micro-batch and one update per step; its
+    ms/step, images/s and peak memory beside [train]'s."""
+    out = run_train("train-options", TRAIN_CONFIG, 32, dict(
+        packed_fwd=TRAIN_OPTIONS_ACCUM * ATTN_PER_STEP,
+        packed_bwd=TRAIN_OPTIONS_ACCUM * ATTN_PER_STEP, adam=ADAM_PER_STEP),
+        TRAIN_OPTIONS, write_checkpoints=False)
+    log(f"[train-options] global batch {TRAIN_OPTIONS_MICRO * TRAIN_OPTIONS_ACCUM} "
+        f"({TRAIN_OPTIONS_ACCUM} x {TRAIN_OPTIONS_MICRO}): {out['ms_per_step']:.1f} ms/step, "
+        f"{out['images_per_s']:.2f} images/s, peak {out['peak_gib']:.2f} GiB; [train] "
+        f"(batch {TRAIN_BATCH}, no options): {train['ms_per_step']:.1f} ms/step, "
+        f"{train['images_per_s']:.2f} images/s, peak {train['peak_gib']:.2f} GiB")
+    return out
+
+
+def launch_workers(tag: str, nproc: int, *args: str) -> dict:
+    """Run this script's worker ``tag`` in ``nproc`` processes under
+    torch.distributed.run (a rendezvous on localhost); its output is logged;
+    returns the JSON rank 0 writes."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    result = os.path.join(SCRATCH, f"{tag}.json")
+    os.makedirs(SCRATCH, exist_ok=True)
+    if os.path.exists(result):
+        os.remove(result)
+    free_device_memory()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+         "--master_addr", "127.0.0.1", "--master_port", str(port), os.path.abspath(__file__),
+         "--worker", tag, result, *args],
+        capture_output=True, text=True, timeout=WORKER_TIMEOUT, cwd=ROOT,
+    )
+    for line in proc.stdout.splitlines():
+        log(f"[{tag}:out] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: the workers failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    with open(result) as f:
+        out = json.load(f)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[{tag}] {nproc} process(es) in {out['seconds']:.1f} s")
+    return out
+
+
+def phase_parity_ddp() -> dict:
+    """Two ranks over gloo on the one card, one fp32 step (TF32 off) on an
+    injected global batch of PARITY_DDP_BATCH: the replicas equal bit for
+    bit; against one process's step on the whole batch within
+    [parity-train]'s fp32 bounds."""
+    out = launch_workers("parity-ddp", 2)
+    log(f"[parity-ddp] replicas equal bit for bit {out['replicas_equal']}; launches per rank "
+        f"{out['launches']}")
+    if not out["replicas_equal"]:
+        raise AssertionError("parity-ddp: the two ranks' parameters differ")
+    bnd = TRAIN_PARITY_BOUND[torch.float32]
+    if not (out["loss"] <= bnd["loss"] and out["grad"] <= bnd["grad"]
+            and out["state"] <= bnd["state"]):
+        raise AssertionError(f"parity-ddp: {out}")
+    return out
+
+
+def phase_train_ddp() -> dict:
+    """The train CLI on TRAIN_CONFIG in two gloo ranks sharing the card
+    (``--device cuda:0 --dist_backend gloo``), DDP_STEPS steps at a global
+    batch of DDP_BATCH: finite losses, one log line per step (rank 0's),
+    equal parameter digests on both ranks."""
+    out = launch_workers("train-ddp", 2)
+    lines = out["log_lines"]
+    log(f"[train-ddp] losses {[round(x, 4) for x in out['losses']]}; log lines per logged "
+        f"step (every {LOG_EVERY}), both ranks: {lines}; parameter digests {[d[:16] for d in out['digests']]}; launches (both "
+        f"ranks) {out['launches']}; {out['ms_per_step']:.1f} ms/step")
+    per_rank = dict(packed_fwd=ATTN_PER_STEP * DDP_STEPS, packed_bwd=ATTN_PER_STEP * DDP_STEPS,
+                    adam=DDP_STEPS)
+    expect_launches("train-ddp", out["launches"], **{k: 2 * v for k, v in per_rank.items()})
+    if (len(set(out["digests"])) != 1 or lines != [1] * (DDP_STEPS // LOG_EVERY)
+            or len(out["losses"]) != DDP_STEPS or not np.all(np.isfinite(out["losses"]))):
+        raise AssertionError(f"train-ddp: {out}")
+    return out
+
+
+def phase_train_ddp_nccl() -> dict:
+    """One rank over NCCL (its collectives over itself) against the same
+    DDP_STEPS steps of the CLI without a process group, both drawing through
+    ``draw_step``: the final parameters equal bit for bit."""
+    out = launch_workers("train-ddp-nccl", 1)
+    alone = run_train("train-ddp-alone", TRAIN_CONFIG, 32, dict(
+        packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
+        (f"train.batchsize={DDP_BATCH}", *DDP_OVERRIDES), write_checkpoints=False, digest=True)
+    expect_launches("train-ddp-nccl", out["launches"], packed_fwd=ATTN_PER_STEP * DDP_STEPS,
+                    packed_bwd=ATTN_PER_STEP * DDP_STEPS, adam=DDP_STEPS)
+    same = out["digests"] == [alone["digest"]] and out["losses"] == alone["losses"]
+    log(f"[train-ddp-nccl] backend {out['backend']}: parameters {out['digests'][0][:16]} vs "
+        f"without a group {alone['digest'][:16]}, losses equal "
+        f"{out['losses'] == alone['losses']}: bit for bit {same}; "
+        f"{out['ms_per_step']:.1f} vs {alone['ms_per_step']:.1f} ms/step")
+    if not same:
+        raise AssertionError(f"train-ddp-nccl: {out} vs {alone}")
+    out["alone"] = alone
+    return out
+
+
+def worker(tag: str, result: str, *args: str) -> None:
+    """One process of a data-parallel phase, under torch.distributed.run."""
+    from maskdit_tpu_torch.parallel import dist
+    from maskdit_tpu_torch.parallel.data_parallel import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if tag == "parity-ddp":
+        dist.init_distributed(backend="gloo", device="cuda:0")
+        out = worker_parity_ddp(DataParallel())
+    elif tag in ("train-ddp", "train-ddp-nccl"):
+        gloo = tag == "train-ddp"
+        device = "cuda:0" if gloo else "cuda"
+        dist.init_distributed(backend="gloo" if gloo else "nccl", device=device)
+        out = worker_train(device, gloo)
+    else:
+        raise SystemExit(f"unknown worker {tag}")
+    if dist.is_main_process():
+        with open(result, "w") as f:
+            json.dump(out, f)
+    dist.shutdown()
+
+
+def worker_parity_ddp(sync) -> dict:
+    """[parity-ddp] in one rank: the data-parallel step on this rank's rows,
+    the replicas compared, then (rank 0) the one-process step on the whole
+    batch, compared per tensor."""
+    import torch.distributed as tdist
+
+    from maskdit_tpu_torch.train.state import StepDraws, _rows, make_train_step
+
+    torch.cuda.set_device(0)
+    res, n = 32, PARITY_DDP_BATCH
+    batch, draws = parity_batch(res, n)
+    rows = slice(sync.rank * n // sync.world, (sync.rank + 1) * n // sync.world)
+    state, opt = train_parity_state(torch.float32, 4, res, n)
+    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999, sync=sync)
+    reset_launches()
+    metrics = step(state, {k: v[rows] for k, v in batch.items()},
+                   draws=StepDraws(*(_rows(d, rows) for d in draws)))
+    launches = read_launches()
+    other = state.params.clone() if sync.rank == 0 else state.params
+    tdist.broadcast(other, src=1)
+    replicas_equal = torch.equal(other, state.params)
+    del other
+    out = dict(replicas_equal=replicas_equal, launches=launches)
+    if sync.rank != 0:  # room on the card for rank 0's one-process step
+        del state, opt, step, metrics
+        free_device_memory()
+    else:
+        ddp = dict(loss=float(metrics["loss"]), tensors=state_tensors(state))
+        one_state, one_opt = train_parity_state(torch.float32, 4, res, n)
+        one_metrics = make_train_step(one_opt, mask_ratio=0.5, mae_loss_coef=0.1,
+                                      ema_decay=0.9999)(one_state, batch, draws=draws)
+        one = state_tensors(one_state)
+        rel = lambda a, b: ((a.float() - b.float()).norm()
+                            / b.float().norm().clamp_min(1e-30)).item()
+        errs = {k: rel(v, one[k]) for k, v in ddp["tensors"].items()}
+        out.update(
+            loss=abs(ddp["loss"] - float(one_metrics["loss"])) / abs(float(one_metrics["loss"])),
+            grad=max(v for k, v in errs.items() if k.startswith("grad.")),
+            state=max(v for k, v in errs.items() if not k.startswith("grad.")),
+            worst=max(errs, key=errs.get),
+        )
+        log(f"[parity-ddp] 2 ranks x {n // 2} rows vs one process x {n}, DiT-XL/2 @256, fp32: "
+            f"loss rel err {out['loss']:.3e}, max per-tensor gradient rel-norm err "
+            f"{out['grad']:.3e}, p/ema/mu/nu {out['state']:.3e} (worst {out['worst']})")
+    tdist.barrier()
+    return out
+
+
+def worker_train(device: str, gloo: bool) -> dict:
+    """[train-ddp] / [train-ddp-nccl] in one rank: the train CLI (its
+    checkpoints not written), then every rank's parameter digest."""
+    import io
+    import torch.distributed as tdist
+
+    from maskdit_tpu_torch.parallel import dist
+    from maskdit_tpu_torch.train import main as train_main
+
+    world = dist.process_count()
+    path = os.path.join(SCRATCH, "train-ddp-config.json")
+    if dist.is_main_process():
+        with open(path, "w") as f:
+            json.dump(TRAIN_CONFIG, f)
+    dist.barrier()
+    results = os.path.join(SCRATCH, f"train-ddp-{'gloo' if gloo else 'nccl'}")
+    captured = io.StringIO()
+    reset_launches()
+    with no_checkpoint_writes(), contextlib.redirect_stdout(captured):
+        out = train_main(["--config", path, "--results_dir", results, "--device", device,
+                          "--num_workers", "4", "--dist_backend", "gloo" if gloo else "nccl",
+                          f"train.batchsize={DDP_BATCH // world}", *DDP_OVERRIDES])
+    text = captured.getvalue()
+    print(text, end="", flush=True)
+    launches = read_launches()
+    lines = [text.count(f"(step={s:07d}) loss=") for s in range(LOG_EVERY, DDP_STEPS + 1,
+                                                                  LOG_EVERY)]
+    gathered = [None] * world
+    tdist.all_gather_object(gathered, (params_digest(out["state"].params), launches, lines))
+    digests, counts, lines = zip(*gathered)
+    history = out["history"]
+    warm = history[1:]
+    return dict(
+        backend=tdist.get_backend(), digests=list(digests),
+        launches={k: sum(c[k] for c in counts) for k in launches},
+        losses=[x for r in history for x in r["losses"]],
+        log_lines=[sum(per_step) for per_step in zip(*lines)],
+        ms_per_step=sum(LOG_EVERY / r["steps_per_sec"] for r in warm) / (LOG_EVERY * len(warm))
+        * 1e3,
+    )
 
 
 def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = TRAIN_BATCH,
@@ -2016,6 +2454,13 @@ def main() -> None:
         parity_train = phase_parity_train()
         phase_train_profile()
         mark("train (with train-eval)")
+        parity_options = phase_parity_train_options()
+        train_options = phase_train_options(train)
+        mark("train-options")
+        parity_ddp = phase_parity_ddp()
+        train_ddp = phase_train_ddp()
+        train_ddp_nccl = phase_train_ddp_nccl()
+        mark("data parallel")
         train_512 = run_train("train-512", TRAIN_CONFIG_512, 64, dict(
             big_fwd=ATTN_PER_STEP, big_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
         parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
@@ -2055,10 +2500,17 @@ def main() -> None:
         f"encode {extract[256]['encode_ms']:.3f} / {extract[512]['encode_ms']:.3f} ms/image at "
         f"256 / 512 px, host crop {extract['crop_ms']:.2f} ms/image, LMDB write "
         f"{extract['write_mb_s']:.1f} MB/s, loader batches/s {extract['loader_batches_per_s']}; "
-        f"overfit gate {gate['verdict']} in {gate['seconds']:.1f} s; "
+        f"overfit gate {gate['verdict']} in {gate['seconds']:.1f} s; fused adam ms "
+        f"{ {adam_variant_name(v): round(adam[v]['ms'], 4) for v in ADAM_VARIANTS} }; "
+        f"train-options {train_options['images_per_s']:.2f} images/s, "
+        f"{train_options['ms_per_step']:.1f} ms/step, peak {train_options['peak_gib']:.2f} GiB, "
+        f"parity {parity_options}; parity-ddp loss {parity_ddp['loss']:.3e} grad "
+        f"{parity_ddp['grad']:.3e} state {parity_ddp['state']:.3e}; train-ddp (2 gloo ranks "
+        f"on one card) {train_ddp['ms_per_step']:.1f} ms/step; train-ddp-nccl bit for bit; "
         f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
-    paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate)
+    paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
+             train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"])
     count = lambda key: sum(p["launches"][key] for p in paths)
     print(json.dumps({"kernels": [
         kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",
@@ -2068,7 +2520,7 @@ def main() -> None:
                     count("packed_bwd"), bf16(bwd, ["train_encoder", "train_decoder"]),
                     bwd[("train_encoder", "bfloat16")]),
         kernel_line("fused_adam_ema", "fused_adam_ema.cu", "fused_adam.py:109", count("adam"),
-                    adam["float32"]["err"], adam["float32"]),
+                    adam[ADAM_VARIANTS[0]]["err"], adam[ADAM_VARIANTS[0]]),
         kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",
                     "flash_big.py:213", count("big_fwd"),
                     bf16(big["fwd"], [s[0] for s in BIG_FWD_SHAPES]),
@@ -2092,4 +2544,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(*sys.argv[2:])
+    else:
+        main()

@@ -1,11 +1,11 @@
 """Host-side data loading: shuffling, batching, prefetch and the copy to
 the device.
 
-Counterpart of maskdit_tpu/data/loader.py without jax, for one process
-(the JAX loader's rank 0 of world 1; its rank-strided slices wait for
-multi-process training): a per-epoch shuffle, worker threads that load
-samples, full batches collated in numpy, and a background thread that
-keeps a few batches ready. ``to_device`` copies a batch to the card through pinned
+Counterpart of maskdit_tpu/data/loader.py without jax: a per-epoch
+shuffle, of which each process reads its rank-strided slice (the JAX
+loader's :55-72, the analogue of the WDS nodesplitter, train_wds.py:35-42),
+worker threads that load samples, full batches collated in numpy, and a
+background thread that keeps a few batches ready. ``to_device`` copies a batch to the card through pinned
 memory without blocking the host.
 """
 
@@ -13,18 +13,22 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Iterator
+from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+
+from maskdit_tpu_torch.parallel import dist
 
 
 class DataLoader:
     """Epoch-based shuffled loader over a map-style dataset of (x, y).
 
-    Yields {'x': (B, ...) float32, 'y': (B, K) float32} numpy batches,
-    forever (epochs roll over), with the JAX loader's per-epoch order; the
-    last partial batch of an epoch is dropped.
+    Yields {'x': (B, ...) float32, 'y': (B, K) float32} numpy batches of
+    this process's rows, forever (epochs roll over), with the JAX loader's
+    per-epoch order; the last partial batch of an epoch is dropped.
+    ``process_index`` / ``process_count`` default to the process group's
+    rank and size (0 of 1 without one).
     """
 
     def __init__(
@@ -35,6 +39,8 @@ class DataLoader:
         seed: int = 0,
         num_workers: int = 2,
         resample: bool = False,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -42,16 +48,21 @@ class DataLoader:
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.resample = resample
+        self.rank = dist.process_index() if process_index is None else process_index
+        self.world = dist.process_count() if process_count is None else process_count
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
+        """This process's sample indices of ``epoch``, in order."""
         n = len(self.dataset)
         rng = np.random.RandomState((self.seed + epoch) % (1 << 31))
         if self.resample:
-            return rng.randint(0, n, size=n)
-        idx = np.arange(n)
-        if self.shuffle:
-            rng.shuffle(idx)
-        return idx
+            # iid with replacement; disjoint per rank by striding the draw
+            idx = rng.randint(0, n, size=n)
+        else:
+            idx = np.arange(n)
+            if self.shuffle:
+                rng.shuffle(idx)
+        return idx[self.rank::self.world]
 
     def batches(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
         idx = self.epoch_indices(epoch)
@@ -76,11 +87,14 @@ class DataLoader:
         return {"x": np.stack(xs).astype(np.float32), "y": np.stack(ys).astype(np.float32)}
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
-        per_epoch = len(self.epoch_indices(0))
-        if per_epoch < self.batch_size:
+        # the JAX loader's check (:118-131): a slice smaller than a batch
+        # would spin through empty epochs forever
+        per_rank = len(self.epoch_indices(0))
+        if per_rank < self.batch_size:
             raise ValueError(
-                f"dataset yields {per_epoch} samples/epoch < batch_size "
-                f"{self.batch_size}: no full batch would ever be produced"
+                f"dataset yields {per_rank} samples/rank/epoch < batch_size "
+                f"{self.batch_size}: no full batch would ever be produced "
+                "(shrink the batch or grow/replicate the dataset)"
             )
         epoch = 0
         while True:

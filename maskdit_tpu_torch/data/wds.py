@@ -24,7 +24,7 @@ ShardWriter consumers, and byte-identical to the JAX package's writer.
 
 The port's copy of maskdit_tpu/data/wds.py: it imports neither jax nor the
 JAX package's datasets, and ``StreamingWDSLoader`` takes the process index
-and count as plain ints (rank 0 of world 1 unless told otherwise). The
+and count from the process group (``parallel/dist.py``) unless told. The
 indexed reader reads with ``os.pread``: the loader's worker threads share
 its open shards, and the JAX reader's seek + read on a shared file object
 returns another record's bytes when two threads interleave.
@@ -42,6 +42,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 
 from maskdit_tpu_torch.data.datasets import Dataset, encode_label
+from maskdit_tpu_torch.parallel import dist
 
 
 def index_tar(path: str) -> dict[str, dict[str, tuple[int, int]]]:
@@ -252,8 +253,8 @@ class StreamingWDSLoader:
         label_dim: int = 1000,
         seed: int = 0,
         shuffle_buffer: int = 1000,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
         resample: bool = False,
     ):
         self.root = root
@@ -262,8 +263,8 @@ class StreamingWDSLoader:
         self.seed = seed
         self.shuffle_buffer = shuffle_buffer
         self.resample = resample
-        self.rank = process_index
-        self.world = process_count
+        self.rank = dist.process_index() if process_index is None else process_index
+        self.world = dist.process_count() if process_count is None else process_count
         self.num_shards = len(list_shards(root))  # validates root up front
         if not resample and self.rank >= self.num_shards:
             # this rank owns zero shards EVERY epoch -> __iter__ would spin

@@ -10,7 +10,10 @@ model (bf16 compute), samples ``--seeds`` with the EDM sampler, decodes them
 with the SD-VAE of ``--pretrained_path`` into
 ``<outdir>/edm-steps<N>-cfg<scale>/{seed:06d}.png``, then computes the FID
 of that folder against ``eval.ref_path`` of the config (skipped with
-``--skip_fid``). One process, on ``--device`` (default cuda).
+``--skip_fid``). On ``--device`` (default cuda). Under ``python -m
+torch.distributed.run`` each process samples its rank-strided seeds on
+``cuda:LOCAL_RANK``, and the Inception statistics are summed over the
+processes (maskdit_tpu's eval_latent.py:52, 94); rank 0 prints.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from maskdit_tpu_torch.evals import fid as fid_lib
 from maskdit_tpu_torch.fid import add_detector_args, build_detector
 from maskdit_tpu_torch.models import check_model_keys, create_model
 from maskdit_tpu_torch.models.precond import EDMPrecond
+from maskdit_tpu_torch.parallel import dist
 from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
 from maskdit_tpu_torch.utils import config as config_lib
 from maskdit_tpu_torch.utils.ckpt import load_into, load_reference_checkpoint
@@ -74,25 +78,32 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parser.parse_args(argv)
 
     cfg = config_lib.load_file(args.config)
-    device = torch.device(args.device)
-    model = build_model(cfg.model, device)
-    load_into(model, load_reference_checkpoint(args.ckpt_path), strict=True)
-    print(f"loaded EMA weights from {args.ckpt_path}")
-    vae = load_vae(args.pretrained_path).to(device)
+    created = dist.init_distributed(device=args.device)
+    try:
+        device = dist.local_device(args.device)
+        model = build_model(cfg.model, device)
+        load_into(model, load_reference_checkpoint(args.ckpt_path), strict=True)
+        dist.mprint(f"loaded EMA weights from {args.ckpt_path}")
+        vae = load_vae(args.pretrained_path).to(device)
 
-    outdir = os.path.join(args.outdir, f"edm-steps{args.num_steps}-cfg{args.cfg_scale}")
-    t0 = time.perf_counter()
-    generate_with_params(model, args.seeds, outdir,
-                         SamplerConfig(num_steps=args.num_steps, cfg_scale=args.cfg_scale),
-                         max_batch_size=args.max_batch_size, vae=vae)
-    seconds = time.perf_counter() - t0
-    print(f"generation took {seconds:.1f}s")
+        outdir = os.path.join(args.outdir, f"edm-steps{args.num_steps}-cfg{args.cfg_scale}")
+        t0 = time.perf_counter()
+        generate_with_params(model, args.seeds, outdir,
+                             SamplerConfig(num_steps=args.num_steps, cfg_scale=args.cfg_scale),
+                             max_batch_size=args.max_batch_size, vae=vae,
+                             rank=dist.process_index(), world=dist.process_count())
+        dist.barrier()  # every image is written before any is read
+        seconds = time.perf_counter() - t0
+        dist.mprint(f"generation took {seconds:.1f}s")
 
-    value = None
-    if not args.skip_fid:
-        value = fid_lib.calc(outdir, cfg.eval.ref_path, args.num_expected, args.global_seed,
-                             args.fid_batch_size, build_detector(args))
-        print(f"cfg_scale: {args.cfg_scale} FID: {value:.4f}")
+        value = None
+        if not args.skip_fid:
+            value = fid_lib.calc(outdir, cfg.eval.ref_path, args.num_expected, args.global_seed,
+                                 args.fid_batch_size, build_detector(args, device))
+            dist.mprint(f"cfg_scale: {args.cfg_scale} FID: {value:.4f}")
+    finally:
+        if created:
+            dist.shutdown()
     return {"outdir": outdir, "seconds": seconds, "fid": value}
 
 

@@ -3,8 +3,9 @@
 Counterpart of maskdit_tpu/evals/fid.py (the reference's EDM-style
 fid.py): features accumulate as (sum x, sum x^T x) in fp64, so memory is
 O(d^2) whatever the sample count (fid.py:63-75), and the distance closes
-with scipy's ``sqrtm`` (fid.py:87-91). One process: ``merge_across_hosts``
-is the identity until the port has its ``parallel/`` package.
+with scipy's ``sqrtm`` (fid.py:87-91). Under several processes each
+streams its rank-strided images and ``merge_across_hosts`` sums the
+accumulators over them (maskdit_tpu/evals/fid.py:36, 88, 107-122).
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import numpy as np
 import scipy.linalg
 
 from maskdit_tpu_torch.data.datasets import ImageFolderDataset
+from maskdit_tpu_torch.parallel.dist import (
+    all_reduce_sum_array, is_main_process, mprint, process_count, process_index,
+)
 
 
 class StreamingStats:
@@ -33,7 +37,10 @@ class StreamingStats:
         self.count += f.shape[0]
 
     def merge_across_hosts(self) -> None:
-        """The sums over every process: one process here, so unchanged."""
+        """The sums over every process (unchanged with one)."""
+        self.raw_mean = all_reduce_sum_array(self.raw_mean)
+        self.raw_cov = all_reduce_sum_array(self.raw_cov)
+        self.count = int(all_reduce_sum_array(np.asarray([self.count], np.int64))[0])
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray]:
         mu = self.raw_mean / self.count
@@ -58,8 +65,9 @@ def calculate_inception_stats(
     max_batch_size: int = 64,
     feature: str = "pool",
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Stream an image folder through the detector (reference: fid.py:28-83)."""
-    print(f'Loading images from "{image_path}"...')
+    """Stream an image folder through the detector (reference: fid.py:28-83):
+    this process's rank-strided images, then the statistics of all."""
+    mprint(f'Loading images from "{image_path}"...')
     dataset = ImageFolderDataset(image_path, max_size=num_expected, random_seed=seed)
     try:
         if num_expected is not None and len(dataset) < num_expected:
@@ -67,9 +75,10 @@ def calculate_inception_stats(
         if len(dataset) < 2:
             raise ValueError("need at least 2 images to compute statistics")
         stats = StreamingStats({"pool": 2048, "spatial": 2023}[feature])
-        for start in range(0, len(dataset), max_batch_size):
-            images = np.stack([dataset[i][0] for i in
-                               range(start, min(start + max_batch_size, len(dataset)))])
+        indices = np.arange(len(dataset))[process_index()::process_count()]
+        for start in range(0, len(indices), max_batch_size):
+            images = np.stack([dataset[int(i)][0] for i in
+                               indices[start:start + max_batch_size]])
             if images.shape[1] == 1:
                 images = np.repeat(images, 3, axis=1)
             stats.update(detector(images)[feature])
@@ -92,8 +101,10 @@ def calc(image_path: str, ref_path: str, num_expected: int, seed: int, batch: in
 
 def ref(dataset_path: str, dest_path: str, batch: int, detector: Callable,
         feature: str = "pool") -> None:
-    """Reference statistics of a dataset folder (reference: fid.py:121-134)."""
+    """Reference statistics of a dataset folder (reference: fid.py:121-134);
+    rank 0 writes them."""
     mu, sigma = calculate_inception_stats(dataset_path, detector, None, 0, batch, feature)
-    os.makedirs(os.path.dirname(dest_path) or ".", exist_ok=True)
-    np.savez(dest_path, mu=mu, sigma=sigma)
-    print(f"saved reference stats to {dest_path}")
+    if is_main_process():
+        os.makedirs(os.path.dirname(dest_path) or ".", exist_ok=True)
+        np.savez(dest_path, mu=mu, sigma=sigma)
+        print(f"saved reference stats to {dest_path}")

@@ -7,8 +7,11 @@
 The detector is the port's InceptionV3 with the community
 ``pt_inception-2015-12-05`` weights (the network the reference's StyleGAN3
 pickle wraps). ``--random_detector`` runs the whole pipeline on random
-weights (a machinery run: the values are meaningless). One process, on
-``--device`` (default cuda).
+weights (a machinery run: the values are meaningless). On ``--device``
+(default cuda; ``cuda:LOCAL_RANK`` for each of several processes). Under
+``python -m torch.distributed.run`` each process streams its rank-strided
+images, the statistics are summed over the processes, and rank 0 prints
+and writes.
 """
 
 from __future__ import annotations
@@ -19,20 +22,22 @@ from typing import Optional, Sequence
 
 from maskdit_tpu_torch.evals import fid as fid_lib
 from maskdit_tpu_torch.evals.inception import Detector, make_detector, random_state_dict
+from maskdit_tpu_torch.parallel import dist
 from maskdit_tpu_torch.utils.port import load_inception
 
 
-def build_detector(args: argparse.Namespace) -> Detector:
-    """The detector that ``--random_detector`` / ``--detector_path`` and
-    ``--device`` ask for."""
+def build_detector(args: argparse.Namespace, device=None) -> Detector:
+    """The detector that ``--random_detector`` / ``--detector_path`` ask
+    for, on ``device`` (default ``--device``)."""
+    device = args.device if device is None else device
     if args.random_detector:
-        print("WARNING: random detector weights; FID values are meaningless")
-        return make_detector(random_state_dict(0), args.device)
+        dist.mprint("WARNING: random detector weights; FID values are meaningless")
+        return make_detector(random_state_dict(0), device)
     if not args.detector_path or not os.path.exists(args.detector_path):
         raise SystemExit("need --detector_path pointing at the pt_inception-2015-12-05 "
                          "state dict (see download_assets.py / pytorch-fid), or "
                          "--random_detector for a machinery-only run")
-    return make_detector(load_inception(args.detector_path), args.device)
+    return make_detector(load_inception(args.detector_path), device)
 
 
 def add_detector_args(parser: argparse.ArgumentParser) -> None:
@@ -60,14 +65,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[float]:
         parser.error("calc needs --images and --ref")
     if args.mode == "ref" and not (args.data and args.dest):
         parser.error("ref needs --data and --dest")
-    detector = build_detector(args)
-    if args.mode == "ref":
-        fid_lib.ref(args.data, args.dest, args.batch, detector)
-        return None
-    value = fid_lib.calc(args.images, args.ref, args.num, args.seed, args.batch, detector)
-    print(f"FID: {value:.4f}")
-    print(value)
-    return value
+    created = dist.init_distributed(device=args.device)
+    try:
+        detector = build_detector(args, dist.local_device(args.device))
+        if args.mode == "ref":
+            fid_lib.ref(args.data, args.dest, args.batch, detector)
+            return None
+        value = fid_lib.calc(args.images, args.ref, args.num, args.seed, args.batch, detector)
+        dist.mprint(f"FID: {value:.4f}")
+        dist.mprint(value)
+        return value
+    finally:
+        if created:
+            dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ Usage:
       [--pretrained_path assets/stable_diffusion/autoencoder_kl.pth] ...
 
 Loads the EMA weights of a reference ``.pt`` checkpoint, samples with the
-EDM (or ablation) sampler on one device, rank 0 of world 1, decodes each
+EDM (or ablation) sampler on ``--device`` (under ``python -m
+torch.distributed.run`` each process samples its rank-strided batches of
+the seeds on ``cuda:LOCAL_RANK``, rank 0 writes the log), decodes each
 batch with the SD-VAE of ``--pretrained_path`` (the released
 ``autoencoder_kl.pth`` layout, fp32) and writes ``{seed:06d}.png``.
 ``--no_decode`` writes the latents of each batch as
@@ -25,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from maskdit_tpu_torch.models import DIT_CONFIGS, check_model_keys, create_model
+from maskdit_tpu_torch.parallel import dist
 from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
 from maskdit_tpu_torch.utils import config as config_lib
 from maskdit_tpu_torch.utils.ckpt import load_into, load_reference_checkpoint
@@ -109,9 +112,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         args.use_decoder = m.use_decoder
         args.mae_loss_coef = m.get("mae_loss_coef", 0)
 
+    created = dist.init_distributed(device=args.device)
+    try:
+        return _generate(args, dist.local_device(args.device))
+    finally:
+        if created:
+            dist.shutdown()
+
+
+def _generate(args: argparse.Namespace, device: torch.device) -> dict:
+    rank, world = dist.process_index(), dist.process_count()
     os.makedirs(args.outdir, exist_ok=True)
-    device = torch.device(args.device)
-    with Logger(os.path.join(args.outdir, "log.txt"), "a+"):
+    log_file = os.path.join(args.outdir, "log.txt") if rank == 0 else None
+    with Logger(log_file, "a+"):
         model = create_model(
             "edm",
             img_resolution=args.image_size,
@@ -125,11 +138,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         load_into(model, load_reference_checkpoint(args.ckpt_path),
                   strict=args.use_strict_load)
         model = model.to(device).eval()
-        print(f"loaded weights from {args.ckpt_path}")
+        dist.mprint(f"loaded weights from {args.ckpt_path}")
         vae = None
         if not args.no_decode:
             vae = TimedVAE(load_vae(args.pretrained_path).to(device), device)
-            print(f"loaded the VAE from {args.pretrained_path}")
+            dist.mprint(f"loaded the VAE from {args.pretrained_path}")
 
         sampler_cfg = SamplerConfig(
             num_steps=args.num_steps,
@@ -141,22 +154,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             scaling=args.scaling,
         )
         what = "latents" if vae is None else "images"
-        print(f"generating {len(args.seeds)} {what} to {args.outdir} "
-              f"(cfg={args.cfg_scale}, steps={args.num_steps}, device={device})")
+        dist.mprint(f"generating {len(args.seeds)} {what} to {args.outdir} "
+                    f"(cfg={args.cfg_scale}, steps={args.num_steps}, device={device}, "
+                    f"{world} process{'es' if world > 1 else ''})")
         _synchronize(device)
         t0 = time.perf_counter()
         generate_with_params(
             model, args.seeds, args.outdir, sampler_cfg,
             class_idx=args.class_idx, max_batch_size=args.max_batch_size,
-            save_latents=vae is None, vae=vae,
+            save_latents=vae is None, vae=vae, rank=rank, world=world,
         )
         _synchronize(device)
+        dist.barrier()  # every process's images are written
         seconds = time.perf_counter() - t0
         decode_seconds = 0.0 if vae is None else vae.seconds
         n = len(args.seeds)
-        print(f"Done: {n} {what} in {seconds:.3f} s ({n / seconds:.3f} {what}/s); "
-              f"sampling and writes {seconds - decode_seconds:.3f} s, "
-              f"decode {decode_seconds:.3f} s")
+        dist.mprint(f"Done: {n} {what} in {seconds:.3f} s ({n / seconds:.3f} {what}/s); "
+                    f"sampling and writes {seconds - decode_seconds:.3f} s, "
+                    f"decode {decode_seconds:.3f} s")
     return {"images": n, "seconds": seconds, "decode_seconds": decode_seconds}
 
 

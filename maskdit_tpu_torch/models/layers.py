@@ -184,7 +184,7 @@ class PatchEmbed(nn.Module):
         weight = self.proj.weight.reshape(self.proj.out_channels, -1)
         y = F.linear(
             patches.to(self.dtype).float(), weight.to(self.dtype).float(),
-            self.proj.bias,
+            self.proj.bias.float(),  # fp32 (a bf16 copy under amp_grads)
         )
         return y.to(self.dtype)
 

@@ -1,7 +1,8 @@
 """Single-sweep fused Adam + EMA update.
 
 Counterpart of maskdit_tpu/ops/fused_adam.py (``fused_adam_ema``, the
-Pallas ``_leaf_update_pallas`` and ``FusedAdamEma``). Per element:
+Pallas ``_leaf_update_pallas``, the jnp ``_leaf_update_jnp`` with
+``stochastic_round_bf16``, and ``FusedAdamEma``). Per element:
 
     m   <- b1*m + (1-b1)*g
     v   <- b2*v + (1-b2)*g^2
@@ -23,10 +24,23 @@ outputs onto its inputs (fused_adam.py:121). The trainer keeps each of the
 five as one flat buffer (``train/state.py``), so a step is one launch;
 ``fused_adam_ema.launches`` counts them; ``fused_adam_ema_plain`` is the
 same in-place update through the plain version on any device, what the
-kernel is held to on the card. The first moment may be stored
-in bf16 (``mu_dtype``; the math stays fp32), as the Pallas kernel allows.
-bf16 second moments need stochastic rounding, which neither the Pallas
-kernel nor this one does: ``nu_dtype`` raises.
+kernel is held to on the card.
+
+Storage: p and ema are fp32. The gradient may be bf16 (``amp_grads``; it
+is upcast at the boundary). The first moment may be stored in bf16
+(``mu_dtype``, rounded to nearest; the math stays fp32). The second moment
+may be stored in bf16 (``nu_dtype``) with STOCHASTIC rounding, as
+``stochastic_round_bf16`` does: its per-step increment (1 - b2) is below
+bf16's resolution, so round-to-nearest would freeze it. The random bits are
+Philox4x32-10 keyed by (0x6E75, count), count the pre-increment Adam step,
+with the element's index in the flat buffer as the counter
+(``sr_bits``): deterministic across resume, as the JAX key folded from the
+count is, but not threefry's bits, so the two packages agree in
+distribution, not value. The plain version computes the same Philox in
+int64 tensor arithmetic, so kernel and plain agree bit for bit.
+``with_ema=False`` (the steps of ``ema_every > 1`` without the EMA)
+leaves ema untouched; JAX passes d = 1.0 there, which gives the same
+value whenever p is finite.
 """
 
 from __future__ import annotations
@@ -42,7 +56,12 @@ import torch
 from maskdit_tpu_torch.ops import build
 
 KERNEL = "fused_adam_ema"
-_M_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+SR_KEY = 0x6E75  # the JAX package's PRNGKey(0x6E75) for nu's rounding
+_M32 = 0xFFFFFFFF
+# elements per piece of the plain stochastic rounding (bounds its int64
+# temporaries, ~100 MB each)
+_SR_PIECE = 1 << 22
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -69,30 +88,97 @@ def adam_scalars(lr: float, count_inc: int, b1: float, b2: float, eps: float,
     )
 
 
+def _mulhilo(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32 bits of a * b (a: int64 holding uint32, b < 2^32)
+    without overflowing int64: a is split into 16-bit halves."""
+    x = (a & 0xFFFF) * b
+    y = (a >> 16) * b
+    t = x + ((y & 0xFFFF) << 16)
+    return ((y >> 16) + (t >> 32)) & _M32, t & _M32
+
+
+def philox4x32_10(c: tuple[torch.Tensor, ...], key: tuple[int, int]) -> tuple[torch.Tensor, ...]:
+    """Philox4x32-10 (Random123) of the counters ``c`` (four int64 tensors
+    of uint32 values) under ``key`` (two uint32): the four output words.
+    The kernel's ``philox4x32_10`` in integer tensor arithmetic."""
+    c0, c1, c2, c3 = c
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+        hi0, lo0 = _mulhilo(c0, 0xD2511F53)
+        hi1, lo1 = _mulhilo(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def sr_bits(start: int, n: int, count: int, device) -> torch.Tensor:
+    """The random words of elements ``start .. start+n-1`` (int64 holding
+    uint32): element i takes word i % 4 of Philox at counter (i // 4, 0, 0)
+    under the key (0x6E75, count)."""
+    q0, q1 = start // 4, (start + n - 1) // 4 + 1
+    q = torch.arange(q0, q1, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(q)
+    words = torch.stack(philox4x32_10((q & _M32, q >> 32, zero, zero), (SR_KEY, count & _M32)),
+                        dim=1).reshape(-1)
+    return words[start - 4 * q0:start - 4 * q0 + n]
+
+
+def stochastic_round_bf16(x: torch.Tensor, count: int, start: int = 0) -> torch.Tensor:
+    """fp32 -> bf16 with stochastic rounding (``stochastic_round_bf16`` of
+    the JAX package with the port's bits): the low 16 bits of each
+    element's random word are added to its fp32 pattern, which is then
+    truncated to its upper half. ``x`` is flat; its element k is the flat
+    buffer's element ``start + k``."""
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    for lo in range(0, x.numel(), _SR_PIECE):
+        piece = x[lo:lo + _SR_PIECE].float()
+        u = piece.view(torch.int32).to(torch.int64) & _M32
+        bits = sr_bits(start + lo, piece.numel(), count, x.device)
+        hi = ((u + (bits & 0xFFFF)) >> 16) & 0xFFFF
+        out[lo:lo + _SR_PIECE] = (hi - ((hi & 0x8000) << 1)).to(torch.int16).view(torch.bfloat16)
+    return out
+
+
 def fused_adam_ema_reference(
     g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     e: torch.Tensor, *, lr: float, bc1: float, bc2: float, decay: float,
     one_minus_decay: float, b1: float, one_minus_b1: float, b2: float,
-    one_minus_b2: float, eps: float,
+    one_minus_b2: float, eps: float, sr_count: Optional[int] = None,
+    with_ema: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: new (p, m, v, ema), out of place.
 
     The operation order of ``_leaf_update_jnp`` (fused_adam.py:128-152);
-    m is returned in its own dtype, the rest in fp32.
+    m and v are returned in their own dtypes, p and ema in fp32. A bf16 v
+    is stochastically rounded with the bits of ``sr_count`` (the tensors
+    are the flat buffers, or their first elements); ``with_ema=False``
+    returns ema itself.
     """
     g = g.float()
+    # the divisors as tensors on the data's device: PyTorch's CUDA division
+    # by a Python scalar multiplies by its reciprocal, which is not the
+    # kernel's (and JAX's) rounding
+    bc1, bc2 = (torch.tensor(b, dtype=torch.float32, device=p.device) for b in (bc1, bc2))
     m_new = b1 * m.float() + one_minus_b1 * g
-    v_new = b2 * v + one_minus_b2 * g * g
+    v_new = b2 * v.float() + one_minus_b2 * g * g
     p_new = p - lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-    e_new = decay * e + one_minus_decay * p_new
-    return p_new, m_new.to(m.dtype), v_new, e_new
+    e_new = decay * e + one_minus_decay * p_new if with_ema else e
+    if v.dtype == torch.float32:
+        v_store = v_new
+    elif sr_count is None:
+        raise ValueError("a bf16 second moment needs stochastic rounding (sr_count); "
+                         "round-to-nearest freezes it at (1 - b2) increments")
+    else:
+        v_store = stochastic_round_bf16(v_new.reshape(-1), sr_count).view(v.shape)
+    return p_new, m_new.to(m.dtype), v_store, e_new
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
     lib.fused_adam_ema.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_uint]
         + [ctypes.c_float] * 10 + [ctypes.c_void_p]
     )
     lib.fused_adam_ema.restype = ctypes.c_int
@@ -103,9 +189,13 @@ def _library() -> ctypes.CDLL:
 
 _SCALAR_ORDER = ("lr", "bc1", "bc2", "decay", "one_minus_decay", "b1",
                  "one_minus_b1", "b2", "one_minus_b2", "eps")
+_NARROW = ("g", "m", "v")  # may be bf16
 
 
-def _launch(g, p, m, v, e, scalars: dict[str, float]) -> None:
+def launch(g, p, m, v, e, scalars: dict[str, float], sr_count: int = 0,
+           with_ema: bool = True) -> None:
+    """Launch the kernel with the given fp32 scalars (``adam_scalars``'s
+    keys) on CUDA tensors; counts one launch."""
     for name, t in (("g", g), ("p", p), ("m", m), ("v", v), ("ema", e)):
         if t.device != p.device or t.device.type != "cuda":
             raise ValueError(f"fused_adam_ema: {name} on {t.device}, p on {p.device}")
@@ -114,14 +204,15 @@ def _launch(g, p, m, v, e, scalars: dict[str, float]) -> None:
                 f"fused_adam_ema: {name} is {tuple(t.shape)} "
                 f"(contiguous {t.is_contiguous()}), p {tuple(p.shape)}"
             )
-        want = (torch.bfloat16, torch.float32) if name == "m" else (torch.float32,)
+        want = tuple(_DTYPE_CODES) if name in _NARROW else (torch.float32,)
         if t.dtype not in want:
             raise TypeError(f"fused_adam_ema: {name} is {t.dtype} (takes {want})")
     lib = _library()
     with torch.cuda.device(p.device):
         err = lib.fused_adam_ema(
             g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), e.data_ptr(),
-            p.numel(), _M_CODES[m.dtype], *(scalars[k] for k in _SCALAR_ORDER),
+            p.numel(), _DTYPE_CODES[g.dtype], _DTYPE_CODES[m.dtype], _DTYPE_CODES[v.dtype],
+            int(with_ema), sr_count & _M32, *(scalars[k] for k in _SCALAR_ORDER),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -136,30 +227,37 @@ def fused_adam_ema(
     g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     e: torch.Tensor, *, lr: float, count_inc: int, b1: float = 0.9,
     b2: float = 0.999, eps: float = 1e-8, ema_decay: float = 0.9999,
+    with_ema: bool = True,
 ) -> None:
     """Update p, m, v and ema in place from the gradient g.
 
     ``count_inc`` is the post-increment step (optax's convention for the
     bias correction); ``lr`` is the schedule's value at the step before.
+    A bf16 v is stochastically rounded with the bits of ``count_inc - 1``.
     """
     if p.device.type == "cpu":
         fused_adam_ema_plain(g, p, m, v, e, lr=lr, count_inc=count_inc, b1=b1, b2=b2,
-                             eps=eps, ema_decay=ema_decay)
+                             eps=eps, ema_decay=ema_decay, with_ema=with_ema)
         return
-    _launch(g, p, m, v, e, adam_scalars(lr, count_inc, b1, b2, eps, ema_decay))
+    launch(g, p, m, v, e, adam_scalars(lr, count_inc, b1, b2, eps, ema_decay),
+           sr_count=count_inc - 1, with_ema=with_ema)
 
 
 def fused_adam_ema_plain(
     g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     e: torch.Tensor, *, lr: float, count_inc: int, b1: float = 0.9,
     b2: float = 0.999, eps: float = 1e-8, ema_decay: float = 0.9999,
+    with_ema: bool = True,
 ) -> None:
     """``fused_adam_ema`` through the plain version on any device, in place:
     what the kernel is held to."""
-    new = fused_adam_ema_reference(g, p, m, v, e, **adam_scalars(lr, count_inc, b1, b2, eps,
-                                                                 ema_decay))
+    new = fused_adam_ema_reference(
+        g, p, m, v, e, **adam_scalars(lr, count_inc, b1, b2, eps, ema_decay),
+        sr_count=count_inc - 1, with_ema=with_ema,
+    )
     for dst, src in zip((p, m, v, e), new):
-        dst.copy_(src)
+        if src is not dst:
+            dst.copy_(src)
 
 
 fused_adam_ema.launches = 0
@@ -179,7 +277,8 @@ class FusedAdamEma:
 
     ``update_with_ema`` replaces optax's update, apply_updates and
     incremental_update with one sweep, in place. ``learning_rate`` is a
-    float or a function of the pre-increment count.
+    float or a function of the pre-increment count. ``mu_dtype`` and
+    ``nu_dtype`` store the moments in bf16 (see the module docstring).
     """
 
     def __init__(
@@ -191,37 +290,35 @@ class FusedAdamEma:
         mu_dtype: Optional[torch.dtype] = None,
         nu_dtype: Optional[torch.dtype] = None,
     ):
-        if nu_dtype is not None:
-            raise NotImplementedError(
-                "nu_dtype: a bf16 second moment needs stochastic rounding, "
-                "which the port's kernel does not do yet"
-            )
         if mu_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"mu_dtype {mu_dtype}: float32 or bfloat16")
+        if nu_dtype not in (None, torch.bfloat16):
+            # FusedAdamEma's guard (fused_adam.py:335-339)
+            raise ValueError(f"nu_dtype={nu_dtype}: only bfloat16 narrow nu storage is "
+                             "implemented (stochastic rounding targets bf16)")
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = mu_dtype or torch.float32
+        self.nu_dtype = nu_dtype or torch.float32
 
     def lr_at(self, count: int) -> float:
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
     def init(self, params: torch.Tensor) -> AdamState:
-        return AdamState(
-            count=0,
-            mu=torch.zeros(params.shape, dtype=self.mu_dtype, device=params.device),
-            nu=torch.zeros_like(params, dtype=torch.float32),
-        )
+        zeros = lambda dt: torch.zeros(params.shape, dtype=dt, device=params.device)
+        return AdamState(count=0, mu=zeros(self.mu_dtype), nu=zeros(self.nu_dtype))
 
     def update_with_ema(
         self, grads: torch.Tensor, state: AdamState, params: torch.Tensor,
-        ema: torch.Tensor, ema_decay: float = 0.9999,
+        ema: torch.Tensor, ema_decay: float = 0.9999, with_ema: bool = True,
     ) -> None:
-        """One step: params, state.mu, state.nu and ema change in place and
-        state.count goes up by one."""
+        """One step: params, state.mu, state.nu and ema (unless
+        ``with_ema`` is False) change in place and state.count goes up by
+        one."""
         fused_adam_ema(
             grads, params, state.mu, state.nu, ema,
             lr=self.lr_at(state.count), count_inc=state.count + 1,
-            b1=self.b1, b2=self.b2, eps=self.eps, ema_decay=ema_decay,
+            b1=self.b1, b2=self.b2, eps=self.eps, ema_decay=ema_decay, with_ema=with_ema,
         )
         state.count += 1

@@ -5,10 +5,17 @@
   python -m maskdit_tpu_torch.train --config configs/train/imagenet256-latent.yaml \
       [--results_dir results] [--ckpt_path X.pt] [--max_steps N] \
       [--device cuda] [overrides a.b=c ...]
+  python -m torch.distributed.run --nproc_per_node 2 -m maskdit_tpu_torch.train ...
 
 The config is the JAX package's YAML schema, or a ``.json`` file of the
-same schema (the card's machine need not have PyYAML). One device, rank 0
-of world 1; the mesh and coordinator flags of the JAX CLI are not ported.
+same schema (the card's machine need not have PyYAML). Several processes
+train data-parallel (``parallel/data_parallel.py``): launched by
+``torch.distributed.run`` (env://), or each started with ``--coordinator
+host:port --num_processes N --process_id i`` as the JAX CLI takes them.
+Each process trains on ``cuda:LOCAL_RANK`` (``--device cuda``) or on the
+device named; ``--dist_backend`` defaults to nccl on a card and gloo on
+the CPU (gloo also lets processes share one card). The JAX CLI's
+``--mesh`` (FSDP and tensor axes) is not ported.
 ``data.category`` is ``lmdb`` (the latent LMDB that
 ``python -m maskdit_tpu_torch.extract_latent`` writes), ``webdataset`` /
 ``wds`` (the shards of ``python -m maskdit_tpu_torch.lmdb2wds``, indexed, or
@@ -93,7 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_workers", type=int, default=4)
     parser.add_argument("--max_steps", type=int, default=None,
                         help="override config.train.max_num_steps")
-    parser.add_argument("--device", type=str, default="cuda", help="torch device to train on")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on (cuda: cuda:LOCAL_RANK)")
+    # the process group (reference utils.py:84-94; the JAX CLI's flags)
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rank 0's rendezvous host:port (else torch.distributed.run's)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="default: nccl on a card, gloo on the CPU")
     # in-training FID (reference: train.py:273-287)
     parser.add_argument("--enable_eval", action="store_true")
     parser.add_argument("--eval_seeds", type=str, default="0-9999")
@@ -114,10 +129,13 @@ def make_eval_hook(cfg: dict, args: argparse.Namespace):
     ``--eval_seeds`` into ``<results_dir>/fid/edm-steps<N>-ckpt<step>_cfg<scale>``
     as PNGs, whose FID against ``eval.ref_path`` it returns (the JAX CLI's
     ``make_eval_hook``, train.py:40-105). Without ``--cfg_scale`` the
-    config's first ``eval.cfg_scales`` entry is used, where it has one."""
+    config's first ``eval.cfg_scales`` entry is used, where it has one.
+    Under several processes each samples its rank-strided seeds and the
+    Inception statistics are summed over them."""
     from maskdit_tpu_torch.eval_latent import build_model
     from maskdit_tpu_torch.evals import fid as fid_lib
     from maskdit_tpu_torch.fid import build_detector
+    from maskdit_tpu_torch.parallel.dist import barrier, local_device, process_count, process_index
     from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
     from maskdit_tpu_torch.utils.logging import parse_float_none, parse_int_list
     from maskdit_tpu_torch.utils.port import load_vae
@@ -127,9 +145,10 @@ def make_eval_hook(cfg: dict, args: argparse.Namespace):
     scales = cfg.get("eval", {}).get("cfg_scales")
     if cfg_scale is None and scales:
         cfg_scale = float(scales[0])
-    eval_model = build_model(cfg["model"], args.device)
-    vae = load_vae(args.pretrained_path).to(args.device)
-    detector = build_detector(args)
+    device = local_device(args.device)
+    eval_model = build_model(cfg["model"], device)
+    vae = load_vae(args.pretrained_path).to(device)
+    detector = build_detector(args, device)
 
     def hook(step: int, ema: dict) -> dict:
         eval_model.load_state_dict(ema)
@@ -137,7 +156,9 @@ def make_eval_hook(cfg: dict, args: argparse.Namespace):
                               f"edm-steps{args.num_steps}-ckpt{step}_cfg{cfg_scale}")
         generate_with_params(eval_model, seeds, outdir,
                              SamplerConfig(num_steps=args.num_steps, cfg_scale=cfg_scale),
-                             max_batch_size=args.max_batch_size, vae=vae)
+                             max_batch_size=args.max_batch_size, vae=vae,
+                             rank=process_index(), world=process_count())
+        barrier()  # every image is written before any is read
         return {"fid": fid_lib.calc(outdir, cfg["eval"]["ref_path"], args.num_expected,
                                     args.global_seed, args.fid_batch_size, detector)}
 
@@ -146,27 +167,38 @@ def make_eval_hook(cfg: dict, args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict[str, Any]:
     """Run the CLI; returns {'step': last step, 'exp_dir': ..., 'history':
-    the log records (one per logged window)}."""
+    the log records (one per logged window), 'state': the final
+    TrainState}."""
+    from maskdit_tpu_torch.parallel import dist
     from maskdit_tpu_torch.utils.logging import Logger
     from maskdit_tpu_torch.train.trainer import Trainer
 
     args = build_parser().parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.overrides)
     validate(cfg)
-    trainer = Trainer(
-        cfg,
-        results_dir=args.results_dir,
-        seed=args.global_seed,
-        ckpt_path=args.ckpt_path,
-        num_workers=args.num_workers,
-        max_steps_override=args.max_steps,
-        device=args.device,
-        eval_hook=make_eval_hook(cfg, args) if args.enable_eval else None,
-    )
-    with Logger(os.path.join(trainer.exp_dir, "log.txt"), "a+"):
-        step = trainer.train()
-        print("Done!")
-    return {"step": step, "exp_dir": trainer.exp_dir, "history": trainer.history}
+    created = dist.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                    backend=args.dist_backend, device=args.device)
+    try:
+        trainer = Trainer(
+            cfg,
+            results_dir=args.results_dir,
+            seed=args.global_seed,
+            ckpt_path=args.ckpt_path,
+            num_workers=args.num_workers,
+            max_steps_override=args.max_steps,
+            device=args.device,
+            eval_hook=make_eval_hook(cfg, args) if args.enable_eval else None,
+        )
+        # rank 0 tees its output into log.txt
+        log_file = os.path.join(trainer.exp_dir, "log.txt") if dist.is_main_process() else None
+        with Logger(log_file, "a+"):
+            step = trainer.train()
+            dist.mprint("Done!")
+    finally:
+        if created:
+            dist.shutdown()
+    return {"step": step, "exp_dir": trainer.exp_dir, "history": trainer.history,
+            "state": trainer.state}
 
 
 if __name__ == "__main__":

@@ -6,16 +6,34 @@ dropout for CFG (train.py:208-209), gradient accumulation over micro-batches
 (train.py:211-227), the EDM loss, and Adam with the EMA update
 (helper.py:48-58) in one fused sweep.
 
-Numerics as in the JAX package without ``amp_grads``: parameters, Adam
-moments and EMA are fp32; each Linear computes in the model's compute dtype
-(bf16 by default) inside autograd, so the gradients are fp32.
+Numerics as in the JAX package: parameters, Adam moments and EMA are fp32
+(the moments may be stored in bf16: ``moment_dtype``, ``nu_dtype``); each
+Linear computes in the model's compute dtype (bf16 by default) inside
+autograd, so the gradients are fp32, or bf16 under ``amp_grads``, which
+differentiates against a bf16 copy of the fp32 parameters
+(state.py:354-357). With ``grad_accum > 1`` each micro-batch's gradient is
+added into an accumulator of ``accum_dtype`` (default fp32, the
+parameters' dtype) as ``s + g_i.astype(s.dtype)`` and the sum divided by
+``grad_accum`` in that dtype (state.py:401-409); with one micro-batch the
+gradient goes to the update as it is. ``ema_every = k`` moves the EMA on
+the steps with ``(step + 1) % k == 0`` only, with decay ``decay**k``
+(state.py:170-224).
 
 Memory layout: the parameters, their gradient accumulator, the EMA and both
-moments are each ONE flat fp32 buffer. The model's parameters are views
-into ``params`` and their ``.grad`` views into ``grads`` (autograd adds each
-micro-batch's gradient into it in place), so the fused update is a single
-kernel launch over all leaves. ``TrainState.named`` gives the per-parameter
-views under the state-dict keys.
+moments are each ONE flat buffer. The model's parameters are views into
+``params`` (or into its bf16 copy ``net_params`` under ``amp_grads``) and
+their ``.grad`` views into the accumulator ``grads`` (autograd adds each
+micro-batch's gradient into it in place), or into ``micro_grads`` when a
+micro-batch's gradient has another dtype than the accumulator. So the
+fused update is a single kernel launch over all leaves.
+``TrainState.named`` gives the per-parameter views under the state-dict
+keys.
+
+Every step takes its random values through ``draw_step``, over the whole
+batch. Data parallelism (``parallel/data_parallel.py``): each process runs
+the step on its rows of the global batch with ``draw_step``'s draws of the
+whole global batch, all-reduces the gradient once and updates its whole
+replica.
 """
 
 from __future__ import annotations
@@ -26,7 +44,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from maskdit_tpu_torch.models.masking import MaskInfo
+from maskdit_tpu_torch.models.masking import MaskInfo, random_mask
 from maskdit_tpu_torch.models.precond import EDMPrecond
 from maskdit_tpu_torch.ops.fused_adam import AdamState, FusedAdamEma
 from maskdit_tpu_torch.train.loss import EDMLoss
@@ -35,19 +53,21 @@ from maskdit_tpu_torch.train.schedules import lr_with_rampup
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def dtype_of(name: Optional[str]) -> Optional[torch.dtype]:
+    """A config's dtype name (None, 'float32' or 'bfloat16') as a torch dtype."""
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r}: float32 or bfloat16")
+    return _DTYPES[name]
+
+
 def reparameterize_moments(
-    moments: torch.Tensor, scale_factor: float = 0.18215,
-    generator: Optional[torch.Generator] = None,
-    noise: Optional[torch.Tensor] = None,
+    moments: torch.Tensor, noise: torch.Tensor, scale_factor: float = 0.18215,
 ) -> torch.Tensor:
-    """VAE moments (N, 2C, H, W) -> z (N, C, H, W) (reference: utils.py:
-    59-65); ``noise`` (unit normals) replaces the draw from ``generator``."""
+    """VAE moments (N, 2C, H, W) and unit normals (N, C, H, W) -> z
+    (N, C, H, W) (reference: utils.py:59-65)."""
     mean, logvar = moments.chunk(2, dim=1)
     logvar = logvar.clamp(-30.0, 20.0)
     std = torch.exp(0.5 * logvar)
-    if noise is None:
-        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                            dtype=mean.dtype)
     return scale_factor * (mean + std * noise)
 
 
@@ -66,9 +86,16 @@ def make_optimizer(
     (reference: train.py:141, 223-226), as the fused Adam + EMA update.
 
     ``moment_dtype='bfloat16'`` stores the first moment in bf16 (the math
-    stays fp32). The staged optax path and weight decay are not ported:
-    the released configs train with the fused update at wd 0.
+    stays fp32); ``nu_dtype='bfloat16'`` the second, with stochastic
+    rounding (ops/fused_adam.py). The staged optax path and weight decay
+    are not ported: the released configs train with the fused update at
+    wd 0.
     """
+    if nu_dtype is not None and weight_decay != 0.0:
+        # the JAX guard (state.py:93-97)
+        raise NotImplementedError(
+            "nu_dtype with weight_decay: the reference trains at wd=0 (configs/train/*.yaml)"
+        )
     if not fused:
         raise NotImplementedError("the port's optimizer is the fused Adam + EMA update")
     if weight_decay != 0.0:
@@ -79,14 +106,17 @@ def make_optimizer(
         schedule = base_lr
     return FusedAdamEma(
         learning_rate=schedule, b1=betas[0], b2=betas[1], eps=eps,
-        mu_dtype=_DTYPES[moment_dtype], nu_dtype=_DTYPES[nu_dtype],
+        mu_dtype=dtype_of(moment_dtype), nu_dtype=dtype_of(nu_dtype),
     )
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters views into ``params``), the flat fp32
-    buffers, the optimizer state and the step count."""
+    """The model (its parameters views into ``params``, or into its bf16
+    copy ``net_params`` under ``amp_grads``), the flat buffers, the
+    optimizer state and the step count. ``grads`` is the gradient the
+    update reads (the accumulator); ``micro_grads`` holds one micro-batch's
+    gradient where its dtype is not the accumulator's."""
 
     step: int
     model: EDMPrecond
@@ -95,6 +125,10 @@ class TrainState:
     ema: torch.Tensor
     opt_state: AdamState
     layout: list[tuple[str, torch.Size, int]]
+    net_params: Optional[torch.Tensor] = None
+    micro_grads: Optional[torch.Tensor] = None
+    # the (gradient, accumulator) dtypes the parameters are bound for
+    binding: tuple = (torch.float32, torch.float32)
 
     def named(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """Per-parameter views of a flat buffer, under the state-dict keys."""
@@ -103,9 +137,37 @@ class TrainState:
             for name, shape, off in self.layout
         }
 
+    def bind(self, grad_dtype: torch.dtype, accum_dtype: torch.dtype) -> None:
+        """Point the model's parameters and their ``.grad`` at buffers for
+        gradients of ``grad_dtype`` added into an accumulator of
+        ``accum_dtype`` (allocated on first use; a no-op when bound so)."""
+        if self.binding == (grad_dtype, accum_dtype):
+            return
+        if self.grads.dtype != accum_dtype:
+            self.grads = torch.zeros_like(self.params, dtype=accum_dtype)
+        if grad_dtype == torch.float32:
+            self.net_params = None
+            net = self.params
+        else:
+            if self.net_params is None or self.net_params.dtype != grad_dtype:
+                self.net_params = self.params.to(grad_dtype)
+            net = self.net_params
+        if grad_dtype == accum_dtype:
+            self.micro_grads = None
+            grad = self.grads
+        else:
+            if self.micro_grads is None or self.micro_grads.dtype != grad_dtype:
+                self.micro_grads = torch.zeros_like(self.params, dtype=grad_dtype)
+            grad = self.micro_grads
+        for (_, shape, off), p in zip(self.layout, self.model.parameters()):
+            p.data = net[off:off + shape.numel()].view(shape)
+            p.grad = grad[off:off + shape.numel()].view(shape)
+        self.binding = (grad_dtype, accum_dtype)
+
     def checkpoint(self) -> dict[str, Any]:
         """``{model, ema, opt, step}`` on the CPU, in the reference ``.pt``
-        layout (train.py:259-268); ``opt`` is optax's (count, mu, nu)."""
+        layout (train.py:259-268); ``opt`` is optax's (count, mu, nu), each
+        moment in its storage dtype."""
         cpu = lambda flat: {k: v.detach().cpu().clone() for k, v in self.named(flat).items()}
         return {
             "model": cpu(self.params),
@@ -133,7 +195,8 @@ class TrainState:
 
     def load_opt_state(self, opt: dict[str, Any]) -> None:
         """Adam's count, mu and nu from ``{count, mu, nu}`` dicts keyed like
-        the parameters (``utils.port.optimizer_state_from_flax``)."""
+        the parameters (``utils.port.optimizer_state_from_flax``), cast to
+        the moments' storage dtypes (exact for values saved in them)."""
         with torch.no_grad():
             _copy_named(self.named(self.opt_state.mu), opt["mu"], "opt.mu")
             _copy_named(self.named(self.opt_state.nu), opt["nu"], "opt.nu")
@@ -183,9 +246,10 @@ def create_train_state(model: EDMPrecond, optimizer: FusedAdamEma) -> TrainState
 
 class StepDraws(NamedTuple):
     """Random values of one step over the whole batch, injected in place of
-    the step's own draws (for parity tests): unit normals for the moments,
-    uniforms for the label dropout, sigma (N,), unit normals for the noise,
-    and the mask."""
+    the step's own draws (for parity tests, and for a process of a
+    data-parallel run, which keeps its rows of the global batch's draws):
+    unit normals for the moments, uniforms for the label dropout, sigma
+    (N,), unit normals for the noise, and the mask."""
 
     z_noise: Optional[torch.Tensor] = None
     drop_u: Optional[torch.Tensor] = None
@@ -202,6 +266,33 @@ def _rows(x, sl: slice):
     return x[sl]
 
 
+def draw_step(
+    generator: Optional[torch.Generator], n: int, shape: tuple[int, ...],
+    device: torch.device, *, grad_accum: int, reparam: bool, dropout: bool,
+    mask_ratio: float, patch_size: int, loss_fn: EDMLoss,
+) -> StepDraws:
+    """Every draw of a step on a batch of ``n`` rows of latents of
+    ``shape`` (C, H, W), in the order and shapes the step takes them from
+    ``generator`` itself: the moment noise and the dropout uniforms over
+    the batch, then sigma, the noise and the mask of each micro-batch.
+    So the draws of a one-process step on the global batch."""
+    c, h, w = shape
+    z_noise = (torch.randn((n, c, h, w), generator=generator, device=device)
+               if reparam else None)
+    drop_u = torch.rand((n, 1), generator=generator, device=device) if dropout else None
+    micro = n // grad_accum
+    sigmas, noises, masks = [], [], []
+    for _ in range(grad_accum):
+        rnd_normal = torch.randn((micro, 1, 1, 1), generator=generator, device=device)
+        sigmas.append(torch.exp(rnd_normal * loss_fn.P_std + loss_fn.P_mean).reshape(-1))
+        noises.append(torch.randn((micro, c, h, w), generator=generator, device=device))
+        if float(mask_ratio) > 0:
+            masks.append(random_mask(micro, (h // patch_size) * (w // patch_size), mask_ratio,
+                                     generator, device=device))
+    mask_info = MaskInfo(*(torch.cat(t) for t in zip(*masks))) if masks else None
+    return StepDraws(z_noise, drop_u, torch.cat(sigmas), torch.cat(noises), mask_info)
+
+
 def make_train_step(
     optimizer: FusedAdamEma,
     loss_fn: Optional[EDMLoss] = None,
@@ -214,6 +305,9 @@ def make_train_step(
     reparam_moments: bool = True,
     log_grad_norm: bool = True,
     ema_every: int = 1,
+    amp_grads: bool = False,
+    accum_dtype: Optional[str] = None,
+    sync: Optional[Any] = None,
 ):
     """Build ``train_step(state, batch, generator=None, draws=None) ->
     metrics``, which updates ``state`` in place.
@@ -221,53 +315,91 @@ def make_train_step(
     batch: {'x': (N, C or 2C, H, W) latents or moments, 'y': (N, K)
     one-hot}, on the model's device. The metrics are 0-d tensors (read
     them at log time, so the step does not wait for the device).
+
+    Without ``draws`` the step takes its own from ``generator`` through
+    ``draw_step``, over the whole batch. ``sync`` (a
+    ``parallel.data_parallel.DataParallel``) makes the step one process's
+    share of a data-parallel step: ``batch`` holds this process's rows of
+    the global batch (rank r's rows follow rank r-1's), its draws are
+    ``draw_step``'s over the whole global batch restricted to its rows, and
+    the gradient and the metrics are averaged over the processes before the
+    update.
     """
-    if ema_every != 1:
-        raise NotImplementedError("ema_every > 1 is not ported (the EMA runs every step)")
     loss_fn = loss_fn or EDMLoss()
+    grad_dtype = torch.bfloat16 if amp_grads else torch.float32
+    # the accumulator's dtype: the gradient's with one micro-batch (no
+    # accumulation), else accum_dtype or the parameters' (fp32)
+    acc_dtype = grad_dtype if grad_accum == 1 else (dtype_of(accum_dtype) or torch.float32)
+    # the EMA's decay on its steps, formed in double and rounded to fp32 by
+    # adam_scalars (state.py:196)
+    decay_k = ema_decay ** ema_every
 
     def train_step(state: TrainState, batch: dict, generator=None,
                    draws: Optional[StepDraws] = None) -> dict[str, torch.Tensor]:
         model = state.model
-        draws = draws or StepDraws()
+        state.bind(grad_dtype, acc_dtype)
         x = batch["x"].float()
-        if reparam_moments and x.shape[1] == 2 * model.img_channels:
-            x = reparameterize_moments(x, scale_factor, generator, noise=draws.z_noise)
         y = batch.get("y")
-        if y is not None and class_dropout_prob > 0:
-            u = draws.drop_u
-            if u is None:
-                u = torch.rand((y.shape[0], 1), generator=generator, device=y.device)
-            y = y * (u >= class_dropout_prob).to(y.dtype)
+        reparam = reparam_moments and x.shape[1] == 2 * model.img_channels
+        dropout = y is not None and class_dropout_prob > 0
+        if draws is None:
+            n = x.shape[0]
+            rank, world = (0, 1) if sync is None else (sync.rank, sync.world)
+            draws = draw_step(
+                generator, n * world, (model.img_channels, *x.shape[2:]), x.device,
+                grad_accum=grad_accum, reparam=reparam, dropout=dropout,
+                mask_ratio=mask_ratio, patch_size=model.model.patch_size, loss_fn=loss_fn,
+            )
+            if sync is not None:  # this process's rows of the global batch's draws
+                draws = StepDraws(*(_rows(d, slice(rank * n, (rank + 1) * n)) for d in draws))
+        if reparam:
+            x = reparameterize_moments(x, draws.z_noise, scale_factor)
+        if dropout:
+            y = y * (draws.drop_u >= class_dropout_prob).to(y.dtype)
 
+        if state.net_params is not None:
+            with torch.no_grad():
+                state.net_params.copy_(state.params)  # the bf16 copy, rounded once
         state.grads.zero_()
         micro = x.shape[0] // grad_accum
         loss_sum, aux_sum = 0.0, {}
         for i in range(grad_accum):
             rows = slice(i * micro, (i + 1) * micro)
+            if state.micro_grads is not None:
+                state.micro_grads.zero_()
             loss_vec, aux = loss_fn(
                 model, x[rows], labels=_rows(y, rows), mask_ratio=mask_ratio,
                 mae_loss_coef=mae_loss_coef, patch_size=model.model.patch_size,
-                generator=generator, sigma=_rows(draws.sigma, rows),
+                sigma=_rows(draws.sigma, rows),
                 noise=_rows(draws.noise, rows), mask_info=_rows(draws.mask_info, rows),
             )
             loss = loss_vec.mean()
-            loss.backward()  # adds into state.grads, the parameters' .grad
+            loss.backward()  # adds into the parameters' .grad
+            if state.micro_grads is not None:
+                with torch.no_grad():  # s + g_i.astype(s.dtype)
+                    state.grads.add_(state.micro_grads.to(acc_dtype))
             loss_sum = loss_sum + loss.detach()
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
         if grad_accum > 1:
             state.grads.div_(grad_accum)
+        if sync is not None:
+            sync.mean_gradient_(state.grads)
+        grads = state.grads
 
+        with_ema = (state.step + 1) % ema_every == 0
         with torch.no_grad():
             optimizer.update_with_ema(
-                state.grads, state.opt_state, state.params, state.ema, ema_decay=ema_decay
+                grads, state.opt_state, state.params, state.ema,
+                ema_decay=decay_k if with_ema else 1.0, with_ema=with_ema,
             )
         state.step += 1
         metrics = {"loss": loss_sum / grad_accum}
         metrics.update({k: v / grad_accum for k, v in aux_sum.items()})
+        if sync is not None:
+            metrics = sync.mean_metrics(metrics)
         if log_grad_norm:
-            metrics["grad_norm"] = torch.linalg.vector_norm(state.grads)
+            metrics["grad_norm"] = torch.linalg.vector_norm(grads)
         return metrics
 
     return train_step

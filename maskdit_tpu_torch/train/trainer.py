@@ -1,7 +1,12 @@
-"""Config-driven training loop on one device.
+"""Config-driven training loop, on one device or data-parallel.
 
 Counterpart of maskdit_tpu/train/trainer.py (the reference train.py:35-291)
-without the mesh, sharding, orbax and pad-to-max masking. Kept: the data
+without the FSDP and tensor axes of its mesh, orbax and pad-to-max
+masking. Under a process group of several processes
+(``parallel/dist.py``) it trains data-parallel
+(``parallel/data_parallel.py``): the global batch is ``batchsize x
+grad_accum x processes``, each process reads its rank-strided rows,
+rank 0 logs and writes the checkpoints, and every process resumes. Kept: the data
 categories (synthetic, the latent LMDB, WebDataset shards indexed or
 streamed), the experiment naming, mask-ratio bucketing with one train step per
 bucket, the learning-rate schedule mirror for logging, resume from the
@@ -9,8 +14,11 @@ newest checkpoint (each step's draws are seeded from the seed and the step,
 so a resumed run draws what a straight run would), the save on
 SIGTERM/SIGINT, the log line (loss, steps/s, images/s, MFU, peak device
 memory) and the eval hook (``eval_hook(step, ema)`` after each checkpoint,
-its metrics logged as ``eval/<name>``). Model keys the port does not build
-yet raise (see ``check_model_keys``).
+its metrics logged as ``eval/<name>``) and the train-step options
+``amp_grads``, ``accum_dtype``, ``moment_dtype``, ``nu_dtype`` and
+``ema_every`` (``train/state.py``). Model keys the port does not build
+yet raise (see ``check_model_keys``), and so do the train keys of
+``NOT_PORTED``.
 
 On a CUDA device every attention call and every optimizer update launches
 the port's kernels; there is no switch. ``model.use_flash`` picks the
@@ -31,16 +39,25 @@ from maskdit_tpu_torch.data.datasets import Dataset, ImageNetLatentDataset, Synt
 from maskdit_tpu_torch.data.loader import DataLoader, prefetch, to_device
 from maskdit_tpu_torch.data.wds import StreamingWDSLoader, WebDatasetLatents
 from maskdit_tpu_torch.models.precond import check_model_keys, create_model
+from maskdit_tpu_torch.parallel.data_parallel import data_parallel
+from maskdit_tpu_torch.parallel.dist import (
+    barrier, is_main_process, local_device, mprint, process_count, process_index,
+)
 from maskdit_tpu_torch.train.schedules import bucket_ratio, get_mask_ratio_fn
 from maskdit_tpu_torch.train.state import create_train_state, make_optimizer, make_train_step
 from maskdit_tpu_torch.utils.ckpt import CheckpointManager, load_reference_checkpoint
 from maskdit_tpu_torch.utils.logging import MetricLogger, Throughput
 from maskdit_tpu_torch.utils.profiling import maskdit_train_flops_per_image, mfu, peak_bf16_tflops
 
-# train.* keys of the JAX trainer that the port does not implement yet
+# train.* keys of the JAX trainer that the port does not implement: each
+# key's default, and why
 NOT_PORTED = {
-    "amp_grads": False, "accum_dtype": None, "nu_dtype": None, "pad_to_max": False,
-    "ema_every": 1, "accum_unroll": 1, "peel_last_micro": False,
+    "pad_to_max": (False, "it needs attention masking of the padded tail (kv_valid), "
+                          "which the port's kernels do not take yet"),
+    "accum_unroll": (1, "an XLA scheduling knob of the accumulation scan; the port's "
+                        "micro-batches run one after another"),
+    "peel_last_micro": (False, "an XLA scheduling knob of the accumulation scan; the "
+                               "port's micro-batches run one after another"),
 }
 
 
@@ -127,11 +144,14 @@ class Trainer:
         self.eval_hook = eval_hook
         self.config = config
         self.seed = seed
-        self.device = torch.device(device)
+        # cuda without an index is cuda:LOCAL_RANK; ranks that share a
+        # card name it (cuda:0)
+        self.device = local_device(device)
+        self.rank, self.world = process_index(), process_count()
         m, t = config["model"], config["train"]
-        for key, default in NOT_PORTED.items():
+        for key, (default, why) in NOT_PORTED.items():
             if t.get(key, default) != default:
-                raise NotImplementedError(f"train.{key}={t[key]!r} is not ported yet")
+                raise NotImplementedError(f"train.{key}={t[key]!r} is not ported: {why}")
         if m.get("precond", "edm") != "edm":
             raise NotImplementedError(f"model.precond '{m['precond']}' is not ported (edm only)")
         check_model_keys(m)
@@ -141,7 +161,8 @@ class Trainer:
             raise ValueError("data.streaming requires data.category: wds")
 
         self.grad_accum = t.get("grad_accum", 1)
-        self.global_batch = t["batchsize"] * self.grad_accum
+        self.local_batch = t["batchsize"] * self.grad_accum
+        self.global_batch = self.local_batch * self.world
         self.max_steps = max_steps_override or t["max_num_steps"]
         self.mask_ratio_fn = get_mask_ratio_fn(
             m.get("mask_ratio_fn", "constant"), m["mask_ratio"], m.get("mask_ratio_min", 0.0)
@@ -149,7 +170,8 @@ class Trainer:
         self.seq_len = (m["in_size"] // int(m["model_type"].rsplit("/", 1)[1])) ** 2
         self.exp_name = experiment_name(config, self.global_batch)
         self.exp_dir = os.path.join(results_dir, self.exp_name)
-        os.makedirs(self.exp_dir, exist_ok=True)
+        if is_main_process():
+            os.makedirs(self.exp_dir, exist_ok=True)
 
         torch.manual_seed(seed)  # the parameters' initialisation
         self.model = create_model(
@@ -171,8 +193,10 @@ class Trainer:
             rampup_kimg=t.get("lr_rampup_kimg", 0) or 0,
             fused=bool(t.get("fused_adam", True)),
             moment_dtype=t.get("moment_dtype"),
+            nu_dtype=t.get("nu_dtype"),
         )
         self.state = create_train_state(self.model, self.optimizer)
+        self.sync = data_parallel()
 
         self.ckpt_mgr = CheckpointManager(os.path.join(self.exp_dir, "checkpoints"))
         self.start_step = 0
@@ -182,18 +206,21 @@ class Trainer:
                 "model": load_reference_checkpoint(ckpt_path, use_ema=False),
                 "ema": load_reference_checkpoint(ckpt_path, use_ema=True),
             })
-            print(f"imported reference checkpoint {ckpt_path}")
+            mprint(f"imported reference checkpoint {ckpt_path}")
         elif self.ckpt_mgr.latest_step() is not None:
-            self.state.load(self.ckpt_mgr.restore())
+            self.state.load(self.ckpt_mgr.restore())  # every process resumes
             self.start_step = self.state.step
-            print(f"resumed from step {self.start_step}")
+            mprint(f"resumed from step {self.start_step}")
+        if self.sync is not None:
+            # one replica: rank 0's parameters and EMA everywhere
+            self.sync.broadcast_(self.state.params, self.state.ema)
 
         if data.get("streaming", False):
             # whole shards read linearly (the IO pattern network storage
-            # needs; reference train_wds.py:35-42), rank 0 of world 1
+            # needs; reference train_wds.py:35-42), whole shards per process
             self.dataset = None
             self.loader = StreamingWDSLoader(
-                data["root"], self.global_batch, label_dim=m["num_classes"], seed=seed,
+                data["root"], self.local_batch, label_dim=m["num_classes"], seed=seed,
                 shuffle_buffer=data.get("shuffle_buffer", 1000),
                 resample=data.get("resampled", False),
             )
@@ -201,14 +228,17 @@ class Trainer:
         else:
             self.dataset = build_dataset(config)
             self.loader = DataLoader(
-                self.dataset, self.global_batch, shuffle=True, seed=seed,
+                self.dataset, self.local_batch, shuffle=True, seed=seed,
                 num_workers=num_workers, resample=data.get("resampled", False),
+                process_index=self.rank, process_count=self.world,
             )
             source = f"{len(self.dataset):,} samples"
             if isinstance(self.dataset, ImageNetLatentDataset):
                 source += f", {self.dataset.reader_kind} LMDB reader"
+        if self.world > 1:
+            source += f", {self.world} processes of {self.local_batch}"
         self.data_source = source
-        self.metrics = MetricLogger(self.exp_dir, config=config)
+        self.metrics = MetricLogger(self.exp_dir, config=config) if is_main_process() else None
         self.peak_tflops = (
             peak_bf16_tflops(torch.cuda.get_device_name(self.device))
             if self.device.type == "cuda" else None
@@ -231,6 +261,10 @@ class Trainer:
                 class_dropout_prob=m.get("class_dropout_prob", 0.1),
                 ema_decay=t.get("ema_decay", 0.9999),
                 grad_accum=self.grad_accum,
+                ema_every=t.get("ema_every", 1),
+                amp_grads=t.get("amp_grads", False),
+                accum_dtype=t.get("accum_dtype"),
+                sync=self.sync,
             )
         return self._step_cache[ratio]
 
@@ -247,7 +281,7 @@ class Trainer:
             util = mfu(rates["images_per_sec"], flops, self.peak_tflops)
         peak_gib = (torch.cuda.max_memory_allocated(self.device) / 1024 ** 3
                     if self.device.type == "cuda" else None)
-        print(
+        mprint(
             f"(step={step:07d}) loss={avg['loss']:.4f} "
             f"steps/sec={rates['steps_per_sec']:.3f} "
             f"imgs/sec={rates['images_per_sec']:.1f} "
@@ -258,11 +292,18 @@ class Trainer:
         record = {"step": step, "losses": losses, **avg, **rates, "mfu": util,
                   "mem_peak_gib": peak_gib, "lr": self.lr_at(step), "mask_ratio": ratio}
         self.history.append(record)
-        self.metrics.log(
-            {f"train/{k}": v for k, v in record.items()
-             if k not in ("step", "losses") and v is not None},
-            step,
-        )
+        if self.metrics is not None:
+            self.metrics.log(
+                {f"train/{k}": v for k, v in record.items()
+                 if k not in ("step", "losses") and v is not None},
+                step,
+            )
+
+    def _save(self, step: int) -> None:
+        """Rank 0 writes the checkpoint; every process waits for it."""
+        if is_main_process():
+            self.ckpt_mgr.save(step, self.state.checkpoint())
+        barrier()
 
     def train(self, log_every: Optional[int] = None, ckpt_every: Optional[int] = None) -> int:
         log_cfg = self.config["log"]
@@ -287,12 +328,14 @@ class Trainer:
         running: list[dict] = []
         step = self.start_step
         ratio = float(self.mask_ratio_fn(0.0))
-        print(f"training {self.exp_name}: global batch {self.global_batch}, "
-              f"{self.data_source}, max {self.max_steps} steps, "
-              f"device {self.device}", flush=True)
+        mprint(f"training {self.exp_name}: global batch {self.global_batch}, "
+               f"{self.data_source}, max {self.max_steps} steps, "
+               f"device {self.device}", flush=True)
         try:
             for host_batch in prefetch(iter(self.loader)):
-                if step >= self.start_step + self.max_steps or stop["flag"]:
+                # every process stops after the same step
+                stopping = stop["flag"] if self.sync is None else self.sync.any(stop["flag"])
+                if step >= self.start_step + self.max_steps or stopping:
                     break
                 progress = (step - self.start_step) / max(self.max_steps, 1)
                 ratio = float(self.mask_ratio_fn(progress))
@@ -306,22 +349,27 @@ class Trainer:
                     running = []
                     throughput.reset()
                 if step % ckpt_every == 0:
-                    self.ckpt_mgr.save(step, self.state.checkpoint())
-                    print(f"checkpoint saved at step {step}", flush=True)
+                    self._save(step)
+                    mprint(f"checkpoint saved at step {step}", flush=True)
                     if self.eval_hook is not None:
+                        # every process samples its share of the seeds
                         eval_metrics = self.eval_hook(step, self.state.named(self.state.ema))
-                        print(f"(step={step:07d}) eval: {eval_metrics}", flush=True)
-                        if eval_metrics:
+                        mprint(f"(step={step:07d}) eval: {eval_metrics}", flush=True)
+                        if eval_metrics and self.metrics is not None:
                             self.metrics.log({f"eval/{k}": v for k, v in eval_metrics.items()},
                                              step)
                         throughput.reset()
             if running:
                 self._log(step, running, ratio, throughput)
-            if step not in self.ckpt_mgr.all_steps():
-                self.ckpt_mgr.save(step, self.state.checkpoint())
+            unsaved = step not in self.ckpt_mgr.all_steps()
+            if self.sync is not None:
+                unsaved = self.sync.any(unsaved)  # rank 0's view, before it writes
+            if unsaved:
+                self._save(step)
         finally:
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
-            self.metrics.close()
-        print(f"training done at step {step}", flush=True)
+            if self.metrics is not None:
+                self.metrics.close()
+        mprint(f"training done at step {step}", flush=True)
         return step

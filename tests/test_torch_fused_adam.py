@@ -107,8 +107,16 @@ def test_optimizer_with_rampup_matches_jax_class():
 
 
 def test_narrow_nu_and_weight_decay_are_not_ported():
-    with pytest.raises(NotImplementedError, match="stochastic rounding"):
-        make_optimizer(1e-4, 8, nu_dtype="bfloat16")
+    """A bf16 nu is ported (with stochastic rounding); the JAX guards stay:
+    nu_dtype with weight decay raises (state.py:93-97), and only bf16 is a
+    narrow nu (fused_adam.py:335-339). Weight decay is not ported."""
+    assert make_optimizer(1e-4, 8, nu_dtype="bfloat16").nu_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="nu_dtype with weight_decay"):
+        make_optimizer(1e-4, 8, nu_dtype="bfloat16", weight_decay=0.01)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        make_optimizer(1e-4, 8, nu_dtype="float16")
+    with pytest.raises(ValueError, match="only bfloat16"):
+        fused_adam.FusedAdamEma(1e-4, nu_dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="wd=0"):
         make_optimizer(1e-4, 8, weight_decay=0.01)
     with pytest.raises(NotImplementedError):

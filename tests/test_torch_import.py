@@ -32,6 +32,9 @@ MODULES = [
     "maskdit_tpu_torch.ops.flash_batched",
     "maskdit_tpu_torch.ops.flash_big",
     "maskdit_tpu_torch.ops.fused_adam",
+    "maskdit_tpu_torch.parallel",
+    "maskdit_tpu_torch.parallel.data_parallel",
+    "maskdit_tpu_torch.parallel.dist",
     "maskdit_tpu_torch.models.masking",
     "maskdit_tpu_torch.sampling.generate",
     "maskdit_tpu_torch.data",
@@ -160,4 +163,11 @@ def test_chip_smoke_imports_no_jax():
 def test_torch_overfit_gate_imports_no_jax():
     """tools/torch_overfit_gate.py runs on the card's machine, which has no jax."""
     proc = _run(_script_imports("tools/torch_overfit_gate.py", "maskdit_tpu_torch.train.trainer"))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_multiprocess_test_worker_imports_no_jax():
+    """tests/test_torch_dist_worker.py runs each process of the multi-process
+    tests; it imports the port alone."""
+    proc = _run(_script_imports("tests/test_torch_dist_worker.py", "maskdit_tpu_torch.models"))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -128,11 +128,18 @@ def test_json_config_and_overrides(tmp_path):
         cli.validate(cfg)
 
 
-def test_unported_options_raise(tiny_port, tmp_path):
-    for override in ("train.amp_grads=true", "train.ema_every=2", "train.pad_to_max=true"):
-        cfg = cli.apply_overrides(cli.load_config(SMOKE), [override])
-        with pytest.raises(NotImplementedError):
-            Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
+@pytest.mark.parametrize("override,why", [
+    ("train.pad_to_max=true", "kv_valid"),
+    ("train.accum_unroll=2", "scheduling knob"),
+    ("train.peel_last_micro=true", "scheduling knob"),
+], ids=["pad_to_max", "accum_unroll", "peel_last_micro"])
+def test_unported_options_raise(tiny_port, tmp_path, override, why):
+    """The train keys the port does not implement raise with their reason
+    (the ported ones build a Trainer:
+    tests/test_torch_train_options.py::test_ported_train_options_build_a_trainer)."""
+    cfg = cli.apply_overrides(cli.load_config(SMOKE), [override])
+    with pytest.raises(NotImplementedError, match=why):
+        Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
 
 
 @pytest.mark.parametrize("override,error,default", [
