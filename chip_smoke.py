@@ -97,7 +97,8 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      options at a global batch of 2 x 64, 8 steps, 72 + 72 attention
      launches and one update per step, beside [train]'s times;
  13. data parallelism on the one card, each phase a ``torch.distributed.run``
-     of this script's workers (``--worker TAG``): [parity-ddp] two gloo
+     of this script's workers (``--worker TAG``), on DiT-XL/2 at full width
+     with 4 of its 28 encoder blocks (DDP_DEPTH): [parity-ddp] two gloo
      ranks, one fp32 step on an injected global batch of 32: the replicas
      equal bit for bit and within [parity-train]'s fp32 bounds of one
      process's step; [train-ddp] the train CLI in two gloo ranks sharing
@@ -105,7 +106,24 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      per logged step (rank 0's), equal parameter digests; [train-ddp-nccl]
      one NCCL rank against the same 4 steps without a process group: equal
      bit for bit. These CLI runs write no checkpoint (a call may write 45
-     GiB; [train] holds the writes and the resume).
+     GiB; [train] holds the writes and the resume);
+ 14. the finetune phase (configs/finetune/*.yaml, fp32, as the released
+     scripts/finetune_latent512.sh runs it: ``--ckpt_path X.pt
+     --use_strict_load False``): [kernel-fp32] (with 3.) the fp32 attention
+     kernels the route takes at the finetune shapes, (64, 256, 16, 72 / 32)
+     and (16, 1024, 16, 72 / 32), forward and backward against their plain
+     versions and SDPA; [train-finetune256], [train-finetune-cos] and
+     [train-finetune512] the train CLI on the three YAMLs at their batches
+     (64, 64, 16), full width and depth, 6, 6 and 4 steps, each importing
+     [weights]' tensors from a reference .pt without the mask token: finite
+     losses, each step's route launches (the cos4 run's kept tokens change
+     per step: 128, 144, 176, 224, 240, 240, held to the schedule) and one
+     update, TF32 off, the import non-strict with the mask token at its
+     initialisation and every other parameter equal to the file's; MFU
+     beside the share of the fp32 peak; [parity-train-finetune] one fp32
+     step kernels vs plain at mask 0 and at a cos4 bucket, and the
+     pad-to-max step against the packed step at that ratio; a profile of
+     one step of each unmasked finetune. These runs write no checkpoint.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -303,6 +321,10 @@ TRAIN_OPTIONS = (
 # DDP_BATCH
 PARITY_DDP_BATCH, DDP_STEPS, DDP_BATCH = 32, 4, 64
 DDP_OVERRIDES = (f"train.max_num_steps={DDP_STEPS}",)
+# these three phases check the replicas and the all-reduce, not the model's
+# depth: they run DiT-XL/2 at full width with DDP_DEPTH of its 28 encoder
+# blocks (the 8 decoder blocks kept), for the script's time (``xl_depth``)
+DDP_DEPTH = 4
 WORKER_TIMEOUT = 300
 TRAIN_CONFIG_512 = {
     "data": {"dataset": "imagenet512-latent", "category": "webdataset", "resolution": 64,
@@ -314,6 +336,58 @@ TRAIN_CONFIG_512 = {
     "log": {"log_every": LOG_EVERY, "ckpt_every": 50000, "tag": "chip-smoke-512"},
 }
 TRAIN_CUTS_512 = {"train.max_num_steps": (2000000, TRAIN_STEPS_512)}
+# the finetune phase (the reference recipe's second phase,
+# scripts/finetune_latent512.sh): configs/finetune/*.yaml as JSON, fp32,
+# with data.root at [extract]'s latent LMDB (256 px) or shards (512 px) and
+# the cuts FINETUNE_CUTS lists: a few steps, each logged (the cos4 run's
+# max_num_steps is its length, so that its schedule crosses several
+# buckets). Each run imports FINETUNE_CKPT, [weights]' tensors as a
+# reference .pt whose model and ema lack the mask token, as the released
+# command does: --ckpt_path X.pt --use_strict_load False.
+# tests/test_torch_trainer.py holds the rest equal to the YAMLs
+FINETUNE_STEPS, FINETUNE_STEPS_512 = 6, 4
+FINETUNE_BATCH, FINETUNE_BATCH_512 = 64, 16
+FINETUNE_CKPT = os.path.join(SCRATCH, "random-xl2-finetune.pt")
+FINETUNE_CONFIG = {
+    "data": TRAIN_CONFIG["data"],
+    "model": {**TRAIN_CONFIG["model"], "mask_ratio": 0.0},
+    "train": {"fp32": True, "batchsize": FINETUNE_BATCH, "grad_accum": 1, "epochs": 1000,
+              "lr": 0.00005, "lr_rampup_kimg": 0, "xflip": False,
+              "max_num_steps": FINETUNE_STEPS},
+    "log": {"log_every": 1, "ckpt_every": 12500, "tag": "chip-smoke-finetune-const"},
+}
+FINETUNE_COS_CONFIG = {
+    **FINETUNE_CONFIG,
+    "model": {**TRAIN_CONFIG["model"], "mask_ratio_fn": "cos4"},
+    "log": {"log_every": 1, "ckpt_every": 12500, "tag": "chip-smoke-finetune-cos"},
+}
+FINETUNE_CONFIG_512 = {
+    "data": {"dataset": "imagenet512-latent", "category": "webdataset", "resolution": 64,
+             "num_channels": 4, "root": TRAIN_DATA_ROOT_512, "total_num": 1281167},
+    "model": {**FINETUNE_CONFIG["model"], "in_size": 64},
+    "train": {**FINETUNE_CONFIG["train"], "batchsize": FINETUNE_BATCH_512, "epochs": 2000,
+              "max_num_steps": FINETUNE_STEPS_512},
+    "log": {"log_every": 1, "ckpt_every": 10000, "tag": "chip-smoke-finetune-512"},
+}
+# each config's YAML (configs/finetune/imagenet<name>.yaml) and its cuts
+FINETUNE_CONFIGS = {
+    "256-latent-const": (FINETUNE_CONFIG, {"train.max_num_steps": (100000, FINETUNE_STEPS)}),
+    "256-latent-cos": (FINETUNE_COS_CONFIG, {"train.max_num_steps": (100000, FINETUNE_STEPS)}),
+    "512-latent": (FINETUNE_CONFIG_512, {"train.max_num_steps": (50000, FINETUNE_STEPS_512)}),
+}
+# [parity-train-finetune]'s cos4 bucket: the 256-px cos run's step 3 of 6
+# (ratio 0.125 after bucketing, 224 of 256 tokens kept)
+FINETUNE_PARITY_STEP = 3
+# [kernel-fp32]: the finetune paths' attention shapes, (name, N, L, heads,
+# head dim): the unmasked encoder and the decoder at 256 px (batch 64) and
+# at 512 px (batch 16), each timed in fp32 on the kernels the route takes
+# with a backward
+FINETUNE_ATTN_SHAPES = [
+    ("finetune256_encoder", FINETUNE_BATCH, 256, 16, 72),
+    ("finetune256_decoder", FINETUNE_BATCH, 256, 16, 32),
+    ("finetune512_encoder", FINETUNE_BATCH_512, 1024, 16, 72),
+    ("finetune512_decoder", FINETUNE_BATCH_512, 1024, 16, 32),
+]
 # configs/test/maskdit-512.yaml's model section (what the generate CLI
 # reads), as JSON; tests/test_torch_512.py holds it equal to the YAML
 SAMPLE_CONFIG_512 = {"model": {
@@ -342,6 +416,7 @@ INCEPTION_BATCH = 64  # the FID CLIs' default batch
 # attention calls per train step (28 encoder + 8 decoder blocks), each
 # once forward and once backward; one fused update per step
 ATTN_PER_STEP = DEPTH + DECODER_DEPTH
+DDP_ATTN_PER_STEP = DDP_DEPTH + DECODER_DEPTH
 ADAM_PER_STEP = 1
 # train-step parity, kernels vs plain, from one state and draws, at batch
 # 8 (256 px) and 4 (512 px): fp32 with TF32 off: sums in other orders;
@@ -572,14 +647,15 @@ def check_variant(what: str, dtype: torch.dtype, hd: int, variant: str) -> None:
 
 
 def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
-                       variant=None) -> dict:
+                       variant=None, dtypes=(torch.bfloat16, torch.float32)) -> dict:
     """The forward wrapper ``kernel`` against ``plain`` at each shape and
-    type: error, kernel, plain and library times, bound. ``variant(dtype,
-    L, hd)``, where given, names the kernel that ran (mma or fma)."""
+    type of ``dtypes``: error, kernel, plain and library times, bound.
+    ``variant(dtype, L, hd)``, where given, names the kernel that ran (mma
+    or fma)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
     for name, n, l, h, hd in shapes:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda").to(dtype)
             scale = hd ** -0.5
             with torch.no_grad():
@@ -615,7 +691,8 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
     return results
 
 
-def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -> dict:
+def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
+                       dtypes=(torch.bfloat16, torch.float32)) -> dict:
     """The backward wrapper ``kernel`` against ``plain``, as above; the
     library time is SDPA's forward and backward. Each row names the kernels
     that ran: 'mma' (bf16, csrc/attention_bwd_mma.cuh) or 'fma'."""
@@ -624,7 +701,7 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int) -
     g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
     for name, n, l, h, hd in shapes:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda").to(dtype)
             dout = torch.randn(n, l, h * hd, generator=g, device="cuda").to(dtype)
             scale = hd ** -0.5
@@ -744,6 +821,38 @@ def phase_big_kernels() -> dict:
     bwd = attention_bwd_rows("kernel-big", BIG_BWD_SHAPES, flash_big.packed_attention_big_bwd,
                              flash_big.packed_attention_big_bwd_reference, seed=6, iters=5)
     return dict(fwd=fwd, bwd=bwd)
+
+
+def phase_fp32_kernels() -> dict:
+    """[kernel-fp32]: the finetune paths' attention in fp32 (the released
+    finetunes train with ``train.fp32: True``) at FINETUNE_ATTN_SHAPES, on
+    the kernels ``attention_route`` picks there with a backward (whole-row
+    #1/#2 or blocked #3/#4), forward and backward against their plain
+    versions, with SDPA's times and the bound."""
+    from maskdit_tpu_torch.models.layers import attention_route
+    from maskdit_tpu_torch.ops import flash_batched, flash_big
+
+    kernels = {
+        "packed": (flash_batched.packed_attention, flash_batched.packed_attention_reference,
+                   flash_batched.packed_attention_bwd,
+                   flash_batched.packed_attention_bwd_reference),
+        "big": (flash_big.packed_attention_big, flash_big.packed_attention_big_reference,
+                flash_big.packed_attention_big_bwd, flash_big.packed_attention_big_bwd_reference),
+    }
+    out = {}
+    for i, shape in enumerate(FINETUNE_ATTN_SHAPES):
+        name, n, l, h, hd = shape
+        route = attention_route(h, l, hd, True)
+        log(f"[kernel-fp32] {name} (N={n}, L={l}, H={h}, hd={hd}): route '{route}' with a "
+            f"backward")
+        fwd, fwd_plain, bwd, bwd_plain = kernels[route]
+        rows = attention_fwd_rows("kernel-fp32", [shape], fwd, fwd_plain, seed=20 + i, iters=5,
+                                  dtypes=(torch.float32,))
+        rows.update({(k[0], "bwd"): v for k, v in attention_bwd_rows(
+            "kernel-fp32", [shape], bwd, bwd_plain, seed=30 + i, iters=3,
+            dtypes=(torch.float32,)).items()})
+        out[name] = dict(route=route, fwd=rows[(name, "float32")], bwd=rows[(name, "bwd")])
+    return out
 
 
 def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
@@ -1146,8 +1255,13 @@ def phase_weights() -> str:
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     t0 = time.perf_counter()
     torch.save({"ema": state}, path)
-    log(f"[weights] DiT-XL/2, {n_params} params ~ N(0, 0.02^2), seed 0; "
-        f"saved in {time.perf_counter() - t0:.1f} s")
+    # the finetune runs' import: model and ema the same tensors (written
+    # once), without the mask token, as an unmasked run's file lacks it
+    tuned = {k: v for k, v in state.items() if k != "model.mask_token"}
+    torch.save({"model": tuned, "ema": tuned, "args": {}}, FINETUNE_CKPT)
+    log(f"[weights] DiT-XL/2, {n_params} params ~ N(0, 0.02^2), seed 0; saved, and as a "
+        f"finetune import without model.mask_token ({os.path.getsize(FINETUNE_CKPT) / 1e9:.2f} "
+        f"GB), in {time.perf_counter() - t0:.1f} s")
     return path
 
 
@@ -1403,13 +1517,15 @@ def params_digest(params: torch.Tensor) -> str:
 
 
 def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), options=(),
-              extra=None, write_checkpoints: bool = True, digest: bool = False) -> dict:
+              extra=None, write_checkpoints: bool = True, digest: bool = False,
+              ratios=None) -> dict:
     """The train main path through the CLI on ``config`` with the CLI
     ``options`` and config ``overrides``, with the launch counts set to 0
     before it; checks the losses and that each step launched the kernels
     ``per_step`` names that many times, the run ``extra`` more, and no other.
     Without ``write_checkpoints`` the run's checkpoints are not written;
-    with ``digest`` the result holds the final parameters' sha256."""
+    with ``digest`` the result holds the final parameters' sha256. The MFU
+    counts each step's mask ratio (``ratios``, per step; 0.5 by default)."""
     from maskdit_tpu_torch.train import main as train_main
     from maskdit_tpu_torch.train.cli import apply_overrides
     from maskdit_tpu_torch.utils.profiling import (
@@ -1438,29 +1554,38 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), op
     config = apply_overrides(json.loads(json.dumps(config)), overrides)
     t = config["train"]
     batch, max_steps = t["batchsize"] * t.get("grad_accum", 1), t["max_num_steps"]
+    every = config["log"]["log_every"]
+    ratios = ratios or [0.5] * steps
     losses = [x for r in history for x in r["losses"]]
-    log(f"[{tag}] {steps} steps of DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16: "
+    precision = "fp32" if t.get("fp32") else "bf16"
+    masks = sorted(set(ratios))
+    log(f"[{tag}] {steps} steps of DiT-XL/2 @{res * 8}, batch {batch}, mask "
+        f"{masks[0] if len(masks) == 1 else masks}, {precision}: "
         f"losses {[round(x, 4) for x in losses]}")
     if steps != max_steps or len(losses) != max_steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: {steps} steps, losses {losses}")
     extra = extra or {}
     expect_launches(tag, launches, **{name: per_step.get(name, 0) * steps + extra.get(name, 0)
                                       for name in {*per_step, *extra}})
-    warm = history[1:]  # the first window holds steps 1-2 (warm-up)
-    seconds = sum(LOG_EVERY / r["steps_per_sec"] for r in warm)
-    warm_steps = LOG_EVERY * len(warm)
+    warm = history[1:]  # the first window (steps 1 to log_every) is the warm-up
+    seconds = sum(every / r["steps_per_sec"] for r in warm)
+    warm_steps = every * len(warm)
     ips = warm_steps * batch / seconds
     name = torch.cuda.get_device_name(0)
-    flops = maskdit_train_flops_per_image("DiT-XL/2", res, 0.5, True)
+    flops = float(np.mean([maskdit_train_flops_per_image("DiT-XL/2", res, r, True)
+                           for r in ratios[every:]]))
     util = mfu(ips, flops, peak_bf16_tflops(name))
+    util_fp32 = ips * flops / PEAK_FLOPS[torch.float32]
     peak = max(r["mem_peak_gib"] for r in history)
-    log(f"[{tag}] warm steps {LOG_EVERY + 1}-{steps}: {ips:.2f} images/s, "
+    fp32_share = f"; {util_fp32:.4f} of the fp32 peak, 67 TFLOP/s" if t.get("fp32") else ""
+    log(f"[{tag}] warm steps {every + 1}-{steps}: {ips:.2f} images/s, "
         f"{seconds / warm_steps * 1e3:.1f} ms/step, MFU {util:.4f} of "
-        f"{peak_bf16_tflops(name):.0f} TFLOP/s bf16 ({flops / 1e9:.1f} GFLOP/image), peak memory "
-        f"{peak:.2f} GiB; per window images/s {[round(r['images_per_sec'], 2) for r in history]}")
+        f"{peak_bf16_tflops(name):.0f} TFLOP/s bf16 ({flops / 1e9:.1f} GFLOP/image{fp32_share}), "
+        f"peak memory {peak:.2f} GiB; per window images/s "
+        f"{[round(r['images_per_sec'], 2) for r in history]}")
     return dict(launches=launches, images_per_s=ips, ms_per_step=seconds / warm_steps * 1e3,
-                mfu=util, peak_gib=peak, results=results, exp_dir=out["exp_dir"],
-                losses=losses, digest=digest)
+                mfu=util, mfu_fp32=util_fp32, peak_gib=peak, results=results,
+                exp_dir=out["exp_dir"], losses=losses, digest=digest)
 
 
 def phase_train(vae_path: str, stats: str) -> dict:
@@ -1554,15 +1679,18 @@ def parity_batch(res: int, n: int):
 
 
 def train_step_result(dtype: torch.dtype, res: int, batch: dict, draws, use_flash=None,
-                      plain: bool = False) -> dict:
-    """One train step from train_parity_state's state: the loss, the
-    gradients and the updated p/ema/mu/nu, through the kernels or (``plain``)
-    the plain attention and update."""
+                      plain: bool = False, mask_ratio: float = 0.5,
+                      pad_to_max: bool = False) -> dict:
+    """One train step from train_parity_state's state at ``mask_ratio``
+    (with ``pad_to_max``, the batch's): the loss, the gradients and the
+    updated p/ema/mu/nu, through the kernels or (``plain``) the plain
+    attention and update."""
     from maskdit_tpu_torch.train.state import make_train_step
 
     free_device_memory()
     state, opt = train_parity_state(dtype, 4, res, batch["x"].shape[0], use_flash)
-    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
+    step = make_train_step(opt, mask_ratio=mask_ratio, mae_loss_coef=0.1, ema_decay=0.9999,
+                           pad_to_max=pad_to_max)
     ctx = contextlib.ExitStack()
     if plain:
         ctx.enter_context(plain_attention())
@@ -1712,6 +1840,149 @@ def phase_train_options(train: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_import():
+    """What the trainer's import of a reference .pt did: the entries it
+    reports the file lacks, whether every parameter the file holds now
+    equals it, and whether the missing mask token kept the value it had
+    before the import (the model's initialisation)."""
+    from maskdit_tpu_torch.train.state import TrainState
+
+    real = TrainState.load
+    seen = {}
+
+    def load(self, ckpt, strict=True):
+        flats = {"model": self.params, "ema": self.ema}
+        before = {e: self.named(f)["model.mask_token"].clone() for e, f in flats.items()}
+        missing = real(self, ckpt, strict)
+        named = {e: self.named(f) for e, f in flats.items()}
+        seen.update(
+            strict=strict, missing=missing,
+            equal_to_file=all(torch.equal(named[e][k], v.to(named[e][k].device))
+                              for e in flats for k, v in ckpt[e].items()),
+            token_kept=all(torch.equal(named[e]["model.mask_token"], before[e]) for e in flats),
+        )
+        return missing
+
+    TrainState.load = load
+    try:
+        yield seen
+    finally:
+        TrainState.load = real
+
+
+@contextlib.contextmanager
+def encoder_widths():
+    """The token count the encoder hands the decoder in each forward (the
+    kept tokens, or all of them unmasked), from a hook on every DecoderLayer."""
+    from maskdit_tpu_torch.models.layers import DecoderLayer
+
+    widths = []
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda mod, args: widths.append(args[0].shape[1]) if isinstance(mod, DecoderLayer)
+        else None)
+    try:
+        yield widths
+    finally:
+        handle.remove()
+
+
+def finetune_plan(config: dict) -> tuple[list, list, dict]:
+    """Each step's bucketed mask ratio and kept token count, recomputed from
+    the port's schedules as the trainer steps through them, and the
+    launches the steps' attention routes (encoder at the kept tokens, hd 72;
+    decoder at all of them, hd 32; with a backward) and updates give."""
+    from maskdit_tpu_torch.models.layers import attention_route
+    from maskdit_tpu_torch.models.masking import len_keep_for
+    from maskdit_tpu_torch.train.schedules import bucket_ratio, get_mask_ratio_fn
+
+    m, steps = config["model"], config["train"]["max_num_steps"]
+    full = (m["in_size"] // 2) ** 2
+    fn = get_mask_ratio_fn(m["mask_ratio_fn"], m["mask_ratio"], m["mask_ratio_min"])
+    ratios = [bucket_ratio(fn(s / steps), full) for s in range(steps)]
+    kept = [len_keep_for(full, r) for r in ratios]
+    launches = {"adam": ADAM_PER_STEP * steps}
+    for l in kept:
+        for length, hd, blocks in ((l, 72, DEPTH), (full, 32, DECODER_DEPTH)):
+            route = attention_route(16, length, hd, True)
+            if route not in ("packed", "big"):
+                raise AssertionError(f"finetune: L {length} hd {hd} routes to {route}")
+            for way in ("fwd", "bwd"):
+                launches[f"{route}_{way}"] = launches.get(f"{route}_{way}", 0) + blocks
+    return ratios, kept, launches
+
+
+def phase_finetune(tag: str, name: str) -> dict:
+    """The finetune main path: configs/finetune/imagenet<name>.yaml through
+    the train CLI as released (``--ckpt_path FINETUNE_CKPT --use_strict_load
+    False``), fp32 at full width and depth. Checks finite losses, the
+    launches of each step's route and one update per step and no other
+    kernel, each step's kept token count against the schedule, TF32 off
+    after the run, and the import: non-strict, the mask token alone missing
+    and kept at its initialisation, every other parameter (model and EMA)
+    equal to the file's."""
+    config, _ = FINETUNE_CONFIGS[name]
+    res = config["model"]["in_size"]
+    ratios, kept, launches = finetune_plan(config)
+    with recorded_import() as imported, encoder_widths() as widths:
+        out = run_train(tag, config, res, {}, options=(
+            "--ckpt_path", FINETUNE_CKPT, "--use_strict_load", "False"), extra=launches,
+            write_checkpoints=False, ratios=ratios)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+    log(f"[{tag}] kept tokens per step {widths} (schedule: {kept}); TF32 (matmul, cuDNN, "
+        f"precision) {tf32}; import: strict {imported.get('strict')}, missing "
+        f"{imported.get('missing')}, mask token kept at its initialisation "
+        f"{imported.get('token_kept')}, every other parameter equal to the file's "
+        f"{imported.get('equal_to_file')}")
+    if widths != kept:
+        raise AssertionError(f"{tag}: kept tokens {widths} != the schedule's {kept}")
+    if tf32 != (False, False, "highest"):
+        raise AssertionError(f"{tag}: TF32 {tf32}")
+    if not (imported.get("strict") is False and imported["token_kept"]
+            and imported["equal_to_file"]
+            and imported["missing"] == ["model.model.mask_token", "ema.model.mask_token"]):
+        raise AssertionError(f"{tag}: import {imported}")
+    return dict(out, kept=kept, ratios=ratios)
+
+
+def phase_parity_train_finetune() -> dict:
+    """[parity-train-finetune]: one fp32 step at PARITY_BATCH from one state
+    with the same injected draws, within [parity-train]'s fp32 bounds: the
+    kernels against the plain attention and update at mask 0 (L 256) and at
+    a cos4 bucket, and the pad-to-max step (plain attention with the key
+    mask in the encoder, L 256) against the packed step at that ratio."""
+    from maskdit_tpu_torch.models.masking import MaskInfo, random_mask
+
+    tag, fp32, n = "parity-train-finetune", torch.float32, PARITY_BATCH
+    batch, draws = parity_batch(32, n)
+    ratios, kept, _ = finetune_plan(FINETUNE_COS_CONFIG)
+    ratio, len_keep = ratios[FINETUNE_PARITY_STEP], kept[FINETUNE_PARITY_STEP]
+    packed = random_mask(n, 256, ratio, torch.Generator(device="cuda").manual_seed(4),
+                         device="cuda")
+    padded = MaskInfo(packed.mask, torch.argsort(packed.ids_restore, dim=1), packed.ids_restore,
+                      torch.tensor(len_keep, device="cuda"))
+    out = {}
+    unmasked = draws._replace(mask_info=None)
+    got = train_step_result(fp32, 32, batch, unmasked, mask_ratio=0.0)
+    ref = train_step_result(fp32, 32, batch, unmasked, mask_ratio=0.0, plain=True)
+    out["mask0"] = compare_steps(tag, "mask 0 (L 256), kernels vs plain", fp32, 32, n, got, ref)
+    del got, ref
+    bucket = draws._replace(mask_info=packed)
+    got = train_step_result(fp32, 32, batch, bucket, mask_ratio=ratio)
+    ref = train_step_result(fp32, 32, batch, bucket, mask_ratio=ratio, plain=True)
+    out["cos4"] = compare_steps(tag, f"cos4 bucket {ratio} (L {len_keep}), kernels vs plain",
+                                fp32, 32, n, got, ref)
+    del ref
+    pad = train_step_result(fp32, 32, {**batch, "mask_ratio": ratio},
+                            draws._replace(mask_info=padded), pad_to_max=True)
+    out["pad_to_max"] = compare_steps(tag, f"pad-to-max (L 256, {len_keep} valid) vs packed at "
+                                      f"ratio {ratio}", fp32, 32, n, pad, got)
+    del got, pad
+    free_device_memory()
+    return out
+
+
 def launch_workers(tag: str, nproc: int, *args: str) -> dict:
     """Run this script's worker ``tag`` in ``nproc`` processes under
     torch.distributed.run (a rendezvous on localhost); its output is logged;
@@ -1772,8 +2043,8 @@ def phase_train_ddp() -> dict:
     log(f"[train-ddp] losses {[round(x, 4) for x in out['losses']]}; log lines per logged "
         f"step (every {LOG_EVERY}), both ranks: {lines}; parameter digests {[d[:16] for d in out['digests']]}; launches (both "
         f"ranks) {out['launches']}; {out['ms_per_step']:.1f} ms/step")
-    per_rank = dict(packed_fwd=ATTN_PER_STEP * DDP_STEPS, packed_bwd=ATTN_PER_STEP * DDP_STEPS,
-                    adam=DDP_STEPS)
+    per_rank = dict(packed_fwd=DDP_ATTN_PER_STEP * DDP_STEPS,
+                    packed_bwd=DDP_ATTN_PER_STEP * DDP_STEPS, adam=DDP_STEPS)
     expect_launches("train-ddp", out["launches"], **{k: 2 * v for k, v in per_rank.items()})
     if (len(set(out["digests"])) != 1 or lines != [1] * (DDP_STEPS // LOG_EVERY)
             or len(out["losses"]) != DDP_STEPS or not np.all(np.isfinite(out["losses"]))):
@@ -1786,11 +2057,13 @@ def phase_train_ddp_nccl() -> dict:
     DDP_STEPS steps of the CLI without a process group, both drawing through
     ``draw_step``: the final parameters equal bit for bit."""
     out = launch_workers("train-ddp-nccl", 1)
-    alone = run_train("train-ddp-alone", TRAIN_CONFIG, 32, dict(
-        packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
-        (f"train.batchsize={DDP_BATCH}", *DDP_OVERRIDES), write_checkpoints=False, digest=True)
-    expect_launches("train-ddp-nccl", out["launches"], packed_fwd=ATTN_PER_STEP * DDP_STEPS,
-                    packed_bwd=ATTN_PER_STEP * DDP_STEPS, adam=DDP_STEPS)
+    with xl_depth(DDP_DEPTH):
+        alone = run_train("train-ddp-alone", TRAIN_CONFIG, 32, dict(
+            packed_fwd=DDP_ATTN_PER_STEP, packed_bwd=DDP_ATTN_PER_STEP, adam=ADAM_PER_STEP),
+            (f"train.batchsize={DDP_BATCH}", *DDP_OVERRIDES), write_checkpoints=False,
+            digest=True)
+    expect_launches("train-ddp-nccl", out["launches"], packed_fwd=DDP_ATTN_PER_STEP * DDP_STEPS,
+                    packed_bwd=DDP_ATTN_PER_STEP * DDP_STEPS, adam=DDP_STEPS)
     same = out["digests"] == [alone["digest"]] and out["losses"] == alone["losses"]
     log(f"[train-ddp-nccl] backend {out['backend']}: parameters {out['digests'][0][:16]} vs "
         f"without a group {alone['digest'][:16]}, losses equal "
@@ -1802,23 +2075,38 @@ def phase_train_ddp_nccl() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def xl_depth(depth: int):
+    """DiT-XL/2 built with ``depth`` encoder blocks (full width) inside."""
+    from maskdit_tpu_torch.models import dit
+
+    config = dit.DIT_CONFIGS["DiT-XL/2"]
+    was, config["depth"] = config["depth"], depth
+    try:
+        yield
+    finally:
+        config["depth"] = was
+
+
 def worker(tag: str, result: str, *args: str) -> None:
-    """One process of a data-parallel phase, under torch.distributed.run."""
+    """One process of a data-parallel phase, under torch.distributed.run, on
+    DiT-XL/2 at DDP_DEPTH encoder blocks."""
     from maskdit_tpu_torch.parallel import dist
     from maskdit_tpu_torch.parallel.data_parallel import DataParallel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if tag == "parity-ddp":
-        dist.init_distributed(backend="gloo", device="cuda:0")
-        out = worker_parity_ddp(DataParallel())
-    elif tag in ("train-ddp", "train-ddp-nccl"):
-        gloo = tag == "train-ddp"
-        device = "cuda:0" if gloo else "cuda"
-        dist.init_distributed(backend="gloo" if gloo else "nccl", device=device)
-        out = worker_train(device, gloo)
-    else:
-        raise SystemExit(f"unknown worker {tag}")
+    with xl_depth(DDP_DEPTH):
+        if tag == "parity-ddp":
+            dist.init_distributed(backend="gloo", device="cuda:0")
+            out = worker_parity_ddp(DataParallel())
+        elif tag in ("train-ddp", "train-ddp-nccl"):
+            gloo = tag == "train-ddp"
+            device = "cuda:0" if gloo else "cuda"
+            dist.init_distributed(backend="gloo" if gloo else "nccl", device=device)
+            out = worker_train(device, gloo)
+        else:
+            raise SystemExit(f"unknown worker {tag}")
     if dist.is_main_process():
         with open(result, "w") as f:
             json.dump(out, f)
@@ -1866,7 +2154,8 @@ def worker_parity_ddp(sync) -> dict:
             state=max(v for k, v in errs.items() if not k.startswith("grad.")),
             worst=max(errs, key=errs.get),
         )
-        log(f"[parity-ddp] 2 ranks x {n // 2} rows vs one process x {n}, DiT-XL/2 @256, fp32: "
+        log(f"[parity-ddp] 2 ranks x {n // 2} rows vs one process x {n}, DiT-XL/2 @256 at "
+            f"{DDP_DEPTH} encoder blocks, fp32: "
             f"loss rel err {out['loss']:.3e}, max per-tensor gradient rel-norm err "
             f"{out['grad']:.3e}, p/ema/mu/nu {out['state']:.3e} (worst {out['worst']})")
     tdist.barrier()
@@ -1916,9 +2205,10 @@ def worker_train(device: str, gloo: bool) -> dict:
 
 
 def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = TRAIN_BATCH,
-                        reps: int = 3, use_flash=None) -> None:
+                        reps: int = 3, use_flash=None, fp32: bool = False,
+                        mask_ratio: float = 0.5) -> None:
     """Device time by kernel over warm train steps at the main path's batch
-    (bf16, mask 0.5), from torch.profiler."""
+    (bf16, or ``fp32``; mask ``mask_ratio``), from torch.profiler."""
     from maskdit_tpu_torch.data.datasets import SyntheticLatentDataset
     from maskdit_tpu_torch.data.loader import DataLoader
     from maskdit_tpu_torch.models import create_model
@@ -1928,10 +2218,11 @@ def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = 
     torch.manual_seed(0)
     model = create_model("edm", img_resolution=res, img_channels=4, num_classes=1000,
                          model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1,
-                         use_flash=use_flash).cuda()
+                         use_flash=use_flash,
+                         dtype=torch.float32 if fp32 else torch.bfloat16).cuda()
     opt = make_optimizer(1e-4, batch)
     state = create_train_state(model, opt)
-    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1)
+    step = make_train_step(opt, mask_ratio=mask_ratio, mae_loss_coef=0.1)
     loader = DataLoader(SyntheticLatentDataset(batch, res, 4, 1000), batch, num_workers=4)
     host = next(iter(loader))
     batch_dev = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
@@ -1939,7 +2230,8 @@ def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = 
     step(state, batch_dev, gen)
     flag = "" if use_flash is None else f", use_flash={use_flash}"
     profile_device(tag, lambda: step(state, batch_dev, gen), reps,
-                   f"one train step (DiT-XL/2 @{res * 8}, batch {batch}, mask 0.5, bf16{flag})")
+                   f"one train step (DiT-XL/2 @{res * 8}, batch {batch}, mask {mask_ratio}, "
+                   f"{'fp32' if fp32 else 'bf16'}{flag})")
     log(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1024 ** 3:.2f} GiB")
     del model, opt, state, step
     free_device_memory()
@@ -2434,6 +2726,7 @@ def main() -> None:
     adam = phase_adam_kernel()
     big = phase_big_kernels()
     flash_k = phase_flash_kernels()
+    fp32_k = phase_fp32_kernels()
     mark("kernel rows")
     try:
         ckpt = phase_weights()
@@ -2476,6 +2769,15 @@ def main() -> None:
                                                 use_flash=True)
         phase_train_profile("train-profile-flash", 64, TRAIN_BATCH_512, 2, use_flash=True)
         mark("train-flash")
+        finetune = {"256": phase_finetune("train-finetune256", "256-latent-const"),
+                    "cos": phase_finetune("train-finetune-cos", "256-latent-cos"),
+                    "512": phase_finetune("train-finetune512", "512-latent")}
+        parity_finetune = phase_parity_train_finetune()
+        phase_train_profile("train-profile-finetune256", 32, FINETUNE_BATCH, 1, fp32=True,
+                            mask_ratio=0.0)
+        phase_train_profile("train-profile-finetune512", 64, FINETUNE_BATCH_512, 1, fp32=True,
+                            mask_ratio=0.0)
+        mark("finetune")
         gate = phase_overfit_gate()
         mark("overfit-gate")
     finally:
@@ -2507,10 +2809,17 @@ def main() -> None:
         f"parity {parity_options}; parity-ddp loss {parity_ddp['loss']:.3e} grad "
         f"{parity_ddp['grad']:.3e} state {parity_ddp['state']:.3e}; train-ddp (2 gloo ranks "
         f"on one card) {train_ddp['ms_per_step']:.1f} ms/step; train-ddp-nccl bit for bit; "
-        f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+        f"finetune (fp32) " + "; ".join(
+            f"{k} {v['ms_per_step']:.1f} ms/step, {v['images_per_s']:.2f} images/s, MFU "
+            f"{v['mfu']:.4f} ({v['mfu_fp32']:.4f} of fp32), peak {v['peak_gib']:.2f} GiB"
+            for k, v in finetune.items()) + f"; parity {parity_finetune}; kernel-fp32 " + ", ".join(
+            f"{k} {v['route']} fwd {v['fwd']['ms']:.3f} / bwd {v['bwd']['ms']:.3f} ms"
+            for k, v in fp32_k.items()) +
+        f"; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
     paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
-             train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"])
+             train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
+             *finetune.values())
     count = lambda key: sum(p["launches"][key] for p in paths)
     print(json.dumps({"kernels": [
         kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",

@@ -5,9 +5,11 @@ Counterpart of maskdit_tpu/models/dit.py (reference models/maskdit.py:
 (with ``use_decoder``) the DecoderLayer, the decoder blocks at the fixed
 8 x 512 x 16 width, and the FinalLayer. In training with a mask ratio the
 encoder runs on the kept tokens only and the decoder on all of them, the
-dropped ones filled with the mask token (models/masking.py). The JAX
-package's pad-to-max masking, ``ScannedBlocks`` and remat policies are not
-ported; the last two exist only to cut XLA compile time.
+dropped ones filled with the mask token (models/masking.py). A pad-to-max
+``MaskInfo`` (``len_keep`` set) runs the encoder at ``len_max`` tokens
+with attention limited to the first ``len_keep`` keys and scatters only
+those back. The JAX package's ``ScannedBlocks`` and remat policies are not
+ported: they exist only to cut XLA compile time.
 
 API as in the JAX package: ``model(x, t, y)`` returns a dict whose 'x' is
 (N, out_channels, H, W).
@@ -139,9 +141,11 @@ class MaskDiT(nn.Module):
             )
         if masked and train:
             x_tok = masking.gather_tokens(x_tok, mask_info.ids_keep)
+        # pad-to-max: the valid prefix of the kept tokens (JAX dit.py:314-322)
+        kv_valid = mask_info.len_keep if masked and train else None
         c = self._condition(t, y)
         for block in self.blocks:
-            x_tok = block(x_tok, c)
+            x_tok = block(x_tok, c, kv_valid)
         out = {"mask": mask_info.mask} if masked else {}
         if self.use_decoder:
             x_tok = self.decoder_layer(x_tok, c)
@@ -152,16 +156,26 @@ class MaskDiT(nn.Module):
                     self.mask_token if self.mae_loss_coef > 0
                     else x_tok.new_zeros((1, 1, x_tok.shape[2]))
                 )
-                x_tok = masking.scatter_tokens(x_tok, mask_info.ids_restore, mask_token)
+                x_tok = self._scatter(x_tok, mask_info, mask_token)
             x_tok = x_tok + self.decoder_pos_embed.to(self.dtype)
             for block in self.decoder_blocks:
                 x_tok = block(x_tok, c)
         x_tok = self.final_layer(x_tok, c)
         if not self.use_decoder and masked and train:
             zero_tok = x_tok.new_zeros((1, 1, x_tok.shape[2]))
-            x_tok = masking.scatter_tokens(x_tok, mask_info.ids_restore, zero_tok)
+            x_tok = self._scatter(x_tok, mask_info, zero_tok)
         out["x"] = self.unpatchify(x_tok)
         return out
+
+    @staticmethod
+    def _scatter(x_tok: torch.Tensor, mask_info: masking.MaskInfo,
+                 token: torch.Tensor) -> torch.Tensor:
+        """The kept tokens back to all L, holes filled with ``token``: the
+        packed or the pad-to-max scatter (JAX dit.py:388-410)."""
+        if mask_info.len_keep is not None:
+            return masking.scatter_tokens_padded(x_tok, mask_info.ids_restore, token,
+                                                 mask_info.len_keep)
+        return masking.scatter_tokens(x_tok, mask_info.ids_restore, token)
 
     def forward_with_cfg(
         self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor, cfg_scale: float,

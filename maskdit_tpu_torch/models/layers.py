@@ -191,14 +191,17 @@ class PatchEmbed(nn.Module):
 
 @functools.cache
 def attention_route(num_heads: int, l: int, head_dim: int, backward: bool,
-                    use_flash: Optional[bool] = None) -> str:
+                    use_flash: Optional[bool] = None, kv_valid: bool = False) -> str:
     """Which attention runs at (heads, L, head_dim): 'packed', 'big',
-    'flash' or 'plain'. It depends on the shape and the flag only; the
+    'flash' or 'plain'. It depends on the shape and the flags only; the
     tensor's device picks between a kernel and its plain version. Cached:
     the model asks once per shape, not once per call.
 
-    The JAX package's rule (layers.py:225-277, attention.py:83-91) with
+    The JAX package's rule (layers.py:225-277, attention.py:78-91) with
     the card's reasons in place of the TPU's VMEM budgets:
+      * ``kv_valid`` (pad-to-max masking: the layer is given a valid-key
+        count): 'plain', whatever ``use_flash`` says, since no kernel takes
+        the mask;
       * ``use_flash`` False: 'plain' (the JAX package's plain path);
       * ``use_flash`` True: 'flash' (ops/flash.py, kernels #5/#6) where
         ``flash.supports(L)`` holds, else 'plain', as ``flash_mha`` falls
@@ -218,7 +221,7 @@ def attention_route(num_heads: int, l: int, head_dim: int, backward: bool,
           (and 'plain' past the kernel's window, L > 2048);
         - else 'plain'.
     """
-    if use_flash is False:
+    if kv_valid or use_flash is False:
         return "plain"
     if use_flash:
         return "flash" if flash.supports(l) else "plain"
@@ -239,14 +242,16 @@ def attention_route(num_heads: int, l: int, head_dim: int, backward: bool,
     return "plain"
 
 
-def attn_from_qkv(qkv: torch.Tensor, num_heads: int, use_flash: bool) -> torch.Tensor:
+def attn_from_qkv(qkv: torch.Tensor, num_heads: int, use_flash: bool,
+                  kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, L, 3D) -> (N, L, D) through ``ops.attention.mha``: split the
-    [q | k | v] features into (N, H, L, hd) heads, attend, merge the heads
-    (maskdit_tpu layers.py:264-270)."""
+    [q | k | v] features into (N, H, L, hd) heads, attend (keys below
+    ``kv_valid`` only, where given), merge the heads (maskdit_tpu
+    layers.py:264-270)."""
     n, l, three_d = qkv.shape
     hd = three_d // 3 // num_heads
     heads = qkv.reshape(n, l, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    o = mha(heads[0], heads[1], heads[2], use_flash=use_flash)
+    o = mha(heads[0], heads[1], heads[2], use_flash=use_flash, kv_valid=kv_valid)
     return o.permute(0, 2, 1, 3).reshape(n, l, three_d // 3)
 
 
@@ -261,7 +266,8 @@ class Attention(nn.Module):
     as the JAX package runs it under ``jax.checkpoint`` (layers.py:277): the
     layer keeps only qkv, and the backward recomputes the forward first, so
     a 'flash' layer launches its forward kernel twice per train step and its
-    backward kernel once."""
+    backward kernel once. Given ``kv_valid`` (pad-to-max masking) the layer
+    runs the plain route with the key mask, as the JAX layer does."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: Optional[bool] = None):
@@ -274,11 +280,12 @@ class Attention(nn.Module):
             nn.init.xavier_uniform_(lin.weight)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         hd = x.shape[-1] // self.num_heads
         qkv = self.qkv(x)
         grad = torch.is_grad_enabled() and qkv.requires_grad
-        route = attention_route(self.num_heads, x.shape[1], hd, grad, self.use_flash)
+        route = attention_route(self.num_heads, x.shape[1], hd, grad, self.use_flash,
+                                kv_valid is not None)
         # looked up when called, so a caller may swap the plain versions in
         if route == "packed":
             out = packed_attention(qkv, self.num_heads, hd ** -0.5)
@@ -286,10 +293,10 @@ class Attention(nn.Module):
             out = packed_attention_big(qkv, self.num_heads, hd ** -0.5)
         elif grad:
             # (attention draws no random numbers: no RNG state to restore)
-            out = checkpoint(attn_from_qkv, qkv, self.num_heads, route == "flash",
+            out = checkpoint(attn_from_qkv, qkv, self.num_heads, route == "flash", kv_valid,
                              use_reentrant=False, preserve_rng_state=False)
         else:
-            out = attn_from_qkv(qkv, self.num_heads, route == "flash")
+            out = attn_from_qkv(qkv, self.num_heads, route == "flash", kv_valid)
         return self.proj(out)
 
 
@@ -329,11 +336,12 @@ class DiTBlock(nn.Module):
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype)
         self.adaLN_modulation = _ada_ln(c_emb_size, 6 * hidden_size, dtype)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor,
+                kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
         h = modulate(layer_norm_no_affine(x), shift_msa, scale_msa)
-        x = x + gate_msa[:, None, :] * self.attn(h)
+        x = x + gate_msa[:, None, :] * self.attn(h, kv_valid)
         h = modulate(layer_norm_no_affine(x), shift_mlp, scale_mlp)
         return x + gate_mlp[:, None, :] * self.mlp(h)
 

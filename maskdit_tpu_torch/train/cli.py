@@ -3,7 +3,7 @@
 ``python -m maskdit_tpu_torch.train`` runs ``main`` (through the package's
 ``__main__``), which is also ``maskdit_tpu_torch.train.main``. Usage:
   python -m maskdit_tpu_torch.train --config configs/train/imagenet256-latent.yaml \
-      [--results_dir results] [--ckpt_path X.pt] [--max_steps N] \
+      [--results_dir results] [--ckpt_path X.pt [--use_strict_load False]] [--max_steps N] \
       [--device cuda] [overrides a.b=c ...]
   python -m torch.distributed.run --nproc_per_node 2 -m maskdit_tpu_torch.train ...
 
@@ -89,13 +89,17 @@ def validate(cfg: dict) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     from maskdit_tpu_torch.fid import add_detector_args
-    from maskdit_tpu_torch.utils.logging import parse_str_none
+    from maskdit_tpu_torch.utils.logging import parse_str_none, str2bool
 
     parser = argparse.ArgumentParser("training parameters")
     parser.add_argument("--config", type=str, required=True, help="YAML or JSON config")
     parser.add_argument("--results_dir", type=str, default="results")
     parser.add_argument("--ckpt_path", type=parse_str_none, default=None,
                         help="reference .pt checkpoint to start from")
+    # the reference's flag (train.py:116), parsed and, as in the JAX CLI, not
+    # read: the Trainer imports a reference .pt non-strictly whatever it
+    # says (maskdit_tpu/train/trainer.py:210)
+    parser.add_argument("--use_strict_load", type=str2bool, default=True)
     parser.add_argument("--global_seed", type=int, default=0)
     parser.add_argument("--num_workers", type=int, default=4)
     parser.add_argument("--max_steps", type=int, default=None,

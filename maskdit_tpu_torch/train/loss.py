@@ -10,7 +10,9 @@ the noisy input y + n (loss.py:150).
 
 The loss draws sigma, the noise and the mask (in that order) from one
 ``torch.Generator``; each can be injected instead, so a test can feed the
-values the JAX package drew.
+values the JAX package drew. With ``mask_len_max`` (pad-to-max masking) the
+ratio is a per-step value rather than the step's constant, and the mask is a
+padded one of ``mask_len_max`` tokens (JAX loss.py:84-130).
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ from typing import Optional
 
 import torch
 
-from maskdit_tpu_torch.models.masking import MaskInfo, random_mask
+from maskdit_tpu_torch.models.masking import (
+    MaskInfo,
+    padded_len_keep,
+    padded_random_mask,
+    random_mask,
+)
 
 
 def patchify(imgs: torch.Tensor, patch_size: int = 2) -> torch.Tensor:
@@ -82,12 +89,16 @@ class EDMLoss:
         sigma: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         mask_info: Optional[MaskInfo] = None,
+        mask_len_max: Optional[int] = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """Returns (per-sample loss (N,), aux dict).
 
         ``net`` is an EDMPrecond. ``sigma`` is (N,) noise levels and
         ``noise`` (N, C, H, W) unit normals (scaled by sigma here); either,
         and ``mask_info``, replace the draw from ``generator``.
+        ``mask_len_max`` switches to pad-to-max masking: the mask keeps
+        ``padded_len_keep(L, mask_ratio)`` of ``mask_len_max`` tokens, and
+        the masked loss runs at every ratio, 0 included.
         """
         n = images.shape[0]
         device = images.device
@@ -102,13 +113,21 @@ class EDMLoss:
             noise = torch.randn(y.shape, generator=generator, device=device)
         noise = noise.float() * sigma
 
-        masked = float(mask_ratio) > 0
-        if masked and mask_info is None:
-            n_tokens = (y.shape[2] // patch_size) * (y.shape[3] // patch_size)
-            mask_info = random_mask(n, n_tokens, mask_ratio, generator, device=device)
+        n_tokens = (y.shape[2] // patch_size) * (y.shape[3] // patch_size)
+        if mask_len_max is not None:
+            if mask_info is None:
+                mask_info = padded_random_mask(
+                    n, n_tokens, mask_len_max, padded_len_keep(n_tokens, mask_ratio, device),
+                    generator, device=device)
+            # the model's masking gate; the ratio itself is in mask_info
+            masked, ratio_arg = True, 0.5
+        else:
+            masked, ratio_arg = float(mask_ratio) > 0, float(mask_ratio)
+            if masked and mask_info is None:
+                mask_info = random_mask(n, n_tokens, mask_ratio, generator, device=device)
 
         model_out = net(
-            y + noise, sigma.reshape(-1), labels, mask_ratio=float(mask_ratio),
+            y + noise, sigma.reshape(-1), labels, mask_ratio=ratio_arg,
             mask_info=mask_info, train=True,
         )
         d_yn = model_out["x"].float()

@@ -44,11 +44,17 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from maskdit_tpu_torch.models.masking import MaskInfo, random_mask
+from maskdit_tpu_torch.models.masking import (
+    MaskInfo,
+    padded_len_keep,
+    padded_random_mask,
+    random_mask,
+)
 from maskdit_tpu_torch.models.precond import EDMPrecond
 from maskdit_tpu_torch.ops.fused_adam import AdamState, FusedAdamEma
 from maskdit_tpu_torch.train.loss import EDMLoss
 from maskdit_tpu_torch.train.schedules import lr_with_rampup
+from maskdit_tpu_torch.utils.ckpt import graft_params
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -180,18 +186,23 @@ class TrainState:
             "step": self.step,
         }
 
-    def load(self, ckpt: dict[str, Any]) -> None:
-        """Restore from ``checkpoint()``'s dict: every key it has is
-        copied into the flat buffers (``model`` and ``ema`` alone import a
-        released checkpoint)."""
+    def load(self, ckpt: dict[str, Any], strict: bool = True) -> list[str]:
+        """Restore from ``checkpoint()``'s dict: every entry it has is
+        copied into the flat buffers. ``strict`` (a resume) needs every
+        parameter; without it (``model`` and ``ema`` of a released
+        checkpoint: the finetune import) a parameter the file lacks keeps
+        its value and its name is returned as ``'<entry>.<key>'``. Keys the
+        model lacks are ignored; a shape that differs raises ValueError."""
+        missing = []
         with torch.no_grad():
             for key, flat in (("model", self.params), ("ema", self.ema)):
                 if key in ckpt:
-                    _copy_named(self.named(flat), ckpt[key], key)
+                    missing += _copy_named(self.named(flat), ckpt[key], key, strict)
             if "opt" in ckpt:
                 self.load_opt_state(ckpt["opt"])
         if "step" in ckpt:
             self.step = int(ckpt["step"])
+        return missing
 
     def load_opt_state(self, opt: dict[str, Any]) -> None:
         """Adam's count, mu and nu from ``{count, mu, nu}`` dicts keyed like
@@ -203,12 +214,12 @@ class TrainState:
         self.opt_state.count = int(opt["count"])
 
 
-def _copy_named(dst: dict[str, torch.Tensor], src: dict[str, torch.Tensor], what: str) -> None:
+def _copy_named(dst: dict[str, torch.Tensor], src: dict[str, torch.Tensor], what: str,
+                strict: bool = True) -> list[str]:
     missing = sorted(set(dst) - set(src))
-    if missing:
+    if strict and missing:
         raise KeyError(f"{what}: no values for {missing[:5]} ({len(missing)} keys)")
-    for k, v in dst.items():
-        v.copy_(src[k].reshape(v.shape))
+    return [f"{what}.{k}" for k in graft_params(dst, src)]
 
 
 def flatten_parameters(module: nn.Module) -> tuple[torch.Tensor, list[tuple[str, torch.Size, int]]]:
@@ -261,8 +272,8 @@ class StepDraws(NamedTuple):
 def _rows(x, sl: slice):
     if x is None:
         return None
-    if isinstance(x, MaskInfo):
-        return MaskInfo(*(t[sl] for t in x))
+    if isinstance(x, MaskInfo):  # len_keep is one count for every row
+        return MaskInfo(x.mask[sl], x.ids_keep[sl], x.ids_restore[sl], x.len_keep)
     return x[sl]
 
 
@@ -270,26 +281,35 @@ def draw_step(
     generator: Optional[torch.Generator], n: int, shape: tuple[int, ...],
     device: torch.device, *, grad_accum: int, reparam: bool, dropout: bool,
     mask_ratio: float, patch_size: int, loss_fn: EDMLoss,
+    mask_len_max: Optional[int] = None,
 ) -> StepDraws:
     """Every draw of a step on a batch of ``n`` rows of latents of
     ``shape`` (C, H, W), in the order and shapes the step takes them from
     ``generator`` itself: the moment noise and the dropout uniforms over
     the batch, then sigma, the noise and the mask of each micro-batch.
-    So the draws of a one-process step on the global batch."""
+    So the draws of a one-process step on the global batch. With
+    ``mask_len_max`` (pad-to-max) every micro-batch draws a padded mask
+    from the same uniforms, at any ratio, 0 included."""
     c, h, w = shape
     z_noise = (torch.randn((n, c, h, w), generator=generator, device=device)
                if reparam else None)
     drop_u = torch.rand((n, 1), generator=generator, device=device) if dropout else None
     micro = n // grad_accum
+    tokens = (h // patch_size) * (w // patch_size)
+    len_keep = None if mask_len_max is None else padded_len_keep(tokens, mask_ratio, device)
     sigmas, noises, masks = [], [], []
     for _ in range(grad_accum):
         rnd_normal = torch.randn((micro, 1, 1, 1), generator=generator, device=device)
         sigmas.append(torch.exp(rnd_normal * loss_fn.P_std + loss_fn.P_mean).reshape(-1))
         noises.append(torch.randn((micro, c, h, w), generator=generator, device=device))
-        if float(mask_ratio) > 0:
-            masks.append(random_mask(micro, (h // patch_size) * (w // patch_size), mask_ratio,
-                                     generator, device=device))
-    mask_info = MaskInfo(*(torch.cat(t) for t in zip(*masks))) if masks else None
+        if len_keep is not None:
+            masks.append(padded_random_mask(micro, tokens, mask_len_max, len_keep, generator,
+                                            device=device))
+        elif float(mask_ratio) > 0:
+            masks.append(random_mask(micro, tokens, mask_ratio, generator, device=device))
+    mask_info = None
+    if masks:
+        mask_info = MaskInfo(*(torch.cat(t) for t in zip(*(m[:3] for m in masks))), len_keep)
     return StepDraws(z_noise, drop_u, torch.cat(sigmas), torch.cat(noises), mask_info)
 
 
@@ -308,6 +328,8 @@ def make_train_step(
     amp_grads: bool = False,
     accum_dtype: Optional[str] = None,
     sync: Optional[Any] = None,
+    pad_to_max: bool = False,
+    mask_len_max: Optional[int] = None,
 ):
     """Build ``train_step(state, batch, generator=None, draws=None) ->
     metrics``, which updates ``state`` in place.
@@ -315,6 +337,12 @@ def make_train_step(
     batch: {'x': (N, C or 2C, H, W) latents or moments, 'y': (N, K)
     one-hot}, on the model's device. The metrics are 0-d tensors (read
     them at log time, so the step does not wait for the device).
+
+    ``pad_to_max`` (JAX state.py:240-330) makes one step serve every mask
+    ratio: the ratio arrives as ``batch['mask_ratio']``, and the encoder
+    runs at ``mask_len_max`` tokens (default all L) of which the ratio's
+    first ``len_keep`` are valid, through the plain attention with the key
+    mask. It computes the packed step's function at that ratio.
 
     Without ``draws`` the step takes its own from ``generator`` through
     ``draw_step``, over the whole batch. ``sync`` (a
@@ -340,6 +368,11 @@ def make_train_step(
         state.bind(grad_dtype, acc_dtype)
         x = batch["x"].float()
         y = batch.get("y")
+        patch = model.model.patch_size
+        ratio, len_max = mask_ratio, None
+        if pad_to_max:
+            ratio = batch["mask_ratio"]
+            len_max = mask_len_max or (x.shape[2] // patch) * (x.shape[3] // patch)
         reparam = reparam_moments and x.shape[1] == 2 * model.img_channels
         dropout = y is not None and class_dropout_prob > 0
         if draws is None:
@@ -348,7 +381,7 @@ def make_train_step(
             draws = draw_step(
                 generator, n * world, (model.img_channels, *x.shape[2:]), x.device,
                 grad_accum=grad_accum, reparam=reparam, dropout=dropout,
-                mask_ratio=mask_ratio, patch_size=model.model.patch_size, loss_fn=loss_fn,
+                mask_ratio=ratio, patch_size=patch, loss_fn=loss_fn, mask_len_max=len_max,
             )
             if sync is not None:  # this process's rows of the global batch's draws
                 draws = StepDraws(*(_rows(d, slice(rank * n, (rank + 1) * n)) for d in draws))
@@ -368,10 +401,11 @@ def make_train_step(
             if state.micro_grads is not None:
                 state.micro_grads.zero_()
             loss_vec, aux = loss_fn(
-                model, x[rows], labels=_rows(y, rows), mask_ratio=mask_ratio,
-                mae_loss_coef=mae_loss_coef, patch_size=model.model.patch_size,
+                model, x[rows], labels=_rows(y, rows), mask_ratio=ratio,
+                mae_loss_coef=mae_loss_coef, patch_size=patch,
                 sigma=_rows(draws.sigma, rows),
                 noise=_rows(draws.noise, rows), mask_info=_rows(draws.mask_info, rows),
+                mask_len_max=len_max,
             )
             loss = loss_vec.mean()
             loss.backward()  # adds into the parameters' .grad

@@ -1,15 +1,17 @@
 """Config-driven training loop, on one device or data-parallel.
 
 Counterpart of maskdit_tpu/train/trainer.py (the reference train.py:35-291)
-without the FSDP and tensor axes of its mesh, orbax and pad-to-max
-masking. Under a process group of several processes
+without the FSDP and tensor axes of its mesh and orbax. Under a process group of several processes
 (``parallel/dist.py``) it trains data-parallel
 (``parallel/data_parallel.py``): the global batch is ``batchsize x
 grad_accum x processes``, each process reads its rank-strided rows,
 rank 0 logs and writes the checkpoints, and every process resumes. Kept: the data
 categories (synthetic, the latent LMDB, WebDataset shards indexed or
 streamed), the experiment naming, mask-ratio bucketing with one train step per
-bucket, the learning-rate schedule mirror for logging, resume from the
+bucket or, with ``train.pad_to_max``, one step for every ratio (the encoder
+at the schedule's most kept tokens, the tail masked), the import of a
+released ``.pt`` (``--ckpt_path``, always non-strict: the finetune path),
+the learning-rate schedule mirror for logging, resume from the
 newest checkpoint (each step's draws are seeded from the seed and the step,
 so a resumed run draws what a straight run would), the save on
 SIGTERM/SIGINT, the log line (loss, steps/s, images/s, MFU, peak device
@@ -38,6 +40,7 @@ import torch
 from maskdit_tpu_torch.data.datasets import Dataset, ImageNetLatentDataset, SyntheticLatentDataset
 from maskdit_tpu_torch.data.loader import DataLoader, prefetch, to_device
 from maskdit_tpu_torch.data.wds import StreamingWDSLoader, WebDatasetLatents
+from maskdit_tpu_torch.models.masking import len_keep_for
 from maskdit_tpu_torch.models.precond import check_model_keys, create_model
 from maskdit_tpu_torch.parallel.data_parallel import data_parallel
 from maskdit_tpu_torch.parallel.dist import (
@@ -45,15 +48,13 @@ from maskdit_tpu_torch.parallel.dist import (
 )
 from maskdit_tpu_torch.train.schedules import bucket_ratio, get_mask_ratio_fn
 from maskdit_tpu_torch.train.state import create_train_state, make_optimizer, make_train_step
-from maskdit_tpu_torch.utils.ckpt import CheckpointManager, load_reference_checkpoint
+from maskdit_tpu_torch.utils.ckpt import CheckpointManager, load_reference_states
 from maskdit_tpu_torch.utils.logging import MetricLogger, Throughput
 from maskdit_tpu_torch.utils.profiling import maskdit_train_flops_per_image, mfu, peak_bf16_tflops
 
 # train.* keys of the JAX trainer that the port does not implement: each
 # key's default, and why
 NOT_PORTED = {
-    "pad_to_max": (False, "it needs attention masking of the padded tail (kv_valid), "
-                          "which the port's kernels do not take yet"),
     "accum_unroll": (1, "an XLA scheduling knob of the accumulation scan; the port's "
                         "micro-batches run one after another"),
     "peel_last_micro": (False, "an XLA scheduling knob of the accumulation scan; the "
@@ -161,6 +162,7 @@ class Trainer:
             raise ValueError("data.streaming requires data.category: wds")
 
         self.grad_accum = t.get("grad_accum", 1)
+        self.pad_to_max = bool(t.get("pad_to_max", False))
         self.local_batch = t["batchsize"] * self.grad_accum
         self.global_batch = self.local_batch * self.world
         self.max_steps = max_steps_override or t["max_num_steps"]
@@ -201,12 +203,11 @@ class Trainer:
         self.ckpt_mgr = CheckpointManager(os.path.join(self.exp_dir, "checkpoints"))
         self.start_step = 0
         if ckpt_path is not None and ckpt_path.endswith(".pt"):
-            # import a released checkpoint (the finetune path)
-            self.state.load({
-                "model": load_reference_checkpoint(ckpt_path, use_ema=False),
-                "ema": load_reference_checkpoint(ckpt_path, use_ema=True),
-            })
-            mprint(f"imported reference checkpoint {ckpt_path}")
+            # import a released checkpoint (the finetune path), always
+            # non-strictly, as the JAX trainer does (trainer.py:203-217)
+            missing = self.state.load(load_reference_states(ckpt_path), strict=False)
+            kept = f"; kept at their initialisation: {missing}" if missing else ""
+            mprint(f"imported reference checkpoint {ckpt_path}{kept}")
         elif self.ckpt_mgr.latest_step() is not None:
             self.state.load(self.ckpt_mgr.restore())  # every process resumes
             self.start_step = self.state.step
@@ -250,13 +251,20 @@ class Trainer:
         """The schedule's learning rate after ``step`` steps (train/lr)."""
         return self.optimizer.lr_at(step)
 
+    def _mask_len_max(self) -> int:
+        """The most tokens any value of the schedule keeps, probed on a
+        progress grid (JAX trainer.py:279-286): the pad-to-max encoder's
+        width."""
+        min_ratio = min(float(self.mask_ratio_fn(i / 256.0)) for i in range(257))
+        return max(1, len_keep_for(self.seq_len, min_ratio))
+
     def _step_for_ratio(self, ratio: float):
-        ratio = bucket_ratio(ratio, self.seq_len)
-        if ratio not in self._step_cache:
+        key = "padded" if self.pad_to_max else bucket_ratio(ratio, self.seq_len)
+        if key not in self._step_cache:
             m, t = self.config["model"], self.config["train"]
-            self._step_cache[ratio] = make_train_step(
+            self._step_cache[key] = make_train_step(
                 self.optimizer,
-                mask_ratio=ratio,
+                mask_ratio=0.5 if self.pad_to_max else key,  # padded: the batch's ratio
                 mae_loss_coef=m["mae_loss_coef"],
                 class_dropout_prob=m.get("class_dropout_prob", 0.1),
                 ema_decay=t.get("ema_decay", 0.9999),
@@ -265,8 +273,10 @@ class Trainer:
                 amp_grads=t.get("amp_grads", False),
                 accum_dtype=t.get("accum_dtype"),
                 sync=self.sync,
+                pad_to_max=self.pad_to_max,
+                mask_len_max=self._mask_len_max() if self.pad_to_max else None,
             )
-        return self._step_cache[ratio]
+        return self._step_cache[key]
 
     def _log(self, step: int, running: list[dict], ratio: float, throughput: Throughput) -> None:
         losses = [float(r["loss"]) for r in running]  # waits for the device
@@ -341,7 +351,10 @@ class Trainer:
                 ratio = float(self.mask_ratio_fn(progress))
                 step_fn = self._step_for_ratio(ratio)
                 generator.manual_seed(step_seed(self.seed + 1, step))
-                running.append(step_fn(self.state, to_device(host_batch, self.device), generator))
+                batch = to_device(host_batch, self.device)
+                if self.pad_to_max:
+                    batch["mask_ratio"] = ratio  # the step's ratio rides the batch
+                running.append(step_fn(self.state, batch, generator))
                 step += 1
                 throughput.update(1, self.global_batch)
                 if step % log_every == 0:

@@ -3,7 +3,10 @@
 Counterpart of maskdit_tpu/utils/ckpt.py. A released ``.pt`` file
 (reference train.py:259-268) holds ``{model, ema, opt, args}``; sampling
 takes ``ema``. Its keys are the port's own, so the state dict loads into
-``EDMPrecond`` directly. The trainer saves ``{model, ema, opt, step}`` in
+``EDMPrecond`` directly. A finetune imports ``model`` and ``ema`` into a
+fresh train state non-strictly (``graft_params``, the JAX package's
+``strict=False`` import): a parameter the file lacks, such as the mask
+token an unmasked run never trained, keeps its initialisation. The trainer saves ``{model, ema, opt, step}`` in
 the same layout with ``torch.save`` (``opt`` is Adam's count, mu and nu
 under the parameter keys), one file per step, and resumes from the newest.
 Orbax checkpoints belong to the JAX package and are not read here.
@@ -22,14 +25,41 @@ import torch.nn as nn
 RECOMPUTED_KEYS = ("model.pos_embed", "model.decoder_pos_embed")
 
 
-def load_reference_checkpoint(path: str, use_ema: bool = True) -> dict[str, torch.Tensor]:
-    """The ``ema`` (or ``model``) state dict of a reference ``.pt`` file, on
+def load_reference_states(path: str, keys=("model", "ema")) -> dict[str, dict[str, torch.Tensor]]:
+    """The state dicts ``keys`` of a reference ``.pt`` file, read once, on
     the CPU, with torch.compile's ``_orig_mod.`` prefix stripped."""
     # the file also pickles the training run's args, so it is not a
     # weights-only archive
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    state = ckpt["ema" if use_ema else "model"]
-    return {k.replace("_orig_mod.", ""): v for k, v in state.items()}
+    return {key: {k.replace("_orig_mod.", ""): v for k, v in ckpt[key].items()}
+            for key in keys}
+
+
+def load_reference_checkpoint(path: str, use_ema: bool = True) -> dict[str, torch.Tensor]:
+    """The ``ema`` (or ``model``) state dict of a reference ``.pt`` file."""
+    key = "ema" if use_ema else "model"
+    return load_reference_states(path, (key,))[key]
+
+
+def graft_params(target: dict[str, torch.Tensor], loaded: dict[str, torch.Tensor]) -> list[str]:
+    """Overlay ``loaded`` onto ``target``'s tensors in place and return the
+    keys of ``target`` that ``loaded`` lacks, which keep their values.
+
+    The JAX package's non-strict import (``load_reference_checkpoint(...,
+    strict=False)`` + ``graft_params``, maskdit_tpu/utils/ckpt.py:80-133;
+    reference train.py:150-151): keys ``target`` lacks are dropped, and a
+    shape that differs raises ``ValueError`` naming the key (never a
+    reshape of a tensor with the same element count)."""
+    with torch.no_grad():
+        for k, v in target.items():
+            if k not in loaded:
+                continue
+            src = loaded[k]
+            if tuple(src.shape) != tuple(v.shape):
+                raise ValueError(f"shape mismatch at {k}: ckpt {tuple(src.shape)} vs "
+                                 f"model {tuple(v.shape)}")
+            v.copy_(src)
+    return sorted(set(target) - set(loaded))
 
 
 def load_into(model: nn.Module, state: dict[str, torch.Tensor], strict: bool = True) -> None:

@@ -129,14 +129,14 @@ def test_json_config_and_overrides(tmp_path):
 
 
 @pytest.mark.parametrize("override,why", [
-    ("train.pad_to_max=true", "kv_valid"),
     ("train.accum_unroll=2", "scheduling knob"),
     ("train.peel_last_micro=true", "scheduling knob"),
-], ids=["pad_to_max", "accum_unroll", "peel_last_micro"])
+], ids=["accum_unroll", "peel_last_micro"])
 def test_unported_options_raise(tiny_port, tmp_path, override, why):
     """The train keys the port does not implement raise with their reason
     (the ported ones build a Trainer:
-    tests/test_torch_train_options.py::test_ported_train_options_build_a_trainer)."""
+    tests/test_torch_train_options.py::test_ported_train_options_build_a_trainer;
+    train.pad_to_max trains: tests/test_torch_pad_to_max.py)."""
     cfg = cli.apply_overrides(cli.load_config(SMOKE), [override])
     with pytest.raises(NotImplementedError, match=why):
         Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
@@ -293,3 +293,24 @@ def test_chip_smoke_trains_the_released_config():
         for key, value in released[section].items():
             if f"{section}.{key}" not in chip_smoke.TRAIN_CUTS:
                 assert smoke[section][key] == value, f"{section}.{key}"
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.FINETUNE_CONFIGS))
+def test_chip_smoke_finetunes_the_released_configs(name):
+    """chip_smoke.py's finetune configs are configs/finetune/imagenet<name>.yaml's
+    model, train and data sections but for data.root, which is [extract]'s
+    LMDB (256 px) or shards (512 px), and the cuts each lists."""
+    config, cuts = chip_smoke.FINETUNE_CONFIGS[name]
+    released = config_lib.load(os.path.join(ROOT, "configs", "finetune",
+                                            f"imagenet{name}.yaml")).to_container()
+    for section in ("model", "train"):
+        assert set(config[section]) == set(released[section]), section
+        for key, value in released[section].items():
+            if f"{section}.{key}" not in cuts:
+                assert config[section][key] == value, f"{section}.{key}"
+    root = chip_smoke.TRAIN_DATA_ROOT_512 if name.startswith("512") else chip_smoke.TRAIN_DATA_ROOT
+    assert config["data"] == {**released["data"], "root": root}
+    assert config["train"]["fp32"] is True
+    for path, (was, now) in cuts.items():
+        section, key = path.split(".")
+        assert released[section][key] == was and config[section][key] == now, path

@@ -332,8 +332,8 @@ def test_cli_override_trains_on_the_flash_path(tiny_port, tmp_path, monkeypatch,
     assert [cli.parse_value(v) for v in ("true", "false", "null")] == [True, False, None]
     flags = []
     real = layers.mha
-    monkeypatch.setattr(layers, "mha",
-                        lambda *a, use_flash: flags.append(use_flash) or real(*a, use_flash=use_flash))
+    monkeypatch.setattr(layers, "mha", lambda *a, use_flash, **kw: flags.append(use_flash)
+                        or real(*a, use_flash=use_flash, **kw))
     out = cli.main(["--config", SMOKE, "--device", "cpu", "--num_workers", "1",
                     "--results_dir", str(tmp_path), "--max_steps", "1", "model.use_flash=true",
                     f"model.in_size={res}", f"data.resolution={res}"])
