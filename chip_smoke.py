@@ -187,9 +187,11 @@ ATTN_SHAPES = [
 # 64-row tiles, hd 40
 ATTN_FWD_SHAPES = ATTN_SHAPES + [("ragged", 3, 77, 4, 40)]
 # kernel vs plain bound on max|kernel - plain| / max|plain| of the forward:
-# fp32 differs only by summation order; bf16 where that order flips one
-# rounding of p or of the output, by one bf16 ulp, at most 2^-7 of the
-# largest value
+# fp32 differs by summation order (the fp32 blocked kernels on the tensor
+# cores also by their dropped terms, ~2^-24 of each product, and the
+# mma.sync accumulation: at most 3.3e-6 measured); bf16 where that order
+# flips one rounding of p or of the output, by one bf16 ulp, at most 2^-7
+# of the largest value
 FWD_REL_BOUND = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # and in bf16 the share of elements (forward or backward) that differ at all:
 # another summation order flips few (under 0.5% for fp64 sums), while a
@@ -380,14 +382,23 @@ FINETUNE_CONFIGS = {
 FINETUNE_PARITY_STEP = 3
 # [kernel-fp32]: the finetune paths' attention shapes, (name, N, L, heads,
 # head dim): the unmasked encoder and the decoder at 256 px (batch 64) and
-# at 512 px (batch 16), each timed in fp32 on the kernels the route takes
-# with a backward
+# at 512 px (batch 16), and the cos4 run's encoder buckets at 128, 224 and
+# 240 kept tokens, each timed in fp32 on the kernels the route takes with a
+# backward
 FINETUNE_ATTN_SHAPES = [
     ("finetune256_encoder", FINETUNE_BATCH, 256, 16, 72),
     ("finetune256_decoder", FINETUNE_BATCH, 256, 16, 32),
     ("finetune512_encoder", FINETUNE_BATCH_512, 1024, 16, 72),
     ("finetune512_decoder", FINETUNE_BATCH_512, 1024, 16, 32),
+    ("finetune_cos_encoder_128", FINETUNE_BATCH, 128, 16, 72),
+    ("finetune_cos_encoder_224", FINETUNE_BATCH, 224, 16, 72),
+    ("finetune_cos_encoder_240", FINETUNE_BATCH, 240, 16, 72),
 ]
+# bf16 products per fp32 product in the fp32 blocked kernels (#3, #4:
+# csrc/attention_fp32_mma.cuh); an fp32 row prints, beside the fp32 FMA
+# bound, the tensor cores' bound of that scheme (FP32_TERMS x the products
+# at 989 TFLOP/s)
+FP32_TERMS = 6
 # configs/test/maskdit-512.yaml's model section (what the generate CLI
 # reads), as JSON; tests/test_torch_512.py holds it equal to the YAML
 SAMPLE_CONFIG_512 = {"model": {
@@ -479,6 +490,18 @@ def attention_bound(n: int, l: int, h: int, hd: int, dtype: torch.dtype, product
                  planes * n * l * h * hd * es + rows_fp32 * n * h * l * 4, dtype)
 
 
+def tensor_core_bound_note(n: int, l: int, h: int, hd: int, dtype: torch.dtype, products: int,
+                           ms: float) -> str:
+    """For an fp32 row: the tensor cores' bound of FP32_TERMS bf16 products
+    per fp32 product (the operations bound of the fp32 blocked kernels'
+    scheme) and the kernel's share of it; '' for bf16."""
+    if dtype != torch.float32:
+        return ""
+    tc_ms = FP32_TERMS * 2 * products * n * h * l * l * hd / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (f"; fp32 FMA bound above, tensor-core bound of {FP32_TERMS} bf16 products per "
+            f"fp32 product {tc_ms:.4f} ms, {tc_ms / ms:.3f} of it")
+
+
 def library_attention_ms(qkv: torch.Tensor, h: int, scale: float, iters: int,
                          dout: torch.Tensor | None = None) -> float:
     """One PyTorch call for the same function, as a yardstick only:
@@ -555,6 +578,9 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """One nvcc for each kernel source, all started at once; every build
+    ends before the first timed row, so that no row is timed while nvcc
+    (``-split-compile=0`` takes every core) holds the host's cores."""
     from maskdit_tpu_torch.ops import build, flash, flash_batched, flash_big, fused_adam
 
     names = [flash_batched.KERNEL, flash_batched.BWD_KERNEL, fused_adam.KERNEL,
@@ -639,6 +665,13 @@ def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
     return err, bnd, share, ok
 
 
+def blocked_variant(dtype: torch.dtype, *shape: int) -> str:
+    """The kernels the blocked wrappers (#3, #4) launch at every shape:
+    'mma' (bf16 operands on mma.sync) or 'mma6' (fp32: each product as six
+    bf16 mma.sync products of exact bf16 pieces)."""
+    return "mma" if dtype == torch.bfloat16 else "mma6"
+
+
 def check_variant(what: str, dtype: torch.dtype, hd: int, variant: str) -> None:
     """A bf16 call at a head dim that is a multiple of 8 runs the
     tensor-core kernels ('mma'), never the FMA ones."""
@@ -679,7 +712,8 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
                 f"(bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements "
                 f"differing {share:.5f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library (SDPA) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {bound_ms / ms:.3f} of it")
+                f"({bound_by}), {bound_ms / ms:.3f} of it"
+                + tensor_core_bound_note(n, l, h, hd, dtype, 2, ms))
             if not (ok and launches == 1):
                 raise AssertionError(f"{tag} {name} {dt}: err {err} > {bnd}, share {share} "
                                      f"or {launches} launches")
@@ -692,11 +726,14 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
 
 
 def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
-                       dtypes=(torch.bfloat16, torch.float32)) -> dict:
+                       dtypes=(torch.bfloat16, torch.float32), variant=None) -> dict:
     """The backward wrapper ``kernel`` against ``plain``, as above; the
     library time is SDPA's forward and backward. Each row names the kernels
-    that ran: 'mma' (bf16, csrc/attention_bwd_mma.cuh) or 'fma'."""
+    that ran: ``variant(dtype, hd)``, by default the whole-row backward's
+    ('mma', bf16, csrc/attention_bwd_mma.cuh, or 'fma')."""
     from maskdit_tpu_torch.ops.flash_batched import bwd_kernel
+
+    variant = variant or bwd_kernel
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
@@ -717,14 +754,15 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
             library_ms = library_attention_ms(qkv, h, scale, iters, dout)
             bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 6, 7)
             dt = dtype_name(dtype)
-            check_variant(f"{tag} bwd {name}", dtype, hd, bwd_kernel(dtype, hd))
+            check_variant(f"{tag} bwd {name}", dtype, hd, variant(dtype, hd))
             log(f"[{tag}] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt} "
-                f"({bwd_kernel(dtype, hd)}): "
+                f"({variant(dtype, hd)}): "
                 f"max_abs_err {err:.3e} (bound {bnd:.3e} = {BWD_REL_BOUND[dtype]:.0e} "
                 f"x max|ref|), elements differing {share:.5f}; kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, library (SDPA fwd + bwd) {library_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it; launches per "
-                f"call {launches}")
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it"
+                + tensor_core_bound_note(n, l, h, hd, dtype, 6, ms)
+                + f"; launches per call {launches}")
             if not (ok and launches == 1):
                 raise AssertionError(f"{tag} bwd {name} {dt}: err {err} > {bnd}, share {share} "
                                      f"or {launches} launches")
@@ -817,10 +855,56 @@ def phase_big_kernels() -> dict:
     check_bwd_head_dims()
 
     fwd = attention_fwd_rows("kernel-big", BIG_FWD_SHAPES, flash_big.packed_attention_big,
-                             flash_big.packed_attention_big_reference, seed=5, iters=10)
+                             flash_big.packed_attention_big_reference, seed=5, iters=10,
+                             variant=blocked_variant)
     bwd = attention_bwd_rows("kernel-big", BIG_BWD_SHAPES, flash_big.packed_attention_big_bwd,
-                             flash_big.packed_attention_big_bwd_reference, seed=6, iters=5)
+                             flash_big.packed_attention_big_bwd_reference, seed=6, iters=5,
+                             variant=blocked_variant)
     return dict(fwd=fwd, bwd=bwd)
+
+
+def check_fp32_big_head_dims() -> float:
+    """The fp32 blocked kernels (#3, #4 on the tensor cores in bf16 pieces,
+    csrc/attention_fp32_mma.cuh) at every head dim of SWEEP_HEAD_DIMS, at
+    SWEEP_SHAPE: one launch each, within FWD_REL_BOUND / BWD_REL_BOUND of
+    the plain versions, timed. Returns the worst error."""
+    from maskdit_tpu_torch.ops import flash_big
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    fp32 = torch.float32
+    n, l, h = SWEEP_SHAPE
+    fwd, bwd = flash_big.packed_attention_big, flash_big.packed_attention_big_bwd
+    worst_err, worst, rows = 0.0, 0.0, []
+    for hd in SWEEP_HEAD_DIMS:
+        scale = hd ** -0.5
+        qkv = torch.randn(n, l, 3 * h * hd, generator=g, device="cuda")
+        dout = torch.randn(n, l, h * hd, generator=g, device="cuda")
+        before = (fwd.launches, bwd.launches)
+        with torch.no_grad():
+            out = fwd(qkv, h, scale)
+        dqkv = bwd(qkv, dout, h, scale)
+        torch.cuda.synchronize()
+        launches = (fwd.launches - before[0], bwd.launches - before[1])
+        with torch.no_grad():
+            f = compare(out, flash_big.packed_attention_big_reference(qkv, h, scale),
+                        FWD_REL_BOUND[fp32], fp32)
+        b = compare(dqkv, flash_big.packed_attention_big_bwd_reference(qkv, dout, h, scale),
+                    BWD_REL_BOUND[fp32], fp32)
+        if not (f[3] and b[3] and launches == (1, 1)):
+            raise AssertionError(f"fp32 blocked hd sweep hd={hd}: fwd err {f[0]} > {f[1]} or "
+                                 f"bwd err {b[0]} > {b[1]} or launches {launches}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fwd(qkv, h, scale), 5)
+        bms = cuda_ms(lambda: bwd(qkv, dout, h, scale), 5)
+        worst_err = max(worst_err, f[0], b[0])
+        worst = max(worst, f[0] / f[1], b[0] / b[1])
+        rows.append(f"{hd}: {ms:.4f} / {bms:.4f}")
+    log(f"[kernel-fp32] head dims: #3 / #4 fp32 (mma6) at (N, L, H) = {SWEEP_SHAPE}, hd "
+        f"{SWEEP_HEAD_DIMS.start}-{SWEEP_HEAD_DIMS.stop - 1} step {SWEEP_HEAD_DIMS.step}: "
+        f"{2 * len(SWEEP_HEAD_DIMS)} rows within their bounds; the worst error {worst:.3f} of "
+        f"its bound ({worst_err:.3e}); fwd / bwd ms by hd " + ", ".join(rows))
+    free_device_memory()
+    return worst_err
 
 
 def phase_fp32_kernels() -> dict:
@@ -828,31 +912,34 @@ def phase_fp32_kernels() -> dict:
     finetunes train with ``train.fp32: True``) at FINETUNE_ATTN_SHAPES, on
     the kernels ``attention_route`` picks there with a backward (whole-row
     #1/#2 or blocked #3/#4), forward and backward against their plain
-    versions, with SDPA's times and the bound."""
+    versions, with SDPA's times and the bounds; then #3/#4 in fp32 at the
+    ragged shape and over the head dims."""
     from maskdit_tpu_torch.models.layers import attention_route
     from maskdit_tpu_torch.ops import flash_batched, flash_big
 
     kernels = {
         "packed": (flash_batched.packed_attention, flash_batched.packed_attention_reference,
                    flash_batched.packed_attention_bwd,
-                   flash_batched.packed_attention_bwd_reference),
+                   flash_batched.packed_attention_bwd_reference, None, None),
         "big": (flash_big.packed_attention_big, flash_big.packed_attention_big_reference,
-                flash_big.packed_attention_big_bwd, flash_big.packed_attention_big_bwd_reference),
+                flash_big.packed_attention_big_bwd, flash_big.packed_attention_big_bwd_reference,
+                blocked_variant, blocked_variant),
     }
+    fp32 = (torch.float32,)
     out = {}
-    for i, shape in enumerate(FINETUNE_ATTN_SHAPES):
+    for i, shape in enumerate(FINETUNE_ATTN_SHAPES + [RAGGED_BIG]):
         name, n, l, h, hd = shape
-        route = attention_route(h, l, hd, True)
-        log(f"[kernel-fp32] {name} (N={n}, L={l}, H={h}, hd={hd}): route '{route}' with a "
-            f"backward")
-        fwd, fwd_plain, bwd, bwd_plain = kernels[route]
+        route = attention_route(h, l, hd, True) if shape != RAGGED_BIG else "big"
+        log(f"[kernel-fp32] {name} (N={n}, L={l}, H={h}, hd={hd}): "
+            + (f"route '{route}' with a backward" if shape != RAGGED_BIG else "#3 / #4"))
+        fwd, fwd_plain, bwd, bwd_plain, fwd_variant, bwd_variant = kernels[route]
         rows = attention_fwd_rows("kernel-fp32", [shape], fwd, fwd_plain, seed=20 + i, iters=5,
-                                  dtypes=(torch.float32,))
+                                  variant=fwd_variant, dtypes=fp32)
         rows.update({(k[0], "bwd"): v for k, v in attention_bwd_rows(
-            "kernel-fp32", [shape], bwd, bwd_plain, seed=30 + i, iters=3,
-            dtypes=(torch.float32,)).items()})
+            "kernel-fp32", [shape], bwd, bwd_plain, seed=30 + i, iters=3, dtypes=fp32,
+            variant=bwd_variant).items()})
         out[name] = dict(route=route, fwd=rows[(name, "float32")], bwd=rows[(name, "bwd")])
-    return out
+    return dict(rows=out, sweep_err=check_fp32_big_head_dims())
 
 
 def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
@@ -2814,13 +2901,16 @@ def main() -> None:
             f"{v['mfu']:.4f} ({v['mfu_fp32']:.4f} of fp32), peak {v['peak_gib']:.2f} GiB"
             for k, v in finetune.items()) + f"; parity {parity_finetune}; kernel-fp32 " + ", ".join(
             f"{k} {v['route']} fwd {v['fwd']['ms']:.3f} / bwd {v['bwd']['ms']:.3f} ms"
-            for k, v in fp32_k.items()) +
+            for k, v in fp32_k["rows"].items()) +
         f"; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
     paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
              train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
              *finetune.values())
     count = lambda key: sum(p["launches"][key] for p in paths)
+    big_fp32 = [max([v["err"] for (_, dt), v in big[d].items() if dt == "float32"]
+                    + [v[d]["err"] for v in fp32_k["rows"].values() if v["route"] == "big"]
+                    + [fp32_k["sweep_err"]]) for d in ("fwd", "bwd")]
     print(json.dumps({"kernels": [
         kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",
                     count("packed_fwd"), bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES]),
@@ -2830,14 +2920,16 @@ def main() -> None:
                     bwd[("train_encoder", "bfloat16")]),
         kernel_line("fused_adam_ema", "fused_adam_ema.cu", "fused_adam.py:109", count("adam"),
                     adam[ADAM_VARIANTS[0]]["err"], adam[ADAM_VARIANTS[0]]),
-        kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",
-                    "flash_big.py:213", count("big_fwd"),
-                    bf16(big["fwd"], [s[0] for s in BIG_FWD_SHAPES]),
-                    big["fwd"][("sample_encoder", "bfloat16")]),
-        kernel_line("packed_attention_big_bwd", "packed_attention_big_bwd.cu",
-                    "flash_big.py:234", count("big_bwd"),
-                    bf16(big["bwd"], ["train_encoder", "train_decoder"]),
-                    big["bwd"][("train_encoder", "bfloat16")]),
+        {**kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",
+                       "flash_big.py:213", count("big_fwd"),
+                       bf16(big["fwd"], [s[0] for s in BIG_FWD_SHAPES]),
+                       big["fwd"][("sample_encoder", "bfloat16")]),
+         "max_abs_err_fp32": big_fp32[0]},
+        {**kernel_line("packed_attention_big_bwd", "packed_attention_big_bwd.cu",
+                       "flash_big.py:234", count("big_bwd"),
+                       bf16(big["bwd"], ["train_encoder", "train_decoder"]),
+                       big["bwd"][("train_encoder", "bfloat16")]),
+         "max_abs_err_fp32": big_fp32[1]},
         kernel_line("flash_fwd", "flash_fwd.cu", "flash.py:96", count("flash_fwd"),
                     bf16(flash_k["fwd"], ["train_encoder", "train_decoder"]),
                     flash_k["fwd"][("train_encoder", "bfloat16")]),

@@ -25,6 +25,20 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The blocked kernels' libraries also hold the fp32 tensor-core kernels
+# (csrc/attention_fp32_mma.cuh: three kernels x 16 head dims of unrolled
+# mma.sync), minutes of nvcc's optimizer on one thread; -split-compile=0
+# runs it on every core. Their bf16 kernels' SASS is the same either way.
+KERNEL_FLAGS = {
+    "packed_attention_big_fwd": ("-split-compile=0",),
+    "packed_attention_big_bwd": ("-split-compile=0",),
+}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``: NVCC_FLAGS, then the kernel's
+    own."""
+    return (*NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()))
 
 
 def _nvcc() -> str:
@@ -44,7 +58,7 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
     digest = hashlib.sha256()
     for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -66,7 +80,7 @@ def build(name: str) -> tuple[Path, float]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [_nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")],
             capture_output=True, text=True,
         )
         lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)

@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include "attention_bwd_mma.cuh"
+#include "attention_fp32_mma.cuh"
 
 namespace {
 
@@ -479,6 +480,7 @@ using attention_bwd_mma::store_rows;
 using attention_bwd_mma::tile_dots;
 using attention_bwd_mma::tile_logits;
 using attention_bwd_mma::tile_stride;
+using attention_fp32_mma::split3;
 
 constexpr int kThreads = attention_bwd_mma::kThreads;  // 4 warps
 // floats between rows of the key kernel's fp32 p^T and ds^T tiles (64
@@ -494,24 +496,6 @@ __host__ __device__ constexpr size_t query_smem_bytes(int hd) {
 __host__ __device__ constexpr size_t key_smem_bytes(int hd) {
   return 6 * static_cast<size_t>(kKeys) * tile_stride(hd) * sizeof(bf16) +
          2 * static_cast<size_t>(kKeys) * kTStride * sizeof(float);
-}
-
-// x = x0 + x1 + x2 exactly, each piece bf16, for both halves of a pair (lo
-// in the low half of each word): x0 = bf16(x), x1 = bf16(x - x0), x2 = x -
-// x0 - x1. Each subtraction is exact in fp32 and x2 fits bf16, so the
-// last conversion does not round; the pinned subtractions keep the
-// compiler from contracting any of it.
-__device__ __forceinline__ void split3(float lo, float hi, uint32_t& p0, uint32_t& p1,
-                                       uint32_t& p2) {
-  const __nv_bfloat162 h0 = __floats2bfloat162_rn(lo, hi);
-  const float2 f0 = __bfloat1622float2(h0);
-  const float rlo = __fsub_rn(lo, f0.x), rhi = __fsub_rn(hi, f0.y);
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(rlo, rhi);
-  const float2 f1 = __bfloat1622float2(h1);
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(__fsub_rn(rlo, f1.x), __fsub_rn(rhi, f1.y));
-  p0 = *reinterpret_cast<const uint32_t*>(&h0);
-  p1 = *reinterpret_cast<const uint32_t*>(&h1);
-  p2 = *reinterpret_cast<const uint32_t*>(&h2);
 }
 
 // acc (16 x HD, n-tiles of 8) += (a[0] + a[1] + a[2]) . t: the three pieces'

@@ -14,11 +14,13 @@ the card (models/layers.attention_route).
     ``packed_attention_big_reference`` and
     ``packed_attention_big_bwd_reference``;
   * a CUDA tensor launches ``csrc/packed_attention_big_fwd.cu`` (replaces
-    ``_big_fwd``; in bf16 the tensor-core kernel of
-    ``csrc/attention_fwd_mma.cuh``, shared with ops/flash.py) and
-    ``csrc/packed_attention_big_bwd.cu`` (replaces ``_big_bwd``; in bf16
-    the tensor-core kernels of ``csrc/attention_bwd_mma.cuh``, shared with
-    ops/flash_batched.py), or raises.
+    ``_big_fwd``) and ``csrc/packed_attention_big_bwd.cu`` (replaces
+    ``_big_bwd``), or raises. Both types run on the tensor cores: bf16 by
+    the kernels of ``csrc/attention_fwd_mma.cuh`` (shared with ops/flash.py)
+    and ``csrc/attention_bwd_mma.cuh`` (shared with ops/flash_batched.py);
+    fp32, the released finetunes' path (``train.fp32``, TF32 off), by those
+    of ``csrc/attention_fp32_mma.cuh``, each fp32 product as six bf16
+    products of exact bf16 pieces of its operands.
 
 ``packed_attention_big`` applies flash_batched's ``AttentionFunction``,
 which saves only qkv, as the custom VJP does (flash_big.py:198-249); the
@@ -42,7 +44,6 @@ from maskdit_tpu_torch.ops.flash_batched import (
     MAX_HEAD_DIM,
     SMEM_LIMIT,
     AttentionFunction,
-    _align16,
     launch,
     mma_bwd_smem_bytes,
 )
@@ -54,6 +55,8 @@ BWD_KERNEL = "packed_attention_big_bwd"
 BLOCK_Q = 256
 # keys (or queries, in the backward's key pass) per tile the kernels stream
 TILE = 64
+# an SM's shared memory, and what the system keeps of it for each block
+SM_SMEM, BLOCK_RESERVE = 233472, 1024
 
 
 def mma_fwd_smem_bytes(hd: int) -> int:
@@ -65,57 +68,77 @@ def mma_fwd_smem_bytes(hd: int) -> int:
     return 4 * TILE * (hd16 + 8) * 2
 
 
+def _fp32_strides(hd: int) -> tuple[int, int]:
+    """Row strides, in floats, of the fp32 kernels' tiles
+    (csrc/attention_fp32_mma.cuh ``a_stride``, ``b_stride``)."""
+    return (hd if hd % 16 == 8 else hd + 8), hd + 4
+
+
 def fwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
-    """Shared memory of one forward block for inputs of ``esize`` bytes.
-    bf16 (2): ``mma_fwd_smem_bytes``. fp32 (4): ``smem_layout`` of
-    csrc/packed_attention_big_fwd.cu, q fp32 [hd][32], the logits row block
-    fp32 [L][32] (L padded to the tile), two fp32 [64][hd + 1] key/value
-    tiles, two reductions."""
+    """Shared memory of one forward block for inputs of ``esize`` bytes,
+    the same at every L. bf16 (2): ``mma_fwd_smem_bytes``. fp32 (4):
+    csrc/attention_fp32_mma.cuh ``fwd_smem_bytes``, the Q tile and the K and
+    V rings of two fp32 tiles of 64 rows each."""
     if esize == 2:
         return mma_fwd_smem_bytes(hd)
-    lp = -(-l // TILE) * TILE
-    s = _align16(hd * 32 * 4)
-    tile = _align16(s + lp * 32 * 4)
-    red = _align16(tile + 2 * TILE * (hd + 1) * 4)
-    return red + 2 * 8 * 32 * 4
+    a, b = _fp32_strides(hd)
+    return TILE * (a + 4 * b) * 4
+
+
+def fp32_key_depth(hd: int) -> int:
+    """Tiles in the fp32 key kernel's Q and dO rings: two where two blocks
+    still share an SM, else one (csrc/attention_fp32_mma.cuh ``key_depth``)."""
+    a, b = _fp32_strides(hd)
+    two = TILE * (2 * a + 4 * b + 2 * (TILE + 8)) * 4
+    return 2 if 2 * (two + BLOCK_RESERVE) <= SM_SMEM else 1
 
 
 def bwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
     """Shared memory of the larger of the backward's two kernels for inputs
-    of ``esize`` bytes. bf16 (2): flash_batched's ``mma_bwd_smem_bytes``
-    (the tensor-core kernels both backwards share). fp32 (4): ``query_layout``
-    and ``key_layout`` of csrc/packed_attention_big_bwd.cu."""
+    of ``esize`` bytes, the same at every L. bf16 (2): flash_batched's
+    ``mma_bwd_smem_bytes`` (the tensor-core kernels both backwards share).
+    fp32 (4): csrc/attention_fp32_mma.cuh's query kernel (Q and dO tiles, K
+    and V rings) and key kernel (its K and V, Q and dO rings of
+    ``fp32_key_depth`` tiles, p^T and ds^T [64][72])."""
     if esize == 2:
         return mma_bwd_smem_bytes(hd)
-    lp = -(-l // TILE) * TILE
-    tile = 2 * TILE * (hd + 1) * 4
-    dout = _align16(hd * 32 * 4)
-    s = _align16(dout + hd * 32 * 4)
-    red = _align16(_align16(s + lp * 32 * 4) + tile)
-    query = red + 2 * 8 * 32 * 4
-    tiles = _align16(2 * hd * 32 * 4)
-    pb = _align16(tiles + 2 * tile)
-    key = _align16(pb + TILE * 32 * 4) + TILE * 32 * 4
+    a, b = _fp32_strides(hd)
+    query = TILE * (2 * a + 4 * b) * 4
+    key = TILE * (2 * a + 2 * fp32_key_depth(hd) * b + 2 * (TILE + 8)) * 4
     return max(query, key)
 
 
+def route_window(l: int, head_dim: int) -> bool:
+    """The L at which the route may send (L, head_dim) to these kernels:
+    where the first fp32 kernels' shared memory fitted a block (their
+    query pass kept a (32, L) fp32 logits row block, Q and dO, two fp32
+    tiles of 64 rows and two reductions: 128 L + 768 hd + 2,560 B, L padded
+    to 64, within 232,448 B). The tensor-core kernels' layouts no longer
+    grow with L; the window is kept so that no route moves: past it the
+    JAX package's ``flash_big.supports`` still holds at L 1536 hd 72 and
+    L 2048 hd 32, where this route takes 'flash' or 'plain' (ROADMAP C6)."""
+    lp = -(-l // TILE) * TILE
+    return 128 * lp + 768 * head_dim + 2560 <= SMEM_LIMIT
+
+
 def fits(l: int, head_dim: int) -> bool:
-    """The kernels launch at (L, head_dim), at any L and for either input
-    type: head_dim a multiple of 8 (their 16-byte tile loads) and at most
-    128, and both kernels' shared memory within a block's 232,448 B (at
-    fp32, the larger layouts)."""
+    """The kernels launch at (L, head_dim) and the route may take them:
+    head_dim a multiple of 8 (their 16-byte tile loads) and at most 128,
+    both kernels' shared memory within a block's 232,448 B (at every L),
+    and L within ``route_window``."""
     return (
         head_dim % 8 == 0 and 0 < head_dim <= MAX_HEAD_DIM
         and fwd_smem_bytes(l, head_dim) <= SMEM_LIMIT
         and bwd_smem_bytes(l, head_dim) <= SMEM_LIMIT
+        and route_window(l, head_dim)
     )
 
 
 def supports(h: int, l: int, head_dim: int) -> bool:
     """True when (heads, seq, head_dim) lies in the JAX ``flash_big.supports``
     window (its ``_plan``: L at least 512 and a multiple of 256, head_dim a
-    multiple of 8) and the kernels fit the card (``fits``), which takes the
-    place of the TPU's VMEM budget."""
+    multiple of 8) and ``fits``, which takes the place of the TPU's VMEM
+    budget."""
     return h > 0 and l >= 512 and l % 256 == 0 and fits(l, head_dim)
 
 

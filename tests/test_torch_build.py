@@ -37,3 +37,15 @@ def test_library_path_ignores_other_sources(csrc):
     before = build.library_path("kernel", csrc)
     (csrc / "other.cu").write_text("int other() { return 2; }\n")
     assert build.library_path("kernel", csrc) == before
+
+
+def test_library_path_changes_with_the_flags(csrc, monkeypatch):
+    """A kernel's own flags give a new library path; the blocked kernels
+    build with nvcc's optimizer on every core."""
+    before = build.library_path("kernel", csrc)
+    monkeypatch.setitem(build.KERNEL_FLAGS, "kernel", ("-split-compile=0",))
+    assert build.library_path("kernel", csrc) != before
+    assert build.flags("kernel")[-1] == "-split-compile=0"
+    for name in ("packed_attention_big_fwd", "packed_attention_big_bwd"):
+        assert "-split-compile=0" in build.flags(name)
+    assert build.flags("packed_attention_fwd") == build.NVCC_FLAGS

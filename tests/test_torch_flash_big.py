@@ -159,29 +159,46 @@ def test_supports_window_is_the_jax_packages(h, l, hd):
     (256, 12, False), (256, 136, False), (2048, 72, False),
 ])
 def test_kernels_fit_any_l_with_an_8_aligned_head_dim(l, hd, fits):
-    """``fits``: where the kernels launch, at any L (the route sends them the
-    whole-row shapes whose backward does not fit, L 256 at hd 72);
-    ``supports`` adds the JAX package's window."""
+    """``fits``: where the kernels launch and the route may take them, at
+    any L within ``route_window`` (the route sends them the whole-row
+    shapes whose backward does not fit, L 256 at hd 72); ``supports`` adds
+    the JAX package's window. At a head dim they take, both layouts fit at
+    every L, and ``route_window`` alone refuses L 2048 at hd 72."""
     assert flash_big.fits(l, hd) == fits
     assert not flash_big.supports(16, l, hd) or fits
+    if hd % 8 == 0 and hd <= 128:
+        assert flash_big.fwd_smem_bytes(l, hd) <= flash_batched.SMEM_LIMIT
+        assert flash_big.bwd_smem_bytes(l, hd) <= flash_batched.SMEM_LIMIT
+        assert flash_big.fits(l, hd) == flash_big.route_window(l, hd)
 
 
 def test_shared_memory_formulas():
-    """What the kernel sources lay out, as the module computes it: the
-    512-px shapes fit a block's 232,448 B (one forward block per SM at
-    L 1024, two at L 512); L 2048 does not, so supports() refuses it."""
-    assert flash_big.fwd_smem_bytes(1024, 72) == 179712
-    assert flash_big.fwd_smem_bytes(512, 72) == 114176
-    assert flash_big.fwd_smem_bytes(1024, 32) == 154112
-    assert flash_big.bwd_smem_bytes(1024, 72) == 188928
-    assert flash_big.bwd_smem_bytes(512, 72) == 123392
-    assert flash_big.bwd_smem_bytes(1024, 128) == 231936
+    """What the kernel sources lay out, as the module computes it: fp32
+    (csrc/attention_fp32_mma.cuh) and bf16 the same at every L; at hd 72
+    two blocks share an SM in the forward and in both backward kernels.
+    The route window is the first fp32 kernels' limit, kept: L 1344 at
+    hd 72 and L 1600 at hd 32 are its last; supports() refuses L 2048."""
+    assert flash_big.fwd_smem_bytes(1024, 72) == 96256
+    assert flash_big.fwd_smem_bytes(512, 72) == 96256
+    assert flash_big.fwd_smem_bytes(1024, 32) == 47104
+    assert flash_big.bwd_smem_bytes(1024, 72) == 114688
+    assert flash_big.bwd_smem_bytes(512, 72) == 114688
+    assert flash_big.bwd_smem_bytes(1024, 128) == 204800
     assert flash_big.fwd_smem_bytes(1000, 72) == flash_big.fwd_smem_bytes(1024, 72)
     assert not flash_big.supports(16, 2048, 72)
     assert flash_big.bwd_smem_bytes(1024, 72, 4) == flash_big.bwd_smem_bytes(1024, 72)
+    for hd in (32, 72):
+        assert 2 * (flash_big.fwd_smem_bytes(1024, hd) + 1024) <= 233472
+        assert 2 * (flash_big.bwd_smem_bytes(1024, hd) + 1024) <= 233472
+    assert [flash_big.fp32_key_depth(hd) for hd in (8, 32, 40, 72, 128)] == [2, 2, 2, 1, 1]
+    for hd in range(8, 129, 8):
+        assert len({flash_big.fwd_smem_bytes(l, hd) for l in (64, 777, 4096)}) == 1
+        assert len({flash_big.bwd_smem_bytes(l, hd) for l in (64, 777, 4096)}) == 1
+    assert flash_big.route_window(1344, 72) and not flash_big.route_window(1345, 72)
+    assert flash_big.route_window(1600, 32) and not flash_big.route_window(1601, 32)
     # bf16 runs the tensor-core forward (csrc/attention_fwd_mma.cuh): four
     # bf16 [64][hd16 + 8] tiles, hd16 = hd padded to 16, the same at every L,
-    # so four blocks fit an SM at hd 72; fits() keeps reading the fp32 layout
+    # so four blocks fit an SM at hd 72; fits() reads the fp32 layouts
     assert flash_big.fwd_smem_bytes(1024, 72, 2) == 45056
     assert flash_big.fwd_smem_bytes(512, 72, 2) == 45056
     assert flash_big.fwd_smem_bytes(1024, 32, 2) == 20480
@@ -567,7 +584,9 @@ def test_cuda_kernels_match_plain_versions(shape, dtype):
     ref = flash_big.packed_attention_big_reference(x, h, hd ** -0.5).float()
     dref = flash_big.packed_attention_big_bwd_reference(x, g, h, hd ** -0.5).float()
     # relative to each result's largest value: fp32 differs by summation
-    # order; bf16 by one rounding of p, ds or the output (one bf16 ulp is at
+    # order and, on the tensor cores, by the products' dropped bf16 terms
+    # (~2^-24) and the mma.sync accumulation (at most 3.3e-6 measured on an
+    # H100); bf16 by one rounding of p, ds or the output (one bf16 ulp is at
     # most 2^-7 of the largest value), and only at a small share of the
     # elements: a rounding point moved or dropped changes a quarter to a
     # half of them (chip_smoke.py's BF16_MISMATCH_BOUND)

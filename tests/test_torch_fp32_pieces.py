@@ -1,0 +1,181 @@
+"""The arithmetic of the fp32 blocked attention on the tensor cores
+(csrc/attention_fp32_mma.cuh, kernels #3 and #4 for fp32), emulated in torch
+on the CPU and held to the plain versions and to the JAX Pallas kernels.
+
+The kernels split each fp32 operand of a product exactly into three bf16
+pieces and run the product as the six bf16 products a_i . b_j with
+i + j <= 2, each exact in fp32 and summed in fp32 (all nine terms are
+emulated beside them: the same error, summation order aside). Here ``_product`` does the same with torch matmuls on fp32 tensors
+that hold bf16 values (each product exact, the sums fp32, in another order
+than the tensor cores'). The forward is one online-softmax pass over tiles
+of 64 keys; the backward's query kernel repeats that pass for m, l and o,
+then forms dq over key tiles, and its key kernel forms dk and dv over query
+tiles, p rebuilt from m and l.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from maskdit_tpu.ops import flash_big as jax_big
+from maskdit_tpu_torch.ops import flash_big
+from tests.test_torch_flash import _split
+from tests.test_torch_flash_big import BWD_ATOL, FWD_ATOL
+
+TILE = 64
+SHAPES = [(1, 512, 2, 72), (1, 1024, 2, 32), (1, 777, 2, 40)]
+
+
+@pytest.fixture
+def interpret_mode():
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _pieces(x: torch.Tensor, count: int = 3) -> list:
+    """csrc ``split3``'s pieces (``_split``) as fp32 tensors holding bf16
+    values."""
+    return [piece.float() for piece in _split(x, count)]
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, pieces: int = 3, terms: int = 6):
+    """a @ b as the kernels form it: the products of the bf16 pieces a_i . b_j
+    with i + j <= ``pieces`` - 1 (three pieces: six terms), or all of them
+    (``terms`` 9), the smaller terms first."""
+    pa, pb = _pieces(a, pieces), _pieces(b, pieces)
+    top = 2 * (pieces - 1) if terms == 9 else pieces - 1
+    acc = None
+    for order in range(top, -1, -1):
+        for i in range(pieces - 1, -1, -1):
+            j = order - i
+            if 0 <= j < pieces:
+                term = pa[i] @ pb[j]
+                acc = term if acc is None else acc + term
+    return acc
+
+
+def _attend(q, k, v, scale, mm):
+    """The forward's pass over key tiles: o / l, m and l."""
+    n, h, l, _ = q.shape
+    m = torch.full((n, h, l, 1), float("-inf"))
+    lsum = torch.zeros(n, h, l, 1)
+    o = torch.zeros_like(q)
+    for k0 in range(0, l, TILE):
+        keys = slice(k0, k0 + TILE)
+        s = mm(q, k[:, :, keys].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s - m_new)
+        lsum = lsum * alpha + e.sum(-1, keepdim=True)
+        o = o * alpha + mm(e, v[:, :, keys])
+        m = m_new
+    return o / lsum, m, lsum
+
+
+def _emulated_forward(qkv, h, scale, **scheme):
+    n, l, three_d = qkv.shape
+    q, k, v = flash_big._heads(qkv, h)
+    o, _, _ = _attend(q, k, v, scale, lambda a, b: _product(a, b, **scheme))
+    return o.permute(0, 2, 1, 3).reshape(n, l, three_d // 3)
+
+
+def _emulated_backward(qkv, dout, h, scale, **scheme):
+    n, l, three_d = qkv.shape
+    hd = three_d // 3 // h
+    mm = lambda a, b: _product(a, b, **scheme)  # noqa: E731
+    q, k, v = flash_big._heads(qkv, h)
+    do = dout.reshape(n, l, h, hd).permute(0, 2, 1, 3)
+    # query kernel: the forward's pass, delta, then dq over key tiles
+    o, m, lsum = _attend(q, k, v, scale, mm)
+    delta = (do * o).sum(-1, keepdim=True)
+    every = slice(None)
+
+    def p_ds(rows, keys):
+        s = mm(q[:, :, rows], k[:, :, keys].transpose(-1, -2)) * scale
+        p = torch.exp(s - m[:, :, rows]) / lsum[:, :, rows]
+        dp = mm(do[:, :, rows], v[:, :, keys].transpose(-1, -2))
+        return p, p * (dp - delta[:, :, rows]) * scale
+
+    tiles = [slice(t, t + TILE) for t in range(0, l, TILE)]
+    dq = torch.zeros_like(q)
+    for keys in tiles:
+        dq = dq + mm(p_ds(every, keys)[1], k[:, :, keys])
+    # key kernel: dk and dv over query tiles
+    dk, dv = torch.zeros_like(q), torch.zeros_like(q)
+    for rows in tiles:
+        p, ds = p_ds(rows, every)
+        dv = dv + mm(p.transpose(-1, -2), do[:, :, rows])
+        dk = dk + mm(ds.transpose(-1, -2), q[:, :, rows])
+    dqkv = torch.stack([dq, dk, dv])  # (3, N, H, L, hd)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(n, l, three_d)
+
+
+def _spread(count: int, seed: int) -> torch.Tensor:
+    """fp32 values of both signs with random significands from 1e-30 to 1e30,
+    and normal draws."""
+    rng = np.random.default_rng(seed)
+    x = 10.0 ** rng.uniform(-30, 30, count) * rng.choice([-1.0, 1.0], count)
+    return torch.from_numpy(np.concatenate([x, rng.normal(size=count)]).astype(np.float32))
+
+
+def test_three_pieces_rebuild_every_fp32_value():
+    """The premise: each fp32 value is the sum of its three bf16 pieces bit
+    for bit, over tiny, huge and normal magnitudes (each subtraction of the
+    split exact, the last piece needing no rounding); two pieces leave most
+    values short."""
+    x = _spread(20000, 41)
+    x0, x1, x2 = _pieces(x)
+    assert torch.equal(x0.double() + x1.double() + x2.double(), x.double())
+    rest = x.double() - x0.double()
+    assert torch.equal((x - x0).double(), rest)
+    assert torch.equal(x2.double(), rest - x1.double())
+    assert ((x0.double() + x1.double()) == x.double()).double().mean().item() < 0.1
+
+
+def _errors(qkv, dout, h, scale, fwd_ref, bwd_ref, **scheme):
+    fwd = (_emulated_forward(qkv, h, scale, **scheme) - fwd_ref).abs().max().item()
+    bwd = (_emulated_backward(qkv, dout, h, scale, **scheme) - bwd_ref).abs().max().item()
+    return fwd, bwd
+
+
+def _pallas(qkv, dout, h, scale):
+    """The JAX custom VJP on its Pallas kernels (interpret mode): out, dqkv."""
+    out, vjp = jax.vjp(lambda a: jax_big.packed_attention_big(a, h, scale), qkv.numpy())
+    (dx,) = vjp(dout.numpy())
+    return torch.from_numpy(np.array(out)), torch.from_numpy(np.array(dx))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_emulated_kernels_hold_the_fp32_bounds(interpret_mode, shape, capsys):
+    """Six terms on three pieces (the kernels' scheme) are within FWD_ATOL /
+    BWD_ATOL of the plain versions and, where the JAX window holds, of the
+    Pallas ``_big_fwd`` / ``_big_bwd``; nine terms change the error by
+    summation order only. The fault the bound catches: one piece (plain
+    bf16 operands, as a one-pass TF32-like product would be short) misses
+    it by far; two pieces are printed beside."""
+    n, l, h, hd = shape
+    rng = np.random.default_rng(17 + l + hd)
+    qkv = torch.from_numpy(rng.normal(size=(n, l, 3 * h * hd)).astype(np.float32))
+    dout = torch.from_numpy(rng.normal(size=(n, l, h * hd)).astype(np.float32))
+    scale = hd ** -0.5
+    refs = [(flash_big.packed_attention_big_reference(qkv, h, scale),
+             flash_big.packed_attention_big_bwd_reference(qkv, dout, h, scale))]
+    if jax_big.supports(h, l, hd):
+        refs.append(_pallas(qkv, dout, h, scale))
+    for fwd_ref, bwd_ref in refs[::-1]:
+        fwd, bwd = _errors(qkv, dout, h, scale, fwd_ref, bwd_ref)
+        assert fwd <= FWD_ATOL and bwd <= BWD_ATOL, (fwd, bwd)
+    fwd_ref, bwd_ref = refs[0]
+    nine = _errors(qkv, dout, h, scale, fwd_ref, bwd_ref, terms=9)
+    two = _errors(qkv, dout, h, scale, fwd_ref, bwd_ref, pieces=2)
+    one = _errors(qkv, dout, h, scale, fwd_ref, bwd_ref, pieces=1)
+    assert nine[0] <= FWD_ATOL and nine[1] <= BWD_ATOL, nine
+    assert one[0] > 10 * FWD_ATOL and one[1] > 10 * BWD_ATOL, one
+    with capsys.disabled():
+        print(f"\n[fp32 pieces] {shape}: max abs error fwd / bwd against the plain "
+              f"versions: 6 terms {fwd:.3e} / {bwd:.3e}, 9 terms {nine[0]:.3e} / "
+              f"{nine[1]:.3e}, two pieces {two[0]:.3e} / {two[1]:.3e}, one piece "
+              f"{one[0]:.3e} / {one[1]:.3e}")

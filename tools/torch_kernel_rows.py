@@ -52,7 +52,8 @@ def main(argv: list[str] | None = None) -> None:
     if 4 in kernels:
         smoke.attention_bwd_rows("kernel-big", smoke.BIG_BWD_SHAPES,
                                  flash_big.packed_attention_big_bwd,
-                                 flash_big.packed_attention_big_bwd_reference, seed=6, iters=5)
+                                 flash_big.packed_attention_big_bwd_reference, seed=6, iters=5,
+                                 variant=smoke.blocked_variant)
     if 6 in kernels:
         g = torch.Generator(device="cuda").manual_seed(7)
         for name, n, l, h, hd in smoke.FLASH_BWD_SHAPES:
