@@ -15,14 +15,15 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      the training shapes, both in bf16 and fp32; the fused Adam + EMA
      update over all of DiT-XL/2's parameters; the blocked attention
      forward and backward at the 512-px shapes, at a ragged shape and at
-     the unmasked 256-px encoder's, where one attention layer's route is
-     checked on the card; every bf16 tensor-core kernel (the whole-row
-     forward #1, the blocked and flash forwards #3 and #5,
-     csrc/attention_fwd_mma.cuh, both packed backwards #2 and #4,
+     the unmasked 256-px encoder's, where one attention layer's route (the
+     whole-row kernels) is checked on the card; every bf16 tensor-core
+     kernel (the whole-row forward #1, the blocked and flash forwards #3
+     and #5, csrc/attention_fwd_mma.cuh, both packed backwards #2 and #4,
      csrc/attention_bwd_mma.cuh, and the flash backward #6) at every head
-     dim that is a multiple of 8 from 8 to 128; each row of #1, #2, #4 and
-     #6 names the kernels that ran (mma or fma), and a bf16 one at such a
-     head dim that is not mma fails;
+     dim that is a multiple of 8 from 8 to 128; each row of #1-#4 and #6
+     names the kernels that ran (mma, mma6 or fma), and a bf16 row of any
+     of them, or an fp32 row of #1-#4, at such a head dim that is not on
+     the tensor cores (mma, mma6) fails;
   4. sampling at 256 px (the serving path): a random DiT-XL/2 (decoder,
      MAE coef 0.1, 1000 classes, every parameter ~ N(0, 0.02^2)) saved as a
      reference ``{"ema": ...}`` checkpoint; ``maskdit_tpu_torch.generate``
@@ -110,9 +111,12 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
  14. the finetune phase (configs/finetune/*.yaml, fp32, as the released
      scripts/finetune_latent512.sh runs it: ``--ckpt_path X.pt
      --use_strict_load False``): [kernel-fp32] (with 3.) the fp32 attention
-     kernels the route takes at the finetune shapes, (64, 256, 16, 72 / 32)
-     and (16, 1024, 16, 72 / 32), forward and backward against their plain
-     versions and SDPA; [train-finetune256], [train-finetune-cos] and
+     kernels the route takes at the finetune shapes, (64, 256, 16, 72 / 32),
+     (16, 1024, 16, 72 / 32) and the cos4 buckets (64, 128 / 224 / 240, 16,
+     72), forward and backward against their plain versions and SDPA, and
+     both fp32 pairs (#1 / #2, #3 / #4, csrc/attention_fp32_mma.cuh) at
+     every head dim that is a multiple of 8 from 8 to 128;
+     [train-finetune256], [train-finetune-cos] and
      [train-finetune512] the train CLI on the three YAMLs at their batches
      (64, 64, 16), full width and depth, 6, 6 and 4 steps, each importing
      [weights]' tensors from a reference .pt without the mask token: finite
@@ -216,10 +220,11 @@ BWD_REL_BOUND = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # 2 x 4, encoder and decoder at L 1024) and training (batch 32, the encoder
 # at the 512 kept tokens, the decoder at L 1024); and XL/2's encoder trained
 # unmasked at 256 px (configs/finetune/imagenet256-latent-const.yaml, batch
-# 64, L 256), where the whole-row backward does not fit and the route takes
-# these kernels. The backward at the training shapes and a ragged one (L not
-# a multiple of the 32-row blocks or the 64-row tiles, hd 40). The bounds
-# are FWD_REL_BOUND and BWD_REL_BOUND.
+# 64, L 256), which the route sends to the whole-row kernels, as the JAX
+# package does: the blocked kernels' rows there are a yardstick for those.
+# The backward at the training shapes and a ragged one (L not a multiple of
+# the 32-row blocks or the 64-row tiles, hd 40). The bounds are
+# FWD_REL_BOUND and BWD_REL_BOUND.
 UNMASKED_256 = ("unmasked256_encoder", 64, 256, 16, 72)
 BIG_SHAPES = [
     ("sample_encoder", 2 * SEEDS_512, 1024, 16, 72),
@@ -239,8 +244,8 @@ BIG_BWD_SHAPES = BIG_SHAPES[2:] + [RAGGED_BIG]
 # multiple of the flash window
 SWEEP_SHAPE = (2, 384, 4)
 SWEEP_HEAD_DIMS = range(8, 129, 8)
-# the whole-row forward (#1) over the same head dims at an L its route takes
-# at every one of them
+# the whole-row kernels (#1 in bf16; #1 and #2 in fp32) over the same head
+# dims at an L their route takes at every one of them
 PACKED_SWEEP_SHAPE = (2, 128, 4)
 
 # ops/flash.py's kernels (#5, #6) at the use_flash path's 512-px shapes
@@ -394,7 +399,7 @@ FINETUNE_ATTN_SHAPES = [
     ("finetune_cos_encoder_224", FINETUNE_BATCH, 224, 16, 72),
     ("finetune_cos_encoder_240", FINETUNE_BATCH, 240, 16, 72),
 ]
-# bf16 products per fp32 product in the fp32 blocked kernels (#3, #4:
+# bf16 products per fp32 product in the fp32 tensor-core kernels (#1-#4:
 # csrc/attention_fp32_mma.cuh); an fp32 row prints, beside the fp32 FMA
 # bound, the tensor cores' bound of that scheme (FP32_TERMS x the products
 # at 989 TFLOP/s)
@@ -493,7 +498,7 @@ def attention_bound(n: int, l: int, h: int, hd: int, dtype: torch.dtype, product
 def tensor_core_bound_note(n: int, l: int, h: int, hd: int, dtype: torch.dtype, products: int,
                            ms: float) -> str:
     """For an fp32 row: the tensor cores' bound of FP32_TERMS bf16 products
-    per fp32 product (the operations bound of the fp32 blocked kernels'
+    per fp32 product (the operations bound of the fp32 tensor-core kernels'
     scheme) and the kernel's share of it; '' for bf16."""
     if dtype != torch.float32:
         return ""
@@ -637,19 +642,31 @@ def check_smem_formulas() -> None:
             big_bwd.packed_attention_big_bwd_smem_bytes(2048, hd, 2) == \
             flash_batched.mma_bwd_smem_bytes(hd), hd
         assert fl_bwd.flash_bwd_smem_bytes(hd, 2) == flash.bwd_smem_bytes(hd, 2), hd
-        # the whole-row forward (#1): the tensor-core kernel at every L of
-        # the route up to 832, and its layout where it runs
-        for l in (77, 128, 256, 384, 600, 832):
+        # the fp32 tensor-core kernels (#1 / #3 forward, #2 / #4 backward:
+        # one header, the same layouts at every L)
+        for l in (77, 224, 2048):
+            assert fwd.packed_attention_fwd_smem_bytes(l, hd, 4) == \
+                big.packed_attention_big_fwd_smem_bytes(l, hd, 4) == \
+                flash_batched.fwd_smem_bytes(l, hd, 4) == \
+                flash_batched.fp32_fwd_smem_bytes(hd), (l, hd)
+            assert bwd.packed_attention_bwd_smem_bytes(l, hd, 4) == \
+                big_bwd.packed_attention_big_bwd_smem_bytes(l, hd, 4) == \
+                flash_batched.bwd_smem_bytes(l, hd, 4) == \
+                flash_batched.fp32_bwd_smem_bytes(hd), (l, hd)
+        # the bf16 whole-row forward (#1): the tensor-core kernel at every L
+        # of the route's old window up to 832 and at the JAX window's 768,
+        # and its layout where it runs
+        for l in (77, 128, 256, 384, 600, 768, 832):
             assert fwd.packed_attention_fwd_smem_bytes(l, hd, 2) == \
                 flash_batched.fwd_smem_bytes(l, hd, 2), (l, hd)
-            if flash_batched.fits(l, hd, False):
+            if flash_batched.route_window(l, hd, False) or flash_batched.supports(2, l, hd):
                 assert flash_batched.fwd_kernel(torch.bfloat16, l, hd) == "mma", (l, hd)
                 assert fwd.packed_attention_fwd_smem_bytes(l, hd, 2) == \
                     flash_batched.mma_fwd_smem_bytes(l, hd), (l, hd)
     log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 11 shapes "
         "in bf16 and fp32, the flash forward's at 14, the tensor-core kernels' (the blocked "
-        "forward, both packed backwards, the flash backward, the whole-row forward at 6 L) "
-        "at 16 head dims")
+        "forward, both packed backwards in bf16 and fp32, the fp32 forwards, the flash "
+        "backward, the whole-row forward at 7 L) at 16 head dims")
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
@@ -672,19 +689,23 @@ def blocked_variant(dtype: torch.dtype, *shape: int) -> str:
     return "mma" if dtype == torch.bfloat16 else "mma6"
 
 
-def check_variant(what: str, dtype: torch.dtype, hd: int, variant: str) -> None:
+def check_variant(what: str, dtype: torch.dtype, hd: int, variant: str,
+                  fp32: bool = False) -> None:
     """A bf16 call at a head dim that is a multiple of 8 runs the
-    tensor-core kernels ('mma'), never the FMA ones."""
-    if dtype == torch.bfloat16 and hd % 8 == 0 and variant != "mma":
-        raise AssertionError(f"{what}: bf16 at hd {hd} ran the {variant} kernel, not mma")
+    tensor-core kernels ('mma'), never the FMA ones; with ``fp32`` (the
+    whole-row and the blocked kernels) so does an fp32 call ('mma6')."""
+    want = {torch.bfloat16: "mma", torch.float32: "mma6" if fp32 else variant}[dtype]
+    if hd % 8 == 0 and variant != want:
+        raise AssertionError(f"{what}: {dtype_name(dtype)} at hd {hd} ran the {variant} "
+                             f"kernel, not {want}")
 
 
 def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
                        variant=None, dtypes=(torch.bfloat16, torch.float32)) -> dict:
     """The forward wrapper ``kernel`` against ``plain`` at each shape and
     type of ``dtypes``: error, kernel, plain and library times, bound.
-    ``variant(dtype, L, hd)``, where given, names the kernel that ran (mma
-    or fma)."""
+    ``variant(dtype, L, hd)``, where given, names the kernel that ran (mma,
+    mma6 or fma)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
     for name, n, l, h, hd in shapes:
@@ -707,7 +728,7 @@ def attention_fwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
             ran = ""
             if variant is not None:
                 ran = f" ({variant(dtype, l, hd)})"
-                check_variant(f"{tag} {name}", dtype, hd, variant(dtype, l, hd))
+                check_variant(f"{tag} {name}", dtype, hd, variant(dtype, l, hd), fp32=True)
             log(f"[{tag}] {name} N={n} L={l} H={h} hd={hd} {dt}{ran}: max_abs_err {err:.3e} "
                 f"(bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements "
                 f"differing {share:.5f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -730,7 +751,8 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
     """The backward wrapper ``kernel`` against ``plain``, as above; the
     library time is SDPA's forward and backward. Each row names the kernels
     that ran: ``variant(dtype, hd)``, by default the whole-row backward's
-    ('mma', bf16, csrc/attention_bwd_mma.cuh, or 'fma')."""
+    ('mma', bf16, csrc/attention_bwd_mma.cuh; 'mma6', fp32,
+    csrc/attention_fp32_mma.cuh; or 'fma')."""
     from maskdit_tpu_torch.ops.flash_batched import bwd_kernel
 
     variant = variant or bwd_kernel
@@ -754,7 +776,7 @@ def attention_bwd_rows(tag: str, shapes, kernel, plain, seed: int, iters: int,
             library_ms = library_attention_ms(qkv, h, scale, iters, dout)
             bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 6, 7)
             dt = dtype_name(dtype)
-            check_variant(f"{tag} bwd {name}", dtype, hd, variant(dtype, hd))
+            check_variant(f"{tag} bwd {name}", dtype, hd, variant(dtype, hd), fp32=True)
             log(f"[{tag}] attention bwd {name} N={n} L={l} H={h} hd={hd} {dt} "
                 f"({variant(dtype, hd)}): "
                 f"max_abs_err {err:.3e} (bound {bnd:.3e} = {BWD_REL_BOUND[dtype]:.0e} "
@@ -827,8 +849,9 @@ def phase_bwd_kernels() -> dict:
 
 def check_unmasked_256_route() -> None:
     """One XL/2 attention layer at the unmasked 256-px shape (batch 2, L 256,
-    hd 72) on the card: with a backward it launches the blocked kernels, and
-    no plain attention runs; without one, the whole-row forward."""
+    hd 72) on the card: with a backward and without one it launches the
+    whole-row kernels, as the JAX package does, and no plain attention
+    runs."""
     from maskdit_tpu_torch.models.layers import Attention
 
     attn = Attention(16 * 72, 16, dtype=torch.bfloat16).cuda()
@@ -836,7 +859,7 @@ def check_unmasked_256_route() -> None:
     reset_launches()
     attn(x).float().square().sum().backward()
     torch.cuda.synchronize()
-    expect_launches("kernel-big", read_launches(), big_fwd=1, big_bwd=1)
+    expect_launches("kernel-big", read_launches(), packed_fwd=1, packed_bwd=1)
     reset_launches()
     with torch.no_grad():
         attn(x)
@@ -863,17 +886,14 @@ def phase_big_kernels() -> dict:
     return dict(fwd=fwd, bwd=bwd)
 
 
-def check_fp32_big_head_dims() -> float:
-    """The fp32 blocked kernels (#3, #4 on the tensor cores in bf16 pieces,
+def check_fp32_head_dims(what: str, fwd, fwd_plain, bwd, bwd_plain, shape, seed: int) -> float:
+    """fp32 attention kernels (on the tensor cores in bf16 pieces,
     csrc/attention_fp32_mma.cuh) at every head dim of SWEEP_HEAD_DIMS, at
-    SWEEP_SHAPE: one launch each, within FWD_REL_BOUND / BWD_REL_BOUND of
-    the plain versions, timed. Returns the worst error."""
-    from maskdit_tpu_torch.ops import flash_big
-
-    g = torch.Generator(device="cuda").manual_seed(41)
+    (N, L, H) = ``shape``: one launch each way, within FWD_REL_BOUND /
+    BWD_REL_BOUND of the plain versions, timed. Returns the worst error."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     fp32 = torch.float32
-    n, l, h = SWEEP_SHAPE
-    fwd, bwd = flash_big.packed_attention_big, flash_big.packed_attention_big_bwd
+    n, l, h = shape
     worst_err, worst, rows = 0.0, 0.0, []
     for hd in SWEEP_HEAD_DIMS:
         scale = hd ** -0.5
@@ -886,12 +906,10 @@ def check_fp32_big_head_dims() -> float:
         torch.cuda.synchronize()
         launches = (fwd.launches - before[0], bwd.launches - before[1])
         with torch.no_grad():
-            f = compare(out, flash_big.packed_attention_big_reference(qkv, h, scale),
-                        FWD_REL_BOUND[fp32], fp32)
-        b = compare(dqkv, flash_big.packed_attention_big_bwd_reference(qkv, dout, h, scale),
-                    BWD_REL_BOUND[fp32], fp32)
+            f = compare(out, fwd_plain(qkv, h, scale), FWD_REL_BOUND[fp32], fp32)
+        b = compare(dqkv, bwd_plain(qkv, dout, h, scale), BWD_REL_BOUND[fp32], fp32)
         if not (f[3] and b[3] and launches == (1, 1)):
-            raise AssertionError(f"fp32 blocked hd sweep hd={hd}: fwd err {f[0]} > {f[1]} or "
+            raise AssertionError(f"{what} fp32 hd sweep hd={hd}: fwd err {f[0]} > {f[1]} or "
                                  f"bwd err {b[0]} > {b[1]} or launches {launches}")
         with torch.no_grad():
             ms = cuda_ms(lambda: fwd(qkv, h, scale), 5)
@@ -899,7 +917,7 @@ def check_fp32_big_head_dims() -> float:
         worst_err = max(worst_err, f[0], b[0])
         worst = max(worst, f[0] / f[1], b[0] / b[1])
         rows.append(f"{hd}: {ms:.4f} / {bms:.4f}")
-    log(f"[kernel-fp32] head dims: #3 / #4 fp32 (mma6) at (N, L, H) = {SWEEP_SHAPE}, hd "
+    log(f"[kernel-fp32] head dims: {what} fp32 (mma6) at (N, L, H) = {shape}, hd "
         f"{SWEEP_HEAD_DIMS.start}-{SWEEP_HEAD_DIMS.stop - 1} step {SWEEP_HEAD_DIMS.step}: "
         f"{2 * len(SWEEP_HEAD_DIMS)} rows within their bounds; the worst error {worst:.3f} of "
         f"its bound ({worst_err:.3e}); fwd / bwd ms by hd " + ", ".join(rows))
@@ -911,16 +929,18 @@ def phase_fp32_kernels() -> dict:
     """[kernel-fp32]: the finetune paths' attention in fp32 (the released
     finetunes train with ``train.fp32: True``) at FINETUNE_ATTN_SHAPES, on
     the kernels ``attention_route`` picks there with a backward (whole-row
-    #1/#2 or blocked #3/#4), forward and backward against their plain
-    versions, with SDPA's times and the bounds; then #3/#4 in fp32 at the
-    ragged shape and over the head dims."""
+    #1/#2 or blocked #3/#4, both on the tensor cores: 'mma6'), forward and
+    backward against their plain versions, with SDPA's times and the bounds;
+    then #3/#4 in fp32 at the ragged shape, and both pairs over the head
+    dims."""
     from maskdit_tpu_torch.models.layers import attention_route
     from maskdit_tpu_torch.ops import flash_batched, flash_big
 
     kernels = {
         "packed": (flash_batched.packed_attention, flash_batched.packed_attention_reference,
                    flash_batched.packed_attention_bwd,
-                   flash_batched.packed_attention_bwd_reference, None, None),
+                   flash_batched.packed_attention_bwd_reference, flash_batched.fwd_kernel,
+                   flash_batched.bwd_kernel),
         "big": (flash_big.packed_attention_big, flash_big.packed_attention_big_reference,
                 flash_big.packed_attention_big_bwd, flash_big.packed_attention_big_bwd_reference,
                 blocked_variant, blocked_variant),
@@ -939,7 +959,16 @@ def phase_fp32_kernels() -> dict:
             "kernel-fp32", [shape], bwd, bwd_plain, seed=30 + i, iters=3, dtypes=fp32,
             variant=bwd_variant).items()})
         out[name] = dict(route=route, fwd=rows[(name, "float32")], bwd=rows[(name, "bwd")])
-    return dict(rows=out, sweep_err=check_fp32_big_head_dims())
+    big_err = check_fp32_head_dims("#3 / #4", flash_big.packed_attention_big,
+                                   flash_big.packed_attention_big_reference,
+                                   flash_big.packed_attention_big_bwd,
+                                   flash_big.packed_attention_big_bwd_reference, SWEEP_SHAPE, 41)
+    packed_err = check_fp32_head_dims("#1 / #2", flash_batched.packed_attention,
+                                      flash_batched.packed_attention_reference,
+                                      flash_batched.packed_attention_bwd,
+                                      flash_batched.packed_attention_bwd_reference,
+                                      PACKED_SWEEP_SHAPE, 43)
+    return dict(rows=out, sweep_err=big_err, packed_sweep_err=packed_err)
 
 
 def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
@@ -2908,16 +2937,23 @@ def main() -> None:
              train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
              *finetune.values())
     count = lambda key: sum(p["launches"][key] for p in paths)
-    big_fp32 = [max([v["err"] for (_, dt), v in big[d].items() if dt == "float32"]
-                    + [v[d]["err"] for v in fp32_k["rows"].values() if v["route"] == "big"]
-                    + [fp32_k["sweep_err"]]) for d in ("fwd", "bwd")]
+    fp32_err = lambda rows, route, d, sweep: max(
+        [v["err"] for (_, dt), v in rows.items() if dt == "float32"]
+        + [v[d]["err"] for v in fp32_k["rows"].values() if v["route"] == route] + [sweep])
+    packed_fp32 = [fp32_err(rows, "packed", d, fp32_k["packed_sweep_err"])
+                   for rows, d in ((kernels, "fwd"), (bwd, "bwd"))]
+    big_fp32 = [fp32_err(big[d], "big", d, fp32_k["sweep_err"]) for d in ("fwd", "bwd")]
     print(json.dumps({"kernels": [
-        kernel_line("packed_attention_fwd", "packed_attention_fwd.cu", "flash_batched.py:162",
-                    count("packed_fwd"), bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES]),
-                    kernels[("encoder", "bfloat16")]),
-        kernel_line("packed_attention_bwd", "packed_attention_bwd.cu", "flash_batched.py:177",
-                    count("packed_bwd"), bf16(bwd, ["train_encoder", "train_decoder"]),
-                    bwd[("train_encoder", "bfloat16")]),
+        {**kernel_line("packed_attention_fwd", "packed_attention_fwd.cu",
+                       "flash_batched.py:162", count("packed_fwd"),
+                       bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES]),
+                       kernels[("encoder", "bfloat16")]),
+         "max_abs_err_fp32": packed_fp32[0]},
+        {**kernel_line("packed_attention_bwd", "packed_attention_bwd.cu",
+                       "flash_batched.py:177", count("packed_bwd"),
+                       bf16(bwd, ["train_encoder", "train_decoder"]),
+                       bwd[("train_encoder", "bfloat16")]),
+         "max_abs_err_fp32": packed_fp32[1]},
         kernel_line("fused_adam_ema", "fused_adam_ema.cu", "fused_adam.py:109", count("adam"),
                     adam[ADAM_VARIANTS[0]]["err"], adam[ADAM_VARIANTS[0]]),
         {**kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",

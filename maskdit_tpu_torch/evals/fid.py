@@ -91,12 +91,17 @@ def calculate_inception_stats(
 def calc(image_path: str, ref_path: str, num_expected: int, seed: int, batch: int,
          detector: Callable, feature: str = "pool") -> float:
     """FID of a generated-image folder against reference statistics
-    (reference: fid.py:96-118)."""
+    (reference: fid.py:96-118). Every process returns it; the statistics
+    are the same on all of them, so the main process alone computes the
+    distance (a 2048 x 2048 ``sqrtm``, tens of host seconds) and the sum
+    over the processes (its value plus zeros) hands it to the others."""
     with np.load(ref_path) as ref:
         mu_ref, sigma_ref = ref["mu"], ref["sigma"]
     mu, sigma = calculate_inception_stats(image_path, detector, num_expected, seed, batch,
                                           feature)
-    return calculate_fid_from_inception_stats(mu, sigma, mu_ref, sigma_ref)
+    value = (calculate_fid_from_inception_stats(mu, sigma, mu_ref, sigma_ref)
+             if is_main_process() else 0.0)
+    return float(all_reduce_sum_array(np.asarray([value], dtype=np.float64))[0])
 
 
 def ref(dataset_path: str, dest_path: str, batch: int, detector: Callable,

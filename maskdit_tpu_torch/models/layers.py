@@ -197,8 +197,8 @@ def attention_route(num_heads: int, l: int, head_dim: int, backward: bool,
     tensor's device picks between a kernel and its plain version. Cached:
     the model asks once per shape, not once per call.
 
-    The JAX package's rule (layers.py:225-277, attention.py:78-91) with
-    the card's reasons in place of the TPU's VMEM budgets:
+    The JAX package's rule (layers.py:225-277, attention.py:78-91), its
+    kernels' windows held to the card's shared memory:
       * ``kv_valid`` (pad-to-max masking: the layer is given a valid-key
         count): 'plain', whatever ``use_flash`` says, since no kernel takes
         the mask;
@@ -207,16 +207,22 @@ def attention_route(num_heads: int, l: int, head_dim: int, backward: bool,
         ``flash.supports(L)`` holds, else 'plain', as ``flash_mha`` falls
         back; the packed kernels are never used;
       * ``use_flash`` None (auto):
-        - 'packed' (ops/flash_batched.py, kernels #1/#2) where its kernels'
-          shared-memory layouts fit a block's 232,448 B: the forward's at
-          fp32, and the backward's where a backward will be taken;
+        - 'packed' (ops/flash_batched.py, kernels #1/#2) where the JAX
+          package takes its whole-row kernels (``flash_batched.supports``:
+          its copy of the JAX window, L a multiple of 128 within the TPU's
+          VMEM budget) and the kernels launch in both input types (at a
+          head dim that is a multiple of 8, every L where the bf16
+          forward's logits row fits); and within ``route_window``, the L
+          at which the route took them before (their FMA layouts fit),
+          e.g. the cos4 finetune's buckets of 144-224 kept tokens;
         - else 'big' (ops/flash_big.py, kernels #3/#4) where
-          ``flash_big.supports`` holds (the 512-px shapes);
-        - else, where the whole-row forward fits but its backward does not
-          (XL/2's encoder trained unmasked at 256 px: L 256, hd 72), the JAX
-          package runs its whole-row kernels: 'big', whose kernels take any
-          L, runs both directions there, or, where they cannot take the
-          head dim, raise;
+          ``flash_big.supports`` holds (the JAX ``_plan`` window: the
+          512-px shapes, L 1536 at hd 72, L 2048 at hd 32);
+        - else, within the whole-row forward's ``route_window`` (no
+          backward) where the JAX package runs no kernel: 'big', whose
+          kernels take any L at a head dim that is a multiple of 8 (the
+          cos4 bucket of 240 kept tokens), or, at any other head dim,
+          raise;
         - else ``mha``'s auto rule: 'flash' at L >= 1024 with L % 128 == 0
           (and 'plain' past the kernel's window, L > 2048);
         - else 'plain'.
@@ -225,11 +231,12 @@ def attention_route(num_heads: int, l: int, head_dim: int, backward: bool,
         return "plain"
     if use_flash:
         return "flash" if flash.supports(l) else "plain"
-    if flash_batched.fits(l, head_dim, backward):
+    if (flash_batched.route_window(l, head_dim, backward)
+            or flash_batched.supports(num_heads, l, head_dim, backward)):
         return "packed"
     if flash_big.supports(num_heads, l, head_dim):
         return "big"
-    if flash_batched.fits(l, head_dim, False):
+    if flash_batched.route_window(l, head_dim, False):
         if flash_big.fits(l, head_dim):
             return "big"
         raise NotImplementedError(

@@ -1,17 +1,22 @@
-// The fp32 blocked attention on Hopper's tensor cores (sm_90a): kernel #3's
-// forward (flash_big._big_fwd) and kernel #4's backward (flash_big._big_bwd)
-// for fp32 qkv, the path of the released finetunes (configs/finetune/*.yaml
-// train with train.fp32 and TF32 off). packed_attention_big_fwd.cu and
-// packed_attention_big_bwd.cu launch them; the helpers serve any fp32
-// attention kernel. Per (sample, head), in fp32, with every "round to the
-// input type" of the TPU kernels the identity:
+// The fp32 attention on Hopper's tensor cores (sm_90a): the forward and the
+// backward of packed qkv for fp32 at a head dim that is a multiple of 8, the
+// path of the released finetunes (configs/finetune/*.yaml train with
+// train.fp32 and TF32 off). In fp32 the whole-row kernels #1 / #2
+// (flash_batched._packed_fwd / _packed_bwd) and the blocked kernels #3 / #4
+// (flash_big._big_fwd / _big_bwd) compute one function, so
+// packed_attention_fwd.cu, packed_attention_bwd.cu,
+// packed_attention_big_fwd.cu and packed_attention_big_bwd.cu all launch
+// these kernels; the helpers serve any fp32 attention kernel. Per (sample,
+// head), in fp32, with every "round to the input type" of the TPU kernels
+// the identity:
 //   s = (q . k) * scale; p = softmax(s) (the final max and sum); o = p . v;
 //   delta = sum(do * o); ds = p * (dp - delta) * scale with dp = do . v^T;
 //   dq = ds . k, dk = ds^T . q, dv = p^T . do (dk, dv over all queries).
 //
-// What bounds it: #3's two and #4's six L x L x hd products (4 and 12
-// N H L^2 hd operations) against a few N L D fp32 elements of traffic: far
-// above the card's balance, so arithmetic. On fp32 FMAs (67 TFLOP/s) that
+// What bounds it: the forward's two and the backward's six L x L x hd
+// products (4 and 12 N H L^2 hd operations) against a few N L D fp32
+// elements of traffic: above the card's balance at every L the finetunes
+// run (128-1024), so arithmetic. On fp32 FMAs (67 TFLOP/s) that
 // bound is ~15x the bf16 tensor cores' (989 TFLOP/s); plain TF32 (one
 // product of 11-bit operands) misses the 1e-5 bound these paths are held to.
 //

@@ -21,9 +21,20 @@
 // product a bf16 mma.sync with fp32 accumulators, K, V, Q and dO streamed in
 // 64-row tiles, so shared memory does not grow with L (86,016 B at hd 72).
 //
-// fp32 (the parity path), and bf16 at other head dims, keep the first
-// design, fp32 FMAs from shared memory. The TPU kernel loops over all heads
-// of one sample in one sequential grid step. Here blocks run in no order, and dk and dv are sums
+// fp32 at a head dim that is a multiple of 8 (the released finetunes,
+// configs/finetune/*.yaml: train.fp32, TF32 off; held to 1e-5 of max|ref|)
+// runs attention_fp32_mma.cuh's tensor-core kernels, the ones kernel #4
+// runs in fp32 (in fp32 every "round to the input type" is the identity):
+// a query kernel (one online-softmax pass for m, l and o, delta, then dq)
+// and a key kernel (its 64 keys' K and V kept, Q and dO streamed; dk, dv
+// over all queries), fp32 tiles streamed by 16-byte cp.async and split into
+// three exact bf16 pieces as each fragment is read, every product as six
+// bf16 mma.sync products; no atomics, and shared memory that does not grow
+// with L: 114,688 B at hd 72, 94,208 B at hd 32.
+//
+// bf16 and fp32 at other head dims keep the first design, fp32 FMAs from
+// shared memory. The TPU kernel loops over all heads of one sample in one
+// sequential grid step. Here blocks run in no order, and dk and dv are sums
 // over all queries, so the work is split in two passes that need no
 // atomics and give the same bits on every run:
 //   * pass 1, grid (L/32 query blocks, H, N): a block recomputes the
@@ -46,6 +57,7 @@
 #include <stdint.h>
 
 #include "attention_bwd_mma.cuh"
+#include "attention_fp32_mma.cuh"
 
 namespace {
 
@@ -542,11 +554,12 @@ cudaError_t launch(const void* qkv, const void* dout, void* dqkv, float* stats,
 extern "C" {
 
 // Bytes of dynamic shared memory the larger of the two kernels needs per
-// block: for bf16 (esize 2) at a head dim that is a multiple of 8 the
-// tensor-core kernels', the same at every l; else the two passes' (operands
-// widened to fp32).
+// block: at a head dim that is a multiple of 8 the tensor-core kernels',
+// bf16 (esize 2) or fp32 (esize 4), the same at every l; else the two
+// passes' (operands widened to fp32).
 size_t packed_attention_bwd_smem_bytes(int l, int hd, int esize) {
   if (esize == 2 && hd % 8 == 0) return attention_bwd_mma::smem_bytes(hd);
+  if (esize == 4 && hd % 8 == 0) return attention_fp32_mma::bwd_smem_bytes(hd);
   const int lp = (l + 31) & ~31;
   const size_t q = query_layout(lp, hd).total;
   const size_t k = key_layout(lp, hd).total;
@@ -555,8 +568,8 @@ size_t packed_attention_bwd_smem_bytes(int l, int hd, int esize) {
 
 // dtype: 0 = bfloat16, 1 = float32. qkv (n, l, 3*heads*hd), dout
 // (n, l, heads*hd) and dqkv (n, l, 3*heads*hd) are contiguous in dtype;
-// stats is fp32 scratch of 3*n*heads*l; all on the current device; in bf16
-// at a head dim that is a multiple of 8, qkv and dout 16-byte aligned.
+// stats is fp32 scratch of 3*n*heads*l; all on the current device; at a
+// head dim that is a multiple of 8, qkv and dout 16-byte aligned.
 // Launches both kernels on the stream and returns the cudaError_t (0 on
 // success).
 int packed_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
@@ -581,8 +594,17 @@ int packed_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* st
                                                  static_cast<bf16*>(dqkv), st, n, heads};
       return static_cast<int>(attention_bwd_mma::launch(problem, l, hd, scale, s));
     }
-    case 1:
-      return static_cast<int>(launch<float>(qkv, dout, dqkv, st, n, l, heads, hd, scale, s));
+    case 1: {
+      if (hd % 8 != 0)
+        return static_cast<int>(launch<float>(qkv, dout, dqkv, st, n, l, heads, hd, scale, s));
+      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+          reinterpret_cast<uintptr_t>(dout) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      const attention_fp32_mma::BwdProblem problem{static_cast<const float*>(qkv),
+                                                   static_cast<const float*>(dout),
+                                                   static_cast<float*>(dqkv), st, n, heads};
+      return static_cast<int>(attention_fp32_mma::launch_bwd(problem, l, hd, scale, s));
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

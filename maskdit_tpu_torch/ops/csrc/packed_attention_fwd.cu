@@ -16,9 +16,9 @@
 //
 // bf16 at a head dim that is a multiple of 8 (every model's, the main path):
 // the tensor cores, one pass over the keys with s kept on chip. The route
-// (flash_batched.fits) only sends shapes whose whole row fits a block, so
-// unlike the blocked forward (attention_fwd_mma.cuh's two passes) s is
-// formed once. Grid (ceil(L / 64), H, N), 4 warps of 16 queries, each
+// (models/layers.attention_route) only sends shapes whose whole row fits a
+// block, so unlike the blocked forward (attention_fwd_mma.cuh's two passes)
+// s is formed once. Grid (ceil(L / 64), H, N), 4 warps of 16 queries, each
 // holding its Q rows as mma A fragments (mma.sync m16n8k16, bf16 in, fp32
 // accumulate; the header's tiles, cp.async rings, ldmatrix and div_rn):
 //   1. over the key tiles: S = Q K^T, the exact row max m, and s itself,
@@ -34,15 +34,25 @@
 // past L are not stored. Shared memory: the K and V rings, 4 bf16
 // [64][hd16 + 8] tiles, and s, 64 x L fp32 (L padded to 64): 77,824 B at
 // (L 128, hd 72), 110,592 B at (256, 72), 86,016 B at (256, 32). Where
-// that exceeds a block's limit (hd 8 and 16 at L above 832, where the
-// route's fp32 layout may still fit) the FMA kernel below runs.
+// that exceeds a block's limit (hd 8 and 16 at L above 832) the FMA kernel
+// below runs.
 //
-// fp32 (the parity path) and bf16 at other head dims keep the first
-// design, fp32 FMAs: grid (ceil(L/32), H, N); the block copies the head's K
-// (transposed to [hd][L]) and V once into shared memory, the (32, L) fp32
-// logits stay there, each warp computes 4 queries x 8 key columns per
-// pass, the softmax runs over columns in fp32, and each warp accumulates
-// its 4 queries' outputs.
+// fp32 at a head dim that is a multiple of 8 (the released finetunes,
+// configs/finetune/*.yaml: train.fp32, TF32 off; held to 1e-5 of max|ref|)
+// runs attention_fp32_mma.cuh's tensor-core forward, the one kernel #3
+// (packed_attention_big_fwd.cu) runs in fp32: in fp32 every "round to the
+// input type" of the TPU kernels is the identity, so the whole-row and the
+// blocked kernels compute the same function. Blocks of 64 queries of one
+// head, K and V streamed in 64-row fp32 tiles by 16-byte cp.async, each
+// fragment split into three exact bf16 pieces as it is read, every product
+// as six bf16 mma.sync products, one online-softmax pass over the keys.
+// Shared memory 96,256 B at hd 72, 47,104 B at hd 32, at every L.
+//
+// bf16 and fp32 at other head dims keep the first design, fp32 FMAs: grid
+// (ceil(L/32), H, N); the block copies the head's K (transposed to [hd][L])
+// and V once into shared memory, the (32, L) fp32 logits stay there, each
+// warp computes 4 queries x 8 key columns per pass, the softmax runs over
+// columns in fp32, and each warp accumulates its 4 queries' outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +60,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "attention_fp32_mma.cuh"
 #include "attention_fwd_mma.cuh"
 
 namespace {
@@ -511,22 +522,30 @@ cudaError_t launch(const void* qkv, void* out, int n, int l, int heads, int hd,
   return cudaGetLastError();
 }
 
+// fp32 runs the tensor-core kernel at a head dim that is a multiple of 8,
+// at most 128 (its shared memory does not depend on l)
+bool fp32_mma_takes(int hd) { return hd % 8 == 0 && hd <= attention_fwd_mma::kMaxHd; }
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs; the caller checks it
 // against the device's limit before a launch. bf16 (esize 2) where the
-// tensor-core kernel takes (l, hd): its layout; else the FMA kernel's.
+// tensor-core kernel takes (l, hd): its layout; fp32 (esize 4) at a head
+// dim that is a multiple of 8: attention_fp32_mma.cuh's forward's, the same
+// at every l; else the FMA kernel's.
 size_t packed_attention_fwd_smem_bytes(int l, int hd, int esize) {
   if (esize == 2 && mma_fwd::takes(l, hd)) return mma_fwd::smem_bytes(l, hd);
+  if (esize == 4 && fp32_mma_takes(hd)) return attention_fp32_mma::fwd_smem_bytes(hd);
   return smem_layout((l + 31) & ~31, hd, esize).total;
 }
 
 // dtype: 0 = bfloat16, 1 = float32. qkv is (n, l, 3*heads*hd) contiguous and
-// out (n, l, heads*hd) contiguous, both on the current device; where bf16
-// takes the tensor-core kernel, qkv is 16-byte aligned. Returns the
-// cudaError_t of the launch (0 on success).
+// out (n, l, heads*hd) contiguous, both on the current device; where a
+// tensor-core kernel runs (bf16 where mma_fwd::takes, fp32 at a head dim
+// that is a multiple of 8), qkv is 16-byte aligned. Returns the cudaError_t
+// of the launch (0 on success).
 int packed_attention_fwd(const void* qkv, void* out, int n, int l, int heads,
                          int hd, float scale, int dtype, void* stream) {
   if (n <= 0 || l <= 0 || heads <= 0 || hd <= 0 || hd > 32 * kMaxHdCols ||
@@ -544,8 +563,15 @@ int packed_attention_fwd(const void* qkv, void* out, int n, int l, int heads,
                                                 static_cast<bf16*>(out), n, heads};
       return static_cast<int>(mma_fwd::launch(layout, l, hd, scale, s));
     }
-    case 1:
-      return static_cast<int>(launch<float>(qkv, out, n, l, heads, hd, scale, s));
+    case 1: {
+      if (!fp32_mma_takes(hd))
+        return static_cast<int>(launch<float>(qkv, out, n, l, heads, hd, scale, s));
+      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      const attention_fp32_mma::FwdProblem problem{static_cast<const float*>(qkv),
+                                                   static_cast<float*>(out), n, heads};
+      return static_cast<int>(attention_fp32_mma::launch_fwd(problem, l, hd, scale, s));
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

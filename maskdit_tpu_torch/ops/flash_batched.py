@@ -13,11 +13,15 @@ ops/flash_big.py too.
   * a CPU tensor goes to the plain PyTorch versions,
     ``packed_attention_reference`` and ``packed_attention_bwd_reference``;
   * a CUDA tensor launches the hand-written kernels in
-    ``csrc/packed_attention_fwd.cu`` (replaces the Pallas ``_packed_fwd``;
-    in bf16 a whole-row tensor-core kernel, see ``fwd_kernel``) and
-    ``csrc/packed_attention_bwd.cu`` (replaces ``_packed_bwd``; in bf16
-    the tensor-core kernels of ``csrc/attention_bwd_mma.cuh``, shared with
-    ops/flash_big.py, see ``bwd_kernel``), or raises.
+    ``csrc/packed_attention_fwd.cu`` (replaces the Pallas ``_packed_fwd``)
+    and ``csrc/packed_attention_bwd.cu`` (replaces ``_packed_bwd``), or
+    raises. At a head dim that is a multiple of 8 both types run on the
+    tensor cores (``fwd_kernel``, ``bwd_kernel``): bf16 by a whole-row
+    forward of its own and the backward of ``csrc/attention_bwd_mma.cuh``,
+    fp32 (the released finetunes' path: ``train.fp32``, TF32 off) by the
+    kernels of ``csrc/attention_fp32_mma.cuh``, each fp32 product as six
+    bf16 products of exact bf16 pieces of its operands. Both are shared
+    with ops/flash_big.py, whose kernels compute the same function.
 
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
 kernel launches and nothing else, so a run can show that it went through
@@ -43,6 +47,16 @@ MAX_HEAD_DIM = 128
 SMEM_LIMIT = 232448
 
 
+# rows of the tensor-core kernels' tiles; an SM's shared memory, and what
+# the system keeps of it for each block
+TILE = 64
+SM_SMEM, BLOCK_RESERVE = 233472, 1024
+# the JAX ``supports`` window (maskdit_tpu/ops/flash_batched.py:192-208):
+# the TPU's lane width and its VMEM budget
+LANE = 128
+VMEM_BUDGET = 12 * 1024 * 1024
+
+
 def _align16(x: int) -> int:
     return (x + 15) & ~15
 
@@ -53,32 +67,7 @@ def mma_fwd_smem_bytes(l: int, hd: int) -> int:
     of two bf16 [64][hd16 + 8] tiles each, hd16 = hd padded to a multiple of
     16, and the block's logits, fp32 [64][L] with L padded to 64."""
     hd16 = -(-hd // 16) * 16
-    return 4 * 64 * (hd16 + 8) * 2 + 64 * (-(-l // 64) * 64) * 4
-
-
-def fwd_kernel(dtype: torch.dtype, l: int, hd: int) -> str:
-    """Which forward kernel a call runs: 'mma', the whole-row tensor-core
-    kernel, for bf16 at a head dim that is a multiple of 8 (every model's)
-    where its logits fit a block (every L of the route but L 833-1184 at
-    hd 8 and 833-864 at hd 16); 'fma', the fp32-FMA kernel, otherwise."""
-    return ("mma" if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= MAX_HEAD_DIM
-            and mma_fwd_smem_bytes(l, hd) <= SMEM_LIMIT else "fma")
-
-
-def fwd_smem_bytes(l: int, hd: int, esize: int) -> int:
-    """Shared memory of one forward block for inputs of ``esize`` bytes.
-    bf16 (2) where ``fwd_kernel`` is 'mma': ``mma_fwd_smem_bytes``. Else
-    ``smem_layout`` of csrc/packed_attention_fwd.cu's FMA kernel (q fp32
-    [hd][32], the head's K and V in the input type, logits fp32 [L][32],
-    two reductions), L padded to 32."""
-    if esize == 2 and fwd_kernel(torch.bfloat16, l, hd) == "mma":
-        return mma_fwd_smem_bytes(l, hd)
-    lp = -(-l // 32) * 32
-    k = _align16(hd * 32 * 4)
-    v = _align16(k + hd * lp * esize)
-    s = _align16(v + lp * hd * esize)
-    red = _align16(s + lp * 32 * 4)
-    return red + 2 * 8 * 32 * 4
+    return 4 * TILE * (hd16 + 8) * 2 + TILE * (-(-l // TILE) * TILE) * 4
 
 
 def mma_bwd_smem_bytes(hd: int) -> int:
@@ -88,24 +77,62 @@ def mma_bwd_smem_bytes(hd: int) -> int:
     bf16 [64][hd16 + 8] tiles, hd16 = hd padded to a multiple of 16, and its
     pb and ds tiles, bf16 [64][72] each; the same at every L."""
     hd16 = -(-hd // 16) * 16
-    return 6 * 64 * (hd16 + 8) * 2 + 2 * 64 * 72 * 2
+    return 6 * TILE * (hd16 + 8) * 2 + 2 * TILE * 72 * 2
 
 
-def bwd_kernel(dtype: torch.dtype, hd: int) -> str:
-    """Which backward kernels a call runs: 'mma', the tensor-core kernels of
-    csrc/attention_bwd_mma.cuh, for bf16 at a head dim that is a multiple of
-    8 (every model's); 'fma', the fp32-FMA kernels, otherwise."""
-    return "mma" if dtype == torch.bfloat16 and hd % 8 == 0 else "fma"
+def _fp32_strides(hd: int) -> tuple[int, int]:
+    """Row strides, in floats, of the fp32 tensor-core kernels' tiles
+    (csrc/attention_fp32_mma.cuh ``a_stride``, ``b_stride``)."""
+    return (hd if hd % 16 == 8 else hd + 8), hd + 4
 
 
-def bwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
-    """Shared memory of the larger of the backward's two kernels for inputs
-    of ``esize`` bytes. bf16 (2) at a head dim that is a multiple of 8:
-    ``mma_bwd_smem_bytes``. Else ``query_layout`` and ``key_layout`` of
-    csrc/packed_attention_bwd.cu (operands widened to fp32, rows padded to
-    hd + 1 words)."""
-    if esize == 2 and hd % 8 == 0:
-        return mma_bwd_smem_bytes(hd)
+def fp32_fwd_smem_bytes(hd: int) -> int:
+    """Shared memory of one block of the fp32 tensor-core forward
+    (csrc/attention_fp32_mma.cuh ``fwd_smem_bytes``, #1 and #3 in fp32): the
+    Q tile and the K and V rings of two fp32 tiles of 64 rows each; the same
+    at every L."""
+    a, b = _fp32_strides(hd)
+    return TILE * (a + 4 * b) * 4
+
+
+def fp32_key_depth(hd: int) -> int:
+    """Tiles in the fp32 key kernel's Q and dO rings: two where two blocks
+    still share an SM, else one (csrc/attention_fp32_mma.cuh ``key_depth``)."""
+    a, b = _fp32_strides(hd)
+    two = TILE * (2 * a + 4 * b + 2 * (TILE + 8)) * 4
+    return 2 if 2 * (two + BLOCK_RESERVE) <= SM_SMEM else 1
+
+
+def fp32_bwd_smem_bytes(hd: int) -> int:
+    """Shared memory of the larger of the fp32 tensor-core backward's two
+    kernels (csrc/attention_fp32_mma.cuh ``bwd_smem_bytes``, #2 and #4 in
+    fp32): the query kernel (Q and dO tiles, K and V rings) and the key
+    kernel (its K and V, Q and dO rings of ``fp32_key_depth`` tiles, p^T and
+    ds^T [64][72]); the same at every L."""
+    a, b = _fp32_strides(hd)
+    query = TILE * (2 * a + 4 * b) * 4
+    key = TILE * (2 * a + 2 * fp32_key_depth(hd) * b + 2 * (TILE + 8)) * 4
+    return max(query, key)
+
+
+def fma_fwd_smem_bytes(l: int, hd: int, esize: int) -> int:
+    """Shared memory of one block of the FMA forward for inputs of ``esize``
+    bytes (``smem_layout`` of csrc/packed_attention_fwd.cu: q fp32 [hd][32],
+    the head's K and V in the input type, logits fp32 [L][32], two
+    reductions), L padded to 32."""
+    lp = -(-l // 32) * 32
+    k = _align16(hd * 32 * 4)
+    v = _align16(k + hd * lp * esize)
+    s = _align16(v + lp * hd * esize)
+    red = _align16(s + lp * 32 * 4)
+    return red + 2 * 8 * 32 * 4
+
+
+def fma_bwd_smem_bytes(l: int, hd: int) -> int:
+    """Shared memory of the larger of the FMA backward's two passes
+    (``query_layout`` and ``key_layout`` of csrc/packed_attention_bwd.cu:
+    operands widened to fp32, rows padded to hd + 1 words), for either
+    input type."""
     lp = -(-l // 32) * 32
     rows = lp * (hd + 1) * 4
     dout = _align16(hd * 32 * 4)
@@ -118,12 +145,92 @@ def bwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
     return max(query, key)
 
 
+def fwd_kernel(dtype: torch.dtype, l: int, hd: int) -> str:
+    """Which forward kernel a call runs. At a head dim that is a multiple of
+    8 (every model's), at most 128: 'mma', the bf16 whole-row tensor-core
+    kernel, where its logits fit a block (every L of the route but L
+    833-1184 at hd 8 and 833-864 at hd 16); 'mma6', fp32 on the tensor
+    cores (csrc/attention_fp32_mma.cuh: each product as six bf16 products of
+    exact pieces), at every L. 'fma', the fp32-FMA kernel, otherwise."""
+    if hd % 8 or hd > MAX_HEAD_DIM:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "mma" if mma_fwd_smem_bytes(l, hd) <= SMEM_LIMIT else "fma"
+    return "mma6"
+
+
+def fwd_smem_bytes(l: int, hd: int, esize: int) -> int:
+    """Shared memory of one forward block for inputs of ``esize`` bytes (2
+    bf16, 4 fp32): the layout of the kernel ``fwd_kernel`` names."""
+    kernel = fwd_kernel(torch.bfloat16 if esize == 2 else torch.float32, l, hd)
+    if kernel == "mma":
+        return mma_fwd_smem_bytes(l, hd)
+    if kernel == "mma6":
+        return fp32_fwd_smem_bytes(hd)
+    return fma_fwd_smem_bytes(l, hd, esize)
+
+
+def bwd_kernel(dtype: torch.dtype, hd: int) -> str:
+    """Which backward kernels a call runs. At a head dim that is a multiple
+    of 8 (every model's): 'mma', the bf16 tensor-core kernels of
+    csrc/attention_bwd_mma.cuh, or 'mma6', the fp32 ones of
+    csrc/attention_fp32_mma.cuh; 'fma', the fp32-FMA kernels, otherwise."""
+    if hd % 8:
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "mma6"
+
+
+def bwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
+    """Shared memory of the larger of the backward's two kernels for inputs
+    of ``esize`` bytes: the layout of the kernels ``bwd_kernel`` names (the
+    tensor-core ones the same at every L)."""
+    kernel = bwd_kernel(torch.bfloat16 if esize == 2 else torch.float32, hd)
+    if kernel == "mma":
+        return mma_bwd_smem_bytes(hd)
+    if kernel == "mma6":
+        return fp32_bwd_smem_bytes(hd)
+    return fma_bwd_smem_bytes(l, hd)
+
+
 def fits(l: int, hd: int, backward: bool) -> bool:
-    """The kernels launch at (L, hd) for either input type: the forward's
-    and, where a backward will be taken, the backward's layout at fp32 (the
-    larger) fit the card's limit."""
-    return (hd <= MAX_HEAD_DIM and fwd_smem_bytes(l, hd, 4) <= SMEM_LIMIT
-            and (not backward or bwd_smem_bytes(l, hd) <= SMEM_LIMIT))
+    """The kernels launch at (L, hd) in both input types: the forward's
+    layouts and, where a backward will be taken, the backward's fit the
+    card's limit. At a head dim that is a multiple of 8 the fp32 kernels
+    and the bf16 backward fit at every L, and the bf16 forward where its
+    logits row (or, past it, its FMA layout) fits."""
+    return (hd <= MAX_HEAD_DIM
+            and all(fwd_smem_bytes(l, hd, e) <= SMEM_LIMIT for e in (2, 4))
+            and (not backward or all(bwd_smem_bytes(l, hd, e) <= SMEM_LIMIT for e in (2, 4))))
+
+
+def route_window(l: int, hd: int, backward: bool) -> bool:
+    """The L at which the route took these kernels before their fp32 paths
+    moved to the tensor cores: the FMA kernels' fp32 layouts (the forward's,
+    and the backward's where a backward will be taken) fit a block. Kept so
+    that no route moves but where ``supports`` now holds."""
+    return (hd <= MAX_HEAD_DIM and fma_fwd_smem_bytes(l, hd, 4) <= SMEM_LIMIT
+            and (not backward or fma_bwd_smem_bytes(l, hd) <= SMEM_LIMIT))
+
+
+def jax_window(h: int, l: int, hd: int) -> bool:
+    """The JAX package's ``flash_batched.supports(h, l, hd)``
+    (maskdit_tpu/ops/flash_batched.py:192-208), copied: L a multiple of the
+    TPU's 128 lanes, and the backward's working set within its VMEM budget
+    (double-buffered bf16 data blocks, the (3D, L) transpose scratch, four
+    fp32 (L, L) temporaries)."""
+    if l % LANE != 0:
+        return False
+    hidden = h * hd
+    blocks = 2 * 7 * hidden * l * 2
+    dt_scratch = 3 * hidden * l * 2
+    temps = 4 * 4 * l * l
+    return blocks + dt_scratch + temps <= VMEM_BUDGET
+
+
+def supports(h: int, l: int, hd: int, backward: bool = True) -> bool:
+    """(heads, L, hd) lies in the JAX package's window for its whole-row
+    kernels (``jax_window``) and the kernels launch there (``fits``)."""
+    return h > 0 and jax_window(h, l, hd) and fits(l, hd, backward)
 
 
 def packed_attention_reference(
@@ -269,7 +376,7 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     hd = qkv.shape[-1] // 3 // num_heads
     out = launch("packed_attention", _library, "packed_attention_fwd",
                  "packed_attention_error_string", fwd_smem_bytes, qkv, num_heads, scale,
-                 aligned=fwd_kernel(qkv.dtype, qkv.shape[1], hd) == "mma")
+                 aligned=fwd_kernel(qkv.dtype, qkv.shape[1], hd) != "fma")
     packed_attention.launches += 1
     return out
 
@@ -280,7 +387,7 @@ def _launch_bwd(
     hd = qkv.shape[-1] // 3 // num_heads
     dqkv = launch("packed_attention_bwd", _bwd_library, "packed_attention_bwd",
                   "packed_attention_bwd_error_string", bwd_smem_bytes, qkv, num_heads, scale,
-                  dout, aligned=bwd_kernel(qkv.dtype, hd) == "mma")
+                  dout, aligned=bwd_kernel(qkv.dtype, hd) != "fma")
     packed_attention_bwd.launches += 1
     return dqkv
 

@@ -7,8 +7,8 @@ hd 72, decoder L 1024 at hd 32) run in query chunks against all keys, so a
 softmax row completes in one pass. Here one head's K and V at L 1024 do
 not fit a block's shared memory next to the logits, so the kernels stream
 them in tiles of 64 keys (see the two sources). They take any L, so the
-model also routes here the whole-row shapes whose backward does not fit
-the card (models/layers.attention_route).
+model also routes here a few shorter shapes (models/layers.attention_route:
+the cos4 finetune's bucket of 240 kept tokens).
 
   * a CPU tensor goes to the plain PyTorch versions,
     ``packed_attention_big_reference`` and
@@ -43,7 +43,10 @@ from maskdit_tpu_torch.ops import build
 from maskdit_tpu_torch.ops.flash_batched import (
     MAX_HEAD_DIM,
     SMEM_LIMIT,
+    TILE,
     AttentionFunction,
+    fp32_bwd_smem_bytes,
+    fp32_fwd_smem_bytes,
     launch,
     mma_bwd_smem_bytes,
 )
@@ -53,10 +56,8 @@ BWD_KERNEL = "packed_attention_big_bwd"
 # query rows per chunk of the plain versions: the TPU kernel's block_q at
 # the 512-px shapes; it bounds their fp32 temporaries to (N, H, 256, L)
 BLOCK_Q = 256
-# keys (or queries, in the backward's key pass) per tile the kernels stream
-TILE = 64
-# an SM's shared memory, and what the system keeps of it for each block
-SM_SMEM, BLOCK_RESERVE = 233472, 1024
+# the JAX ``_plan``'s VMEM budget (maskdit_tpu/ops/flash_big.py:51)
+VMEM_BUDGET = 10 * 1024 * 1024
 
 
 def mma_fwd_smem_bytes(hd: int) -> int:
@@ -68,78 +69,69 @@ def mma_fwd_smem_bytes(hd: int) -> int:
     return 4 * TILE * (hd16 + 8) * 2
 
 
-def _fp32_strides(hd: int) -> tuple[int, int]:
-    """Row strides, in floats, of the fp32 kernels' tiles
-    (csrc/attention_fp32_mma.cuh ``a_stride``, ``b_stride``)."""
-    return (hd if hd % 16 == 8 else hd + 8), hd + 4
-
-
 def fwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
     """Shared memory of one forward block for inputs of ``esize`` bytes,
     the same at every L. bf16 (2): ``mma_fwd_smem_bytes``. fp32 (4):
-    csrc/attention_fp32_mma.cuh ``fwd_smem_bytes``, the Q tile and the K and
-    V rings of two fp32 tiles of 64 rows each."""
+    flash_batched's ``fp32_fwd_smem_bytes`` (csrc/attention_fp32_mma.cuh,
+    the forward #1 also runs in fp32)."""
     if esize == 2:
         return mma_fwd_smem_bytes(hd)
-    a, b = _fp32_strides(hd)
-    return TILE * (a + 4 * b) * 4
-
-
-def fp32_key_depth(hd: int) -> int:
-    """Tiles in the fp32 key kernel's Q and dO rings: two where two blocks
-    still share an SM, else one (csrc/attention_fp32_mma.cuh ``key_depth``)."""
-    a, b = _fp32_strides(hd)
-    two = TILE * (2 * a + 4 * b + 2 * (TILE + 8)) * 4
-    return 2 if 2 * (two + BLOCK_RESERVE) <= SM_SMEM else 1
+    return fp32_fwd_smem_bytes(hd)
 
 
 def bwd_smem_bytes(l: int, hd: int, esize: int = 4) -> int:
     """Shared memory of the larger of the backward's two kernels for inputs
     of ``esize`` bytes, the same at every L. bf16 (2): flash_batched's
-    ``mma_bwd_smem_bytes`` (the tensor-core kernels both backwards share).
-    fp32 (4): csrc/attention_fp32_mma.cuh's query kernel (Q and dO tiles, K
-    and V rings) and key kernel (its K and V, Q and dO rings of
-    ``fp32_key_depth`` tiles, p^T and ds^T [64][72])."""
+    ``mma_bwd_smem_bytes``; fp32 (4): its ``fp32_bwd_smem_bytes`` (the
+    tensor-core kernels both backwards share)."""
     if esize == 2:
         return mma_bwd_smem_bytes(hd)
-    a, b = _fp32_strides(hd)
-    query = TILE * (2 * a + 4 * b) * 4
-    key = TILE * (2 * a + 2 * fp32_key_depth(hd) * b + 2 * (TILE + 8)) * 4
-    return max(query, key)
-
-
-def route_window(l: int, head_dim: int) -> bool:
-    """The L at which the route may send (L, head_dim) to these kernels:
-    where the first fp32 kernels' shared memory fitted a block (their
-    query pass kept a (32, L) fp32 logits row block, Q and dO, two fp32
-    tiles of 64 rows and two reductions: 128 L + 768 hd + 2,560 B, L padded
-    to 64, within 232,448 B). The tensor-core kernels' layouts no longer
-    grow with L; the window is kept so that no route moves: past it the
-    JAX package's ``flash_big.supports`` still holds at L 1536 hd 72 and
-    L 2048 hd 32, where this route takes 'flash' or 'plain' (ROADMAP C6)."""
-    lp = -(-l // TILE) * TILE
-    return 128 * lp + 768 * head_dim + 2560 <= SMEM_LIMIT
+    return fp32_bwd_smem_bytes(hd)
 
 
 def fits(l: int, head_dim: int) -> bool:
-    """The kernels launch at (L, head_dim) and the route may take them:
-    head_dim a multiple of 8 (their 16-byte tile loads) and at most 128,
-    both kernels' shared memory within a block's 232,448 B (at every L),
-    and L within ``route_window``."""
+    """The kernels launch at (L, head_dim): head_dim a multiple of 8 (their
+    16-byte tile loads) and at most 128, and both kernels' shared memory
+    within a block's 232,448 B, which then holds at every L."""
     return (
         head_dim % 8 == 0 and 0 < head_dim <= MAX_HEAD_DIM
         and fwd_smem_bytes(l, head_dim) <= SMEM_LIMIT
         and bwd_smem_bytes(l, head_dim) <= SMEM_LIMIT
-        and route_window(l, head_dim)
     )
 
 
+def jax_plan(h: int, l: int, d: int):
+    """The JAX package's ``_plan(h, l, d)`` (maskdit_tpu/ops/flash_big.py:
+    54-86), copied: the TPU kernels' (head groups, query block) whose
+    backward working set fits the TPU's VMEM budget, or None. Its window:
+    head_dim a multiple of 8, L at least 512 and a multiple of 256."""
+    hd = d // h
+    if h * hd != d or hd % 8 != 0:
+        return None
+    if l < 512 or l % 256 != 0:
+        return None
+    for g in (1, 2, 4, 8, 16):
+        if g > h or h % g != 0:
+            continue
+        dg = d // g
+        for bq in (512, 256):
+            if bq > l or l % bq:
+                continue
+            est = (
+                2 * 7 * dg * l * 2          # double-buffered bf16 I/O blocks
+                + 3 * 4 * bq * l            # fp32 s/p, dp, ds-budget
+                + 2 * bq * l                # bf16 ds
+                + 2 * 4 * hd * l            # fp32 dk/dv accumulators
+            )
+            if est <= VMEM_BUDGET:
+                return g, bq
+    return None
+
+
 def supports(h: int, l: int, head_dim: int) -> bool:
-    """True when (heads, seq, head_dim) lies in the JAX ``flash_big.supports``
-    window (its ``_plan``: L at least 512 and a multiple of 256, head_dim a
-    multiple of 8) and ``fits``, which takes the place of the TPU's VMEM
-    budget."""
-    return h > 0 and l >= 512 and l % 256 == 0 and fits(l, head_dim)
+    """True where the JAX ``flash_big.supports`` holds (``jax_plan`` finds
+    a plan) and ``fits``, which holds at every L of that window."""
+    return h > 0 and jax_plan(h, l, h * head_dim) is not None and fits(l, head_dim)
 
 
 def _heads(qkv: torch.Tensor, num_heads: int):

@@ -6,8 +6,9 @@
   attention.py:83-91) at every shape of DiT-XL/2, L/2, B/2 and S/2 at 256
   and 512 px, masked and unmasked, encoder and decoder, and at the tests'
   tiny shapes, with ``use_flash`` None (auto; tests/test_torch_use_flash.py
-  takes the other values). The two rules differ only where
-  NAMED_DIFFERENCES says.
+  takes the other values). The two rules agree at every model shape
+  (NAMED_DIFFERENCES is empty) and differ at the tiny shapes only where
+  TINY_DIFFERENCES says.
 * The slice as a whole at the 512-px geometry (64 x 64 latents: L 1024
   unmasked, 512 kept tokens at mask 0.5) and small widths: the encoder has
   XL/2's head dim of 72 (8 heads, width 576, so that neither package's
@@ -61,20 +62,14 @@ TRAIN_512 = os.path.join(ROOT, "configs", "train", "imagenet512-latent.yaml")
 # ---------------------------------------------------------------------------
 
 MODELS = ("DiT-XL/2", "DiT-L/2", "DiT-B/2", "DiT-S/2")
-# (model, px, tokens, block, backward) -> (port, JAX). At 256 px without a
-# mask, XL/2's encoder trains at L 256, hd 72: the JAX package runs its
-# whole-row kernels there, but the port's whole-row backward needs 236,544 B
-# of shared memory per block in its key pass (4 KB over the card's 232,448),
-# so the port trains that shape on its blocked kernels, which take any L.
-# Sampling (no backward) still takes the whole-row kernel.
-# At 512 px S/2's encoder trains at L 512, hd 64: the TPU's budget is per
-# sample (all 6 heads, width 384, fit its 12 MB), the card's per head and
-# row block (the whole-row backward needs 419,840 B at L 512, hd 64), so
-# the port runs its blocked kernels there.
-NAMED_DIFFERENCES = {
-    ("DiT-XL/2", 256, "unmasked", "encoder", True): ("big", "packed"),
-    ("DiT-S/2", 512, "masked", "encoder", True): ("big", "packed"),
-}
+# (model, px, tokens, block, backward) -> (port, JAX) where the two differ:
+# nowhere. XL/2's encoder trained unmasked at 256 px (L 256, hd 72) and
+# S/2's masked encoder at 512 px (L 512, hd 64) lie in the JAX window of the
+# whole-row kernels, and the port's whole-row kernels launch there in both
+# types (the fp32 and bf16 backwards on the tensor cores need the same
+# shared memory at every L: 114,688 / 86,016 B at hd 72), so both packages
+# train them on their whole-row kernels.
+NAMED_DIFFERENCES = {}
 # the tests' tiny shapes (heads, L, head dim): conftest's tiny DiT-S/2 at
 # 8 x 8 latents (L 16, masked 8) and this file's 512-px geometry. At L 16
 # and 8 the port runs its whole-row kernels (they mask the padding to 32
@@ -146,31 +141,27 @@ def test_route_at_the_tiny_test_shapes(shape):
 
 
 def test_unmasked_256_training_takes_the_blocked_kernels(monkeypatch):
-    """XL/2's encoder at L 256, hd 72 (trained unmasked at 256 px): with a
-    backward the layer calls the blocked attention, without one the
-    whole-row attention; both give the whole-row plain version's output and
-    gradient (the same rounding points; fp32 sums in another order)."""
+    """XL/2's encoder at L 256, hd 72 (trained unmasked at 256 px, the
+    imagenet256-latent-const finetune): with a backward and without one the
+    layer calls the whole-row attention (kernels #1 / #2), as the JAX
+    package does, no longer the blocked one; both calls give the whole-row
+    plain version's output and gradient."""
     h, hd = 2, 72
-    assert layers.attention_route(16, 256, hd, True) == "big"
+    assert layers.attention_route(16, 256, hd, True) == "packed" == jax_choice(16, 256, hd)
     assert layers.attention_route(16, 256, hd, False) == "packed"
+    assert layers.attention_route(h, 256, hd, True) == "packed"
     calls = []
     for name in ("packed_attention", "packed_attention_big"):
         real = getattr(layers, name)
         monkeypatch.setattr(layers, name, lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
-    monkeypatch.setattr(layers.flash_batched, "fits",
-                        lambda l, d, backward: not backward)  # the card's verdict at L 256, hd 72
-    layers.attention_route.cache_clear()
-    try:
-        attn = layers.Attention(h * hd, h)
-        x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 256, h * hd))
-                             .astype(np.float32)).requires_grad_()
-        out = attn(x)
-        out.square().sum().backward()
-        with torch.no_grad():
-            attn(x)
-    finally:
-        layers.attention_route.cache_clear()
-    assert calls == ["packed_attention_big", "packed_attention"]
+    attn = layers.Attention(h * hd, h)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 256, h * hd))
+                         .astype(np.float32)).requires_grad_()
+    out = attn(x)
+    out.square().sum().backward()
+    with torch.no_grad():
+        attn(x)
+    assert calls == ["packed_attention", "packed_attention"]
     ref_x = x.detach().clone().requires_grad_()
     qkv = attn.qkv(ref_x)
     ref = attn.proj(flash_batched_plain(qkv, h, hd ** -0.5))
@@ -180,9 +171,9 @@ def test_unmasked_256_training_takes_the_blocked_kernels(monkeypatch):
 
 
 def test_route_raises_where_the_jax_package_runs_its_streaming_kernel():
-    """L 2048 (hd 72) fits neither packed kernel of the port; the JAX
-    package's mha runs its streaming kernel (ops/flash.py) there, and so
-    does the port (tests/test_torch_use_flash.py holds that route). The
+    """L 2048 (hd 72) lies in neither JAX window of the packed kernels; the
+    JAX package's mha runs its streaming kernel (ops/flash.py) there, and
+    so does the port (tests/test_torch_use_flash.py holds that route). The
     route still raises where only the whole-row backward does not fit and
     the blocked kernels cannot take the head dim."""
     assert jax_choice(16, 2048, 72) == "flash"
@@ -376,16 +367,20 @@ def test_chip_smoke_trains_the_released_512_config():
 def tiny_xl(monkeypatch):
     """DiT-XL/2, which the released configs name, shrunk (XL/2's head dim
     of 72 on 2 heads, 1 block; decoder 1 block of 2 heads of 32) so the
-    512-px CLIs run on the CPU; counts the blocked calls."""
+    512-px CLIs run on the CPU; records the blocked calls' shapes, and the
+    whole-row calls' as ("packed", shape)."""
     monkeypatch.setitem(dit.DIT_CONFIGS, "DiT-XL/2",
                         dict(depth=1, hidden_size=144, patch_size=2, num_heads=2))
     monkeypatch.setattr(dit, "DECODER_HIDDEN_SIZE", 64)
     monkeypatch.setattr(dit, "DECODER_DEPTH", 1)
     monkeypatch.setattr(dit, "DECODER_NUM_HEADS", 2)
     calls = []
-    real = layers.packed_attention_big
+    big, packed = layers.packed_attention_big, layers.packed_attention
     monkeypatch.setattr(layers, "packed_attention_big",
-                        lambda qkv, *a: calls.append(tuple(qkv.shape)) or real(qkv, *a))
+                        lambda qkv, *a: calls.append(tuple(qkv.shape)) or big(qkv, *a))
+    monkeypatch.setattr(layers, "packed_attention",
+                        lambda qkv, *a: calls.append(("packed", tuple(qkv.shape)))
+                        or packed(qkv, *a))
     return calls
 
 
@@ -420,5 +415,10 @@ def test_train_cli_runs_the_512_config_on_the_cpu(tiny_xl, tmp_path):
                     "--device", "cpu", "--num_workers", "1", "--max_steps", "1",
                     "train.batchsize=2", f"data.root={shards}"])
     assert out["step"] == 1 and np.isfinite(out["history"][0]["losses"]).all()
-    # the encoder at the 512 kept tokens, the decoder at all 1024
-    assert tiny_xl == [(2, 512, 3 * 144), (2, L_FULL, 3 * 64)]
+    # the encoder at the 512 kept tokens, the decoder at all 1024; at this
+    # width (2 heads) the encoder's shape lies in the JAX window of the
+    # whole-row kernels, so both packages take those there (XL/2's 16 heads
+    # take the blocked ones: test_route_matches_the_jax_packages_choice...)
+    assert tiny_xl == [("packed", (2, 512, 3 * 144)), (2, L_FULL, 3 * 64)]
+    assert layers.attention_route(2, 512, 72, True) == jax_choice(2, 512, 72) == "packed"
+    assert layers.attention_route(16, 512, 72, True) == jax_choice(16, 512, 72) == "big"

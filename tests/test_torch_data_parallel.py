@@ -48,15 +48,39 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(*args: str, nproc: int = 2) -> str:
-    """Run the worker under torch.distributed.run; its combined output."""
+# seconds a launch may take before it counts as hung: a guard, not a check.
+# Under six pytest workers on 8 cores the slowest test here took ~114 s
+# with its fixture (fid ref: two launches), eval_latent's two launches side
+# by side 44 s; one launch of eval_latent, before the FID's sqrtm ran on
+# rank 0 alone, passed 120 s there
+LAUNCH_TIMEOUT = 600
+
+
+def _start(*args: str, nproc: int = 2) -> subprocess.Popen:
+    """Start the worker under torch.distributed.run."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
            "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
            "-m", "tests.test_torch_dist_worker", *args]
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
-    return proc.stdout
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc: subprocess.Popen) -> str:
+    """Wait for a started launch; its output (it must exit with 0)."""
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, out[-4000:] + err[-4000:]
+    return out
+
+
+def _launch(*args: str, nproc: int = 2) -> str:
+    """Run the worker under torch.distributed.run; its output."""
+    return _finish(_start(*args, nproc=nproc))
 
 
 @pytest.mark.parametrize("options", [
@@ -102,7 +126,7 @@ def test_a_group_of_one_steps_as_no_group_bit_for_bit(tmp_path, options):
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
     proc = subprocess.run([sys.executable, "-m", "tests.test_torch_dist_worker", "step-alone",
                            str(tmp_path), json.dumps(options)], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=LAUNCH_TIMEOUT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     group, alone = (torch.load(tmp_path / f) for f in ("rank0.pt", "alone.pt"))
     for key in alone:
@@ -281,7 +305,8 @@ def test_generate_two_processes_write_the_images_of_one(eval_files, tmp_path):
 
 def test_eval_latent_two_processes(eval_files, tmp_path):
     """Rank-strided seeds, a barrier, then one FID of the merged statistics
-    (printed once, by rank 0); the PNGs are one process's."""
+    (printed once, by rank 0); the PNGs are one process's. The two launches
+    run side by side."""
     config = tmp_path / "config.json"
     config.write_text(json.dumps({
         "model": {"precond": "edm", "model_type": "DiT-S/2", "in_size": worker.RES,
@@ -296,9 +321,11 @@ def test_eval_latent_two_processes(eval_files, tmp_path):
                 "--max_batch_size", "1", "--num_expected", "4", "--fid_batch_size", "1",
                 "--pretrained_path", eval_files["vae"], "--random_detector", "--device", "cpu"]
 
-    out = _launch("eval_latent", *args(str(tmp_path / "two")))
+    two = _start("eval_latent", *args(str(tmp_path / "two")))
+    one = _start("eval_latent", *args(str(tmp_path / "one")), "--skip_fid", nproc=1)
+    out = _finish(two)
+    _finish(one)
     (value,) = re.findall(r"FID: ([-\d.e+]+)", out)
     assert np.isfinite(float(value))
-    _launch("eval_latent", *args(str(tmp_path / "one")), "--skip_fid", nproc=1)
     pngs = "edm-steps2-cfg1.5"
     _same_pngs(str(tmp_path / "two" / pngs), str(tmp_path / "one" / pngs), 4)

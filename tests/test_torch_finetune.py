@@ -421,16 +421,16 @@ def test_route_at_the_cos4_buckets_against_the_jax_choice():
     """XL/2's encoder (16 heads of 72) at every kept count a cos4 finetune
     from mask 0.5 to 0 steps through at 256 px (buckets of 16 tokens, 128 to
     256), with a backward. Where the JAX package runs its whole-row kernels
-    (L 128, 256) the port runs kernels too (L 256 the blocked ones, ROADMAP
-    C1); at the buckets in between, which are not a multiple of 128, the JAX
-    package runs its plain attention and the port its kernels, which compute
-    the same function (ROADMAP C4)."""
+    (L 128, 256) the port runs its whole-row kernels too; at the buckets in
+    between, which are not a multiple of 128, the JAX package runs its plain
+    attention and the port its kernels (whole-row to 224, blocked at 240),
+    which compute the same function (ROADMAP C4)."""
     from tests.test_torch_512 import jax_choice
 
     got = {l: (layers.attention_route(16, l, 72, True), jax_choice(16, l, 72))
            for l in range(128, 257, 16)}
     assert got == {128: ("packed", "packed"), **{l: ("packed", "plain")
                                                  for l in range(144, 225, 16)},
-                   240: ("big", "plain"), 256: ("big", "packed")}
+                   240: ("big", "plain"), 256: ("packed", "packed")}
     # the decoder at all 256 tokens (16 heads of 32): the whole-row kernels
     assert layers.attention_route(16, 256, 32, True) == jax_choice(16, 256, 32) == "packed"

@@ -147,37 +147,58 @@ def test_wrappers_raise_without_a_kernel_for_the_tensor():
 @pytest.mark.parametrize("h,l,hd", [
     (16, 512, 72), (16, 1024, 32), (16, 1024, 72), (16, 128, 72), (16, 640, 72),
     (16, 512, 12), (2, 768, 8), (12, 1024, 64), (6, 512, 64), (16, 256, 72),
+    (16, 1536, 72), (16, 2048, 32), (16, 2048, 72),
 ])
 def test_supports_window_is_the_jax_packages(h, l, hd):
     """The shape window of the JAX flash_big.supports (tests/test_flash.py
-    pins it) at every shape that fits the card's shared memory."""
+    pins it) at every shape that fits the card's shared memory, which at
+    a head dim that is a multiple of 8 is every L."""
     assert flash_big.supports(h, l, hd) == jax_big.supports(h, l, hd)
+
+
+@pytest.mark.parametrize("h,l,hd,forward,backward", [
+    (16, 128, 72, True, True), (16, 256, 32, True, True), (16, 256, 72, True, True),
+    (6, 512, 64, True, True), (16, 512, 72, True, True), (16, 192, 72, True, True),
+    (16, 1024, 72, False, False), (2, 640, 128, False, False), (1, 640, 20, True, False),
+    (2, 768, 8, True, True),
+])
+def test_whole_row_window_is_the_jax_packages(h, l, hd, forward, backward):
+    """``flash_batched.supports`` is the JAX ``flash_batched.supports``
+    (tests/test_flash.py pins it) where the whole-row kernels launch in both
+    types, the forward alone or with the backward: not at L 1024, hd 72 or
+    L 640, hd 128, where the bf16 forward's logits row and its FMA layout
+    outgrow a block, nor with a backward at L 640, hd 20, whose FMA
+    backward does."""
+    assert flash_batched.fits(l, hd, False) == forward
+    assert flash_batched.fits(l, hd, True) == backward
+    assert flash_batched.supports(h, l, hd) == (jax_fb.supports(h, l, hd) and backward)
+    assert flash_batched.supports(h, l, hd, backward=False) == (jax_fb.supports(h, l, hd)
+                                                                and forward)
 
 
 @pytest.mark.parametrize("l,hd,fits", [
     (256, 72, True), (128, 72, True), (777, 40, True), (1024, 128, True),
-    (256, 12, False), (256, 136, False), (2048, 72, False),
+    (256, 12, False), (256, 136, False), (2048, 72, True),
 ])
 def test_kernels_fit_any_l_with_an_8_aligned_head_dim(l, hd, fits):
-    """``fits``: where the kernels launch and the route may take them, at
-    any L within ``route_window`` (the route sends them the whole-row
-    shapes whose backward does not fit, L 256 at hd 72); ``supports`` adds
-    the JAX package's window. At a head dim they take, both layouts fit at
-    every L, and ``route_window`` alone refuses L 2048 at hd 72."""
+    """``fits``: where the kernels launch, at any L at a head dim they take
+    (a multiple of 8, at most 128: both layouts fit at every L, L 2048 at
+    hd 72 too); ``supports`` adds the JAX package's window."""
     assert flash_big.fits(l, hd) == fits
     assert not flash_big.supports(16, l, hd) or fits
     if hd % 8 == 0 and hd <= 128:
         assert flash_big.fwd_smem_bytes(l, hd) <= flash_batched.SMEM_LIMIT
         assert flash_big.bwd_smem_bytes(l, hd) <= flash_batched.SMEM_LIMIT
-        assert flash_big.fits(l, hd) == flash_big.route_window(l, hd)
+        assert flash_big.fits(l, hd)
 
 
 def test_shared_memory_formulas():
     """What the kernel sources lay out, as the module computes it: fp32
     (csrc/attention_fp32_mma.cuh) and bf16 the same at every L; at hd 72
     two blocks share an SM in the forward and in both backward kernels.
-    The route window is the first fp32 kernels' limit, kept: L 1344 at
-    hd 72 and L 1600 at hd 32 are its last; supports() refuses L 2048."""
+    supports() is the JAX ``_plan`` window, which the layouts fit at every
+    L: it holds at L 1536 hd 72 and L 2048 hd 32 (where the first fp32
+    kernels' layouts did not fit), and refuses L 2048 at hd 72."""
     assert flash_big.fwd_smem_bytes(1024, 72) == 96256
     assert flash_big.fwd_smem_bytes(512, 72) == 96256
     assert flash_big.fwd_smem_bytes(1024, 32) == 47104
@@ -190,12 +211,13 @@ def test_shared_memory_formulas():
     for hd in (32, 72):
         assert 2 * (flash_big.fwd_smem_bytes(1024, hd) + 1024) <= 233472
         assert 2 * (flash_big.bwd_smem_bytes(1024, hd) + 1024) <= 233472
-    assert [flash_big.fp32_key_depth(hd) for hd in (8, 32, 40, 72, 128)] == [2, 2, 2, 1, 1]
+    assert [flash_batched.fp32_key_depth(hd) for hd in (8, 32, 40, 72, 128)] == [2, 2, 2, 1, 1]
     for hd in range(8, 129, 8):
         assert len({flash_big.fwd_smem_bytes(l, hd) for l in (64, 777, 4096)}) == 1
         assert len({flash_big.bwd_smem_bytes(l, hd) for l in (64, 777, 4096)}) == 1
-    assert flash_big.route_window(1344, 72) and not flash_big.route_window(1345, 72)
-    assert flash_big.route_window(1600, 32) and not flash_big.route_window(1601, 32)
+    assert flash_big.supports(16, 1536, 72) and flash_big.supports(16, 2048, 32)
+    assert jax_big.supports(16, 1536, 72) and jax_big.supports(16, 2048, 32)
+    assert not jax_big.supports(16, 2048, 72)
     # bf16 runs the tensor-core forward (csrc/attention_fwd_mma.cuh): four
     # bf16 [64][hd16 + 8] tiles, hd16 = hd padded to 16, the same at every L,
     # so four blocks fit an SM at hd 72; fits() reads the fp32 layouts
@@ -216,8 +238,8 @@ def test_bf16_backward_shared_memory_does_not_grow_with_l(hd):
     (csrc/attention_bwd_mma.cuh, both backwards): the key kernel's six
     bf16 [64][hd16 + 8] tiles (its K and V, the Q and dO rings) and its pb
     and ds tiles, bf16 [64][72]; the query kernel's four tiles are fewer.
-    The same at every L and within a block's limit at every head dim; the
-    route (``fits``) still reads the fp32 layouts."""
+    The same at every L and within a block's limit at every head dim, as
+    the fp32 tensor-core kernels' (``mma6``) are."""
     hd16 = -(-hd // 16) * 16
     want = 6 * 64 * (hd16 + 8) * 2 + 2 * 64 * 72 * 2
     assert flash_batched.mma_bwd_smem_bytes(hd) == want > 4 * 64 * (hd16 + 8) * 2
@@ -225,11 +247,11 @@ def test_bf16_backward_shared_memory_does_not_grow_with_l(hd):
         assert flash_big.bwd_smem_bytes(l, hd, 2) == want <= flash_batched.SMEM_LIMIT
         assert flash_batched.bwd_smem_bytes(l, hd, 2) == want
     assert flash_batched.bwd_kernel(torch.bfloat16, hd) == "mma"
-    assert flash_batched.bwd_kernel(torch.float32, hd) == "fma"
-    # at hd 72: 86,016 B (two blocks per SM), where the whole-row fp32
-    # layout needs 236,544 B at L 256
+    assert flash_batched.bwd_kernel(torch.float32, hd) == "mma6"
+    # at hd 72: 86,016 B (two blocks per SM), where the whole-row fp32-FMA
+    # layout needed 236,544 B at L 256
     assert flash_batched.mma_bwd_smem_bytes(72) == 86016
-    assert flash_batched.bwd_smem_bytes(256, 72) == 236544
+    assert flash_batched.fma_bwd_smem_bytes(256, 72) == 236544
 
 
 def _variant_bwd(qkv, dout, h, scale, acc=torch.float64, round_p=True, round_ds=True):
@@ -409,8 +431,9 @@ def test_whole_row_forward_shared_memory():
     [64][L] with L padded to 64. Two blocks fit an SM at the main path's
     shapes; it takes every bf16 shape the route sends the whole-row kernel
     at a head dim that is a multiple of 8 but hd 8 at L 833-1184 and hd 16
-    at L 833-864, which keep the FMA kernel (and its layout) as other head
-    dims do."""
+    at L 833-864 (within the route's old window, ``route_window``), which
+    keep the FMA kernel (and its layout) as other head dims do. fp32 takes
+    the tensor-core forward (``mma6``) at every L."""
     assert flash_batched.mma_fwd_smem_bytes(128, 72) == 77824
     assert flash_batched.mma_fwd_smem_bytes(256, 72) == 110592
     assert flash_batched.mma_fwd_smem_bytes(256, 32) == 86016
@@ -423,7 +446,7 @@ def test_whole_row_forward_shared_memory():
         for l in range(1, 1300, 7):
             want = 4 * 64 * (hd16 + 8) * 2 + 64 * (-(-l // 64) * 64) * 4
             assert flash_batched.mma_fwd_smem_bytes(l, hd) == want
-            if not flash_batched.fits(l, hd, False):
+            if not flash_batched.route_window(l, hd, False):
                 continue
             kernel = flash_batched.fwd_kernel(bf16, l, hd)
             corner = 832 < l <= {8: 1184, 16: 864}.get(hd, 0)
@@ -432,10 +455,13 @@ def test_whole_row_forward_shared_memory():
             fma = 128 * hd + 2 * hd * lp * 2 + 128 * lp + 2048
             assert flash_batched.fwd_smem_bytes(l, hd, 2) == (want if kernel == "mma" else fma)
             assert flash_batched.fwd_smem_bytes(l, hd, 2) <= flash_batched.SMEM_LIMIT
-    assert flash_batched.fwd_kernel(torch.float32, 256, 72) == "fma"
+    assert flash_batched.fwd_kernel(torch.float32, 256, 72) == "mma6"
     assert flash_batched.fwd_kernel(bf16, 77, 20) == "fma"
-    # fp32 (and the route, which reads it) keep the FMA layout
-    assert flash_batched.fwd_smem_bytes(256, 72, 4) == 191488
+    assert flash_batched.fwd_kernel(torch.float32, 77, 20) == "fma"
+    # fp32: the tensor-core forward's layout; the FMA layout that
+    # route_window reads grows with L
+    assert flash_batched.fwd_smem_bytes(256, 72, 4) == 96256 == flash_batched.fwd_smem_bytes(64, 72, 4)
+    assert flash_batched.fma_fwd_smem_bytes(256, 72, 4) == 191488
 
 
 def _three_stage_bwd(qkv, dout, h, scale, tile=64, fault=None):

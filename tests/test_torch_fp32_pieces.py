@@ -1,6 +1,7 @@
-"""The arithmetic of the fp32 blocked attention on the tensor cores
-(csrc/attention_fp32_mma.cuh, kernels #3 and #4 for fp32), emulated in torch
-on the CPU and held to the plain versions and to the JAX Pallas kernels.
+"""The arithmetic of the fp32 attention on the tensor cores
+(csrc/attention_fp32_mma.cuh: the blocked kernels #3 and #4 and the
+whole-row kernels #1 and #2 for fp32), emulated in torch on the CPU and held
+to the plain versions and to the JAX Pallas kernels.
 
 The kernels split each fp32 operand of a product exactly into three bf16
 pieces and run the product as the six bf16 products a_i . b_j with
@@ -18,13 +19,19 @@ import numpy as np
 import pytest
 import torch
 
+from maskdit_tpu.ops import flash_batched as jax_fb
 from maskdit_tpu.ops import flash_big as jax_big
-from maskdit_tpu_torch.ops import flash_big
+from maskdit_tpu_torch.ops import flash_batched, flash_big
 from tests.test_torch_flash import _split
 from tests.test_torch_flash_big import BWD_ATOL, FWD_ATOL
 
 TILE = 64
 SHAPES = [(1, 512, 2, 72), (1, 1024, 2, 32), (1, 777, 2, 40)]
+# the whole-row kernels' cases: L 128 at XL/2's encoder and decoder head dims
+WHOLE_ROW_SHAPES = [(1, 128, 2, 72), (1, 128, 2, 32)]
+# the fp32 kernels against their plain versions and the Pallas kernels, as
+# chip_smoke.py holds them on the card: max error <= 1e-5 of max|ref|
+REL_BOUND = 1e-5
 
 
 @pytest.fixture
@@ -179,3 +186,60 @@ def test_emulated_kernels_hold_the_fp32_bounds(interpret_mode, shape, capsys):
               f"versions: 6 terms {fwd:.3e} / {bwd:.3e}, 9 terms {nine[0]:.3e} / "
               f"{nine[1]:.3e}, two pieces {two[0]:.3e} / {two[1]:.3e}, one piece "
               f"{one[0]:.3e} / {one[1]:.3e}")
+
+
+def _whole_row_pallas(qkv, dout, h, scale):
+    """The JAX custom VJP on its whole-row Pallas kernels ``_packed_fwd`` /
+    ``_packed_bwd`` (interpret mode): out, dqkv."""
+    out, vjp = jax.vjp(lambda a: jax_fb.packed_attention(a, h, scale), qkv.numpy())
+    (dx,) = vjp(dout.numpy())
+    return torch.from_numpy(np.array(out)), torch.from_numpy(np.array(dx))
+
+
+@pytest.mark.parametrize("shape", WHOLE_ROW_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_emulated_whole_row_kernels_hold_the_fp32_bounds(interpret_mode, shape):
+    """In fp32 the whole-row wrapper (ops/flash_batched.py) launches the
+    same tensor-core kernels as the blocked one ('mma6'); their six-term
+    arithmetic is within 1e-5 of max|ref| of flash_batched's plain versions
+    and of the JAX ``packed_attention`` on its Pallas ``_packed_fwd`` /
+    ``_packed_bwd``. One piece per operand misses that bound by far."""
+    n, l, h, hd = shape
+    assert flash_batched.fwd_kernel(torch.float32, l, hd) == "mma6"
+    assert flash_batched.bwd_kernel(torch.float32, hd) == "mma6"
+    rng = np.random.default_rng(71 + hd)
+    qkv = torch.from_numpy(rng.normal(size=(n, l, 3 * h * hd)).astype(np.float32))
+    dout = torch.from_numpy(rng.normal(size=(n, l, h * hd)).astype(np.float32))
+    scale = hd ** -0.5
+    plain = (flash_batched.packed_attention_reference(qkv, h, scale),
+             flash_batched.packed_attention_bwd_reference(qkv, dout, h, scale))
+    got = (_emulated_forward(qkv, h, scale), _emulated_backward(qkv, dout, h, scale))
+    one = (_emulated_forward(qkv, h, scale, pieces=1),
+           _emulated_backward(qkv, dout, h, scale, pieces=1))
+    for refs in (plain, _whole_row_pallas(qkv, dout, h, scale)):
+        for ours, short, ref in zip(got, one, refs):
+            bound = REL_BOUND * ref.abs().max().item()
+            assert (ours - ref).abs().max().item() <= bound
+            assert (short - ref).abs().max().item() > 10 * bound
+
+
+@pytest.mark.parametrize("hd", range(4, 133, 4))
+def test_fp32_whole_row_kernels_are_the_tensor_core_ones(hd):
+    """fp32 at a head dim that is a multiple of 8, up to 128, runs the
+    tensor-core kernels ('mma6') at every L, with the blocked kernels'
+    shared memory (the same kernels); at other head dims the FMA kernels,
+    whose layouts grow with L."""
+    fp32 = torch.float32
+    variant = "mma6" if hd % 8 == 0 and hd <= 128 else "fma"
+    for l in (8, 77, 128, 224, 256, 512, 1024):
+        assert flash_batched.fwd_kernel(fp32, l, hd) == variant, l
+        if variant == "mma6":
+            assert flash_batched.fwd_smem_bytes(l, hd, 4) == flash_big.fwd_smem_bytes(l, hd, 4)
+            assert flash_batched.bwd_smem_bytes(l, hd, 4) == flash_big.bwd_smem_bytes(l, hd, 4)
+        else:
+            assert flash_batched.fwd_smem_bytes(l, hd, 4) == \
+                flash_batched.fma_fwd_smem_bytes(l, hd, 4)
+    if hd <= 128:
+        assert flash_batched.bwd_kernel(fp32, hd) == variant
+    if variant == "mma6":
+        assert flash_batched.fwd_smem_bytes(128, hd, 4) <= flash_batched.SMEM_LIMIT
+        assert flash_batched.bwd_smem_bytes(128, hd, 4) <= flash_batched.SMEM_LIMIT

@@ -73,19 +73,26 @@ def test_three_stage_backward_matches_plain_version_and_pallas_kernel(interpret_
 
 
 def test_bwd_smem_bytes_takes_the_element_size():
-    """bf16 at a head dim that is a multiple of 8 takes the tensor-core
-    kernels' layout, the same at every L (86,016 B at hd 72, where the fp32
-    layout needs 236,544 B at L 256, over a block's 232,448 B); fp32, and
-    bf16 at other head dims, the fp32-FMA kernels' layout, which grows with
-    L and which ``fits`` (the route) reads."""
+    """At a head dim that is a multiple of 8 each type takes its
+    tensor-core kernels' layout, the same at every L: bf16 86,016 B at hd
+    72, fp32 114,688 B (where the fp32-FMA kernels needed 236,544 B at L
+    256, over a block's 232,448 B); at other head dims both types take the
+    fp32-FMA kernels' layout, which grows with L. ``fits`` (both types)
+    holds at L 256, hd 72 with a backward; ``route_window`` (the FMA
+    layouts) does not."""
     assert flash_batched.bwd_smem_bytes(256, 72, 2) == flash_batched.bwd_smem_bytes(128, 72, 2)
     assert flash_batched.bwd_smem_bytes(256, 72, 2) == 86016 <= flash_batched.SMEM_LIMIT
     assert flash_batched.bwd_smem_bytes(256, 72, 4) == flash_batched.bwd_smem_bytes(256, 72)
-    assert flash_batched.bwd_smem_bytes(256, 72) == 236544 > flash_batched.SMEM_LIMIT
-    assert not flash_batched.fits(256, 72, True) and flash_batched.fits(256, 72, False)
+    assert flash_batched.bwd_smem_bytes(256, 72) == 114688 == flash_batched.bwd_smem_bytes(64, 72)
+    assert flash_batched.fma_bwd_smem_bytes(256, 72) == 236544 > flash_batched.SMEM_LIMIT
+    assert flash_batched.fits(256, 72, True) and flash_batched.fits(256, 72, False)
+    assert (not flash_batched.route_window(256, 72, True)
+            and flash_batched.route_window(256, 72, False))
     assert flash_batched.bwd_smem_bytes(256, 20, 2) == flash_batched.bwd_smem_bytes(256, 20, 4)
     assert flash_batched.bwd_kernel(torch.bfloat16, 20) == "fma"
-    assert flash_batched.bwd_smem_bytes(128, 72, 4) < flash_batched.bwd_smem_bytes(256, 72, 4)
+    assert flash_batched.bwd_kernel(torch.float32, 20) == "fma"
+    assert flash_batched.bwd_smem_bytes(128, 20, 4) < flash_batched.bwd_smem_bytes(256, 20, 4)
+    assert flash_batched.fma_bwd_smem_bytes(128, 72) < flash_batched.fma_bwd_smem_bytes(256, 72)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -192,7 +199,8 @@ def test_cuda_bwd_kernel_matches_plain_version(shape, dtype):
     torch.cuda.synchronize()
     assert flash_batched.packed_attention_bwd.launches == before + 1
     ref = flash_batched.packed_attention_bwd_reference(x, g, h, hd ** -0.5).float()
-    # fp32: summation order only; bf16: one rounding of ds, pb or the
+    # fp32: summation order and the six-term products' dropped terms
+    # (~2^-24 of each product); bf16: one rounding of ds, pb or the
     # output may differ, relative to the gradient's scale
     rel = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
     err = (ours.float() - ref).abs().max().item()

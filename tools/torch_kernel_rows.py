@@ -46,7 +46,8 @@ def main(argv: list[str] | None = None) -> None:
             smoke.log(f"[build] {build.build(name)[0].name}")
     if 1 in kernels:
         smoke.attention_fwd_rows("kernel", smoke.ATTN_SHAPES, flash_batched.packed_attention,
-                                 flash_batched.packed_attention_reference, seed=0, iters=50)
+                                 flash_batched.packed_attention_reference, seed=0, iters=50,
+                                 variant=flash_batched.fwd_kernel)
     if 2 in kernels:
         smoke.phase_bwd_kernels()
     if 4 in kernels:
