@@ -49,14 +49,16 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
   8. the ``use_flash`` path (ops/flash.py, kernels #5 and #6): both kernels
      against their plain versions at every L of their window (bf16, head
      dims 32, 64, 72), then timed at the 512-px shapes, at the edges of
-     the window and at an odd head dim; one CFG denoiser evaluation at
-     512 px with ``use_flash=True``, kernels vs plain; the train CLI on the
-     released 512-px config with the overrides ``model.use_flash=true`` and
-     ``data.streaming=true`` (the shards streamed), at batch 32, cut to 6
-     steps: 72 flash-forward launches (the checkpoint
-     recomputes each layer's forward in the backward), 36 flash-backward
-     and one fused-update launch per step; train-step parity kernels vs
-     plain and, in fp32, flash vs the blocked kernels; a profile;
+     the window and at an odd head dim; then, on DiT-XL/2 at full width
+     with FLASH_DEPTH (4) of its 28 encoder blocks: one CFG denoiser
+     evaluation at 512 px with ``use_flash=True``, kernels vs plain; the
+     train CLI on the released 512-px config with the overrides
+     ``model.use_flash=true`` and ``data.streaming=true`` (the shards
+     streamed), at batch 32, cut to 6 steps: 24 flash-forward launches (the
+     checkpoint recomputes each layer's forward in the backward), 12
+     flash-backward and one fused-update launch per step; train-step
+     parity kernels vs plain and, in fp32, flash vs the blocked kernels; a
+     profile;
   9. the evaluation path (it runs after 5.): [vae] the full SD-VAE
      (weights ~ N(0, 0.02^2), GroupNorm scales about 1, saved in the
      released autoencoder_kl.pth layout) decoding the latents of 4. and
@@ -127,7 +129,23 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      beside the share of the fp32 peak; [parity-train-finetune] one fp32
      step kernels vs plain at mask 0 and at a cos4 bucket, and the
      pad-to-max step against the packed step at that ratio; a profile of
-     one step of each unmasked finetune. These runs write no checkpoint.
+     one step of each unmasked finetune. These runs write no checkpoint;
+ 15. the model corners (after 14., at DiT-XL/2's full width and depth):
+     the class-token lengths' kernel rows (with 3. and 14.: #1 at (16, 257,
+     16, 72) and (128, 129, 16, 72), #2 at the latter, #3 / #4 at (64,
+     257, 16, 72), in bf16 and fp32); [sample-cls] the generate CLI on
+     configs/test/maskdit-256.yaml's model with ``pad_cls_token`` and
+     ``self_cond`` (8 seeds, CFG 1.5, 40 steps; each evaluation runs the
+     encoder for the pooled feature, then the model: 28 + 28 whole-row
+     forwards at L 257 and 8 at L 256), and one CFG evaluation kernels vs
+     plain in bf16 and fp32; [train-cls-feat] the train CLI on the released
+     256-px config with a class token and FEATURE_DIM-wide features joined
+     from a feature LMDB this script writes beside [extract]'s latents
+     (batch 128, mask 0.5, 4 steps): finite losses, 36 + 36 whole-row
+     launches (the encoder at 129 tokens) and one update per step, the
+     features reaching the model at every step; [parity-cls] one fp32 step
+     of that model kernels vs plain at mask 0.5 (L 129, #1 / #2) and mask 0
+     (L 257, #3 / #4), each kernel step checked to the launch.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -190,6 +208,17 @@ ATTN_SHAPES = [
 # the whole-row forward (#1) also at a ragged shape: L not a multiple of the
 # 64-row tiles, hd 40
 ATTN_FWD_SHAPES = ATTN_SHAPES + [("ragged", 3, 77, 4, 40)]
+# the class token's lengths (model.pad_cls_token: the encoder one token
+# longer), where the JAX package runs plain attention and the port its
+# kernels with ragged tiles (ROADMAP C7): #1 at the CFG sampling encoder's
+# L 257 and the masked training encoder's 128 kept tokens + 1 (with #2
+# there), #3 / #4 at the unmasked training encoder's L 257 (batch 64). Each
+# runs in bf16 with the [kernel] / [kernel-big] rows and in fp32 with the
+# [kernel-fp32] rows
+CLS_FWD_SHAPES = [("cls_sample_encoder", 2 * SEEDS, 257, 16, 72),
+                  ("cls_train_encoder", TRAIN_BATCH, 129, 16, 72)]
+CLS_BWD_SHAPES = CLS_FWD_SHAPES[1:]
+CLS_BIG_SHAPES = [("cls_unmasked_encoder", 64, 257, 16, 72)]
 # kernel vs plain bound on max|kernel - plain| / max|plain| of the forward:
 # fp32 differs by summation order (the fp32 blocked kernels on the tensor
 # cores also by their dropped terms, ~2^-24 of each product, and the
@@ -260,6 +289,13 @@ FLASH_SHAPES = BIG_SHAPES[:4] + [("edge_128", 128, 128, 16, 72), ("edge_2048", 2
 FLASH_BWD_SHAPES = FLASH_SHAPES[2:4] + FLASH_SHAPES[5:]
 LSE_REL_BOUND = 1e-5
 TRAIN_STEPS_FLASH = 6
+# [parity-flash], [train-flash], [parity-train-flash] and
+# [train-profile-flash] check the flag's route, launches and parity, not
+# the model's depth: since the model corners' phases came they run DiT-XL/2
+# at full width with FLASH_DEPTH of its 28 encoder blocks (the 8 decoder
+# blocks kept), for the script's time (``xl_depth``)
+FLASH_DEPTH = 4
+FLASH_ATTN_PER_STEP = FLASH_DEPTH + DECODER_DEPTH
 
 # fused Adam: fp32 everywhere, the two differ by FMA contraction only, so
 # per element |kernel - plain| <= 1e-6 |plain| + 1e-7; a bf16 mu by at most
@@ -419,6 +455,30 @@ EVAL_CONFIG_256 = {"model": {**SAMPLE_CONFIG_512["model"], "in_size": 32},
                    "eval": {"batchsize": 50, "ref_path": (
                        "assets/fid_stats/fid_stats_imagenet256_guided_diffusion.npz")}}
 EVAL_SEEDS = 16  # two batches of SEEDS
+# the model corners at DiT-XL/2's full width and depth (no released config
+# sets these keys). [sample-cls]: configs/test/maskdit-256.yaml's model with
+# a class token and self-conditioning (model.self_cond: each evaluation
+# first runs the encoder for its pooled feature), from [weights]' tensors
+# and seeded N(0, 0.02^2) ones for the class token and its two embedders
+# (CLS_CKPT). [train-cls-feat]: TRAIN_CONFIG with a class token and
+# external features of FEATURE_DIM floats (a stated width, a ViT-B
+# feature's), read from a feature LMDB written beside [extract]'s latents,
+# N(0, 1) from FEATURE_SEED, its labels the latents'; TRAIN_STEPS_CLS steps
+# at the released batch of 128, mask 0.5, no checkpoint written.
+# [parity-cls]: that model's fp32 step at PARITY_BATCH, kernels vs plain, at
+# mask 0.5 and 0
+SAMPLE_CLS_CONFIG = {"model": {**EVAL_CONFIG_256["model"], "pad_cls_token": True,
+                               "self_cond": True}}
+CLS_CKPT = os.path.join(SCRATCH, "random-xl2-cls.pt")
+FEATURE_DIM, FEATURE_SEED, TRAIN_STEPS_CLS = 768, 0, 4
+FEATURE_ROOT = os.path.join(SCRATCH, "features")
+TRAIN_CLS_CONFIG = {
+    "data": {**TRAIN_CONFIG["data"], "feat_path": FEATURE_ROOT},
+    "model": {**TRAIN_CONFIG["model"], "pad_cls_token": True, "ext_feature_dim": FEATURE_DIM},
+    "train": {**TRAIN_CONFIG["train"], "max_num_steps": TRAIN_STEPS_CLS},
+    "log": {"log_every": LOG_EVERY, "ckpt_every": 50000, "tag": "chip-smoke-cls-feat"},
+}
+CLS_MODEL_KW = dict(pad_cls_token=True, ext_feature_dim=FEATURE_DIM)
 # the card decodes [main]'s and [main-512]'s whole batches; the CPU's fp32
 # reference decodes their first images only (each image is decoded on its
 # own: GroupNorm and the attention are per image), 2.5 s per 256-px image
@@ -835,16 +895,24 @@ def phase_kernels() -> dict:
 
     check_smem_formulas()
     check_packed_fwd_head_dims()
-    return attention_fwd_rows("kernel", ATTN_FWD_SHAPES, flash_batched.packed_attention,
+    rows = attention_fwd_rows("kernel", ATTN_FWD_SHAPES, flash_batched.packed_attention,
                               flash_batched.packed_attention_reference, seed=0, iters=50,
                               variant=flash_batched.fwd_kernel)
+    rows.update(attention_fwd_rows("kernel", CLS_FWD_SHAPES, flash_batched.packed_attention,
+                                   flash_batched.packed_attention_reference, seed=2, iters=50,
+                                   variant=flash_batched.fwd_kernel, dtypes=(torch.bfloat16,)))
+    return rows
 
 
 def phase_bwd_kernels() -> dict:
     from maskdit_tpu_torch.ops import flash_batched
 
-    return attention_bwd_rows("kernel", BWD_SHAPES, flash_batched.packed_attention_bwd,
+    rows = attention_bwd_rows("kernel", BWD_SHAPES, flash_batched.packed_attention_bwd,
                               flash_batched.packed_attention_bwd_reference, seed=1, iters=20)
+    rows.update(attention_bwd_rows("kernel", CLS_BWD_SHAPES, flash_batched.packed_attention_bwd,
+                                   flash_batched.packed_attention_bwd_reference, seed=3, iters=20,
+                                   dtypes=(torch.bfloat16,)))
+    return rows
 
 
 def check_unmasked_256_route() -> None:
@@ -883,6 +951,13 @@ def phase_big_kernels() -> dict:
     bwd = attention_bwd_rows("kernel-big", BIG_BWD_SHAPES, flash_big.packed_attention_big_bwd,
                              flash_big.packed_attention_big_bwd_reference, seed=6, iters=5,
                              variant=blocked_variant)
+    fwd.update(attention_fwd_rows("kernel-big", CLS_BIG_SHAPES, flash_big.packed_attention_big,
+                                  flash_big.packed_attention_big_reference, seed=7, iters=10,
+                                  variant=blocked_variant, dtypes=(torch.bfloat16,)))
+    bwd.update(attention_bwd_rows("kernel-big", CLS_BIG_SHAPES,
+                                  flash_big.packed_attention_big_bwd,
+                                  flash_big.packed_attention_big_bwd_reference, seed=8, iters=5,
+                                  variant=blocked_variant, dtypes=(torch.bfloat16,)))
     return dict(fwd=fwd, bwd=bwd)
 
 
@@ -968,7 +1043,26 @@ def phase_fp32_kernels() -> dict:
                                       flash_batched.packed_attention_bwd,
                                       flash_batched.packed_attention_bwd_reference,
                                       PACKED_SWEEP_SHAPE, 43)
-    return dict(rows=out, sweep_err=big_err, packed_sweep_err=packed_err)
+    # the class token's lengths in fp32: the kernels the route takes there,
+    # #1 (#2 with a backward) at L 257 / 129 and #3 / #4 at L 257
+    routes = (attention_route(16, 257, 72, False), attention_route(16, 257, 72, True),
+              attention_route(16, 129, 72, True))
+    log(f"[kernel-fp32] class-token lengths: routes (16, 257, 72) fwd '{routes[0]}', with a "
+        f"backward '{routes[1]}'; (16, 129, 72) with a backward '{routes[2]}'")
+    if routes != ("packed", "big", "packed"):
+        raise AssertionError(f"kernel-fp32: class-token routes {routes}")
+    packed, big = kernels["packed"], kernels["big"]
+    cls = dict(
+        packed_fwd=attention_fwd_rows("kernel-fp32", CLS_FWD_SHAPES, *packed[:2], seed=50, iters=5,
+                                      variant=packed[4], dtypes=fp32),
+        packed_bwd=attention_bwd_rows("kernel-fp32", CLS_BWD_SHAPES, *packed[2:4], seed=51,
+                                      iters=3, dtypes=fp32, variant=packed[5]),
+        big_fwd=attention_fwd_rows("kernel-fp32", CLS_BIG_SHAPES, *big[:2], seed=52, iters=5,
+                                   variant=big[4], dtypes=fp32),
+        big_bwd=attention_bwd_rows("kernel-fp32", CLS_BIG_SHAPES, *big[2:4], seed=53, iters=3,
+                                   dtypes=fp32, variant=big[5]),
+    )
+    return dict(rows=out, sweep_err=big_err, packed_sweep_err=packed_err, cls=cls)
 
 
 def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
@@ -1345,13 +1439,16 @@ def phase_adam_kernel() -> dict:
     return out
 
 
-def build_model(dtype: torch.dtype, res: int = 32, use_flash=None):
+def build_model(dtype: torch.dtype, res: int = 32, use_flash=None, **corners):
+    """The released configs' DiT-XL/2 (decoder, MAE coef 0.1, 1000 classes);
+    ``corners`` are the model-corner keywords (a class token, features,
+    self-conditioning)."""
     from maskdit_tpu_torch.models import create_model
 
     return create_model(
         "edm", img_resolution=res, img_channels=4, num_classes=1000,
         model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1, dtype=dtype,
-        use_flash=use_flash,
+        use_flash=use_flash, **corners,
     )
 
 
@@ -1363,7 +1460,8 @@ def random_weights_(model) -> None:
 
 
 def phase_weights() -> str:
-    model = build_model(torch.bfloat16).cuda()
+    with torch.device("cuda"):  # initialised on the card: the host's init is slower
+        model = build_model(torch.bfloat16).cuda()
     random_weights_(model)
     n_params = sum(p.numel() for p in model.parameters())
     os.makedirs(SCRATCH, exist_ok=True)
@@ -1498,10 +1596,11 @@ def denoiser_inputs(seeds: int, res: int):
     return x, sigma, y
 
 
-def parity_model(state: dict, dtype: torch.dtype, res: int, use_flash=None):
+def parity_model(state: dict, dtype: torch.dtype, res: int, use_flash=None, **corners):
     from maskdit_tpu_torch.utils.ckpt import load_into
 
-    model = build_model(dtype, res, use_flash)
+    with torch.device("cuda"):  # initialised on the card: the host's init is slower
+        model = build_model(dtype, res, use_flash, **corners)
     load_into(model, state)
     return model.cuda().eval()
 
@@ -1532,18 +1631,22 @@ def check_denoiser(tag: str, model, x, sigma, y, **launches) -> float:
 
 
 def phase_flash_parity(ckpt: str) -> dict:
-    """One CFG denoiser evaluation at 512 px with ``use_flash=True``: the
-    flash kernels (one forward launch per block, 28 + 8, and no other
-    attention kernel) vs their plain versions, in bf16 and fp32."""
+    """One CFG denoiser evaluation at 512 px with ``use_flash=True`` (run
+    under ``xl_depth(FLASH_DEPTH)``): the flash kernels (one forward launch
+    per block, FLASH_DEPTH + 8, and no other attention kernel) vs their plain
+    versions, in bf16 and fp32."""
     from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
 
-    state = load_reference_checkpoint(ckpt)
+    # the checkpoint's first FLASH_DEPTH encoder blocks: the model is built
+    # at that depth (xl_depth)
+    dropped = tuple(f"model.blocks.{i}." for i in range(FLASH_DEPTH, DEPTH))
+    state = {k: v for k, v in load_reference_checkpoint(ckpt).items() if not k.startswith(dropped)}
     x, sigma, y = denoiser_inputs(SEEDS_512, 64)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         model = parity_model(state, dtype, 64, use_flash=True)
         out[dtype_name(dtype)] = check_denoiser("parity-flash", model, x, sigma, y,
-                                                flash_fwd=DEPTH + DECODER_DEPTH)
+                                                flash_fwd=FLASH_ATTN_PER_STEP)
         del model
     free_device_memory()
     return out
@@ -1757,14 +1860,16 @@ def check_resume(results: str) -> bool:
 
 
 def train_parity_state(dtype: torch.dtype, seed: int, res: int, batch: int, use_flash=None,
-                       **opt_kw):
+                       corners=None, **opt_kw):
     """A DiT-XL/2 train state with random weights and a non-trivial Adam
     state (count 10, mu ~ N(0, 1e-4^2), nu ~ |N(0, 1e-7^2)|), the same for
-    the same seed; ``opt_kw`` go to make_optimizer (the moments' dtypes)."""
+    the same seed; ``corners`` go to build_model, ``opt_kw`` to
+    make_optimizer (the moments' dtypes)."""
     from maskdit_tpu_torch.train.state import create_train_state, make_optimizer
 
     torch.manual_seed(seed)
-    model = build_model(dtype, res, use_flash).cuda()
+    with torch.device("cuda"):  # initialised on the card: the host's init is slower
+        model = build_model(dtype, res, use_flash, **(corners or {})).cuda()
     random_weights_(model)
     opt = make_optimizer(1e-4, batch, **opt_kw)
     state = create_train_state(model, opt)
@@ -1796,15 +1901,17 @@ def parity_batch(res: int, n: int):
 
 def train_step_result(dtype: torch.dtype, res: int, batch: dict, draws, use_flash=None,
                       plain: bool = False, mask_ratio: float = 0.5,
-                      pad_to_max: bool = False) -> dict:
+                      pad_to_max: bool = False, corners=None, tag: str = "",
+                      launches=None) -> dict:
     """One train step from train_parity_state's state at ``mask_ratio``
     (with ``pad_to_max``, the batch's): the loss, the gradients and the
     updated p/ema/mu/nu, through the kernels or (``plain``) the plain
-    attention and update."""
+    attention and update. With ``launches`` the kernels' step launched
+    exactly those (checked under ``tag``)."""
     from maskdit_tpu_torch.train.state import make_train_step
 
     free_device_memory()
-    state, opt = train_parity_state(dtype, 4, res, batch["x"].shape[0], use_flash)
+    state, opt = train_parity_state(dtype, 4, res, batch["x"].shape[0], use_flash, corners)
     step = make_train_step(opt, mask_ratio=mask_ratio, mae_loss_coef=0.1, ema_decay=0.9999,
                            pad_to_max=pad_to_max)
     ctx = contextlib.ExitStack()
@@ -1812,8 +1919,11 @@ def train_step_result(dtype: torch.dtype, res: int, batch: dict, draws, use_flas
         ctx.enter_context(plain_attention())
         ctx.enter_context(plain_update())
     with ctx:
+        reset_launches()
         metrics = step(state, batch, draws=draws)
     torch.cuda.synchronize()
+    if launches is not None and not plain:
+        expect_launches(tag, read_launches(), **launches)
     result = dict(
         loss=float(metrics["loss"]),
         grads={k: v.clone() for k, v in state.named(state.grads).items()},
@@ -2099,6 +2209,157 @@ def phase_parity_train_finetune() -> dict:
     return out
 
 
+def write_cls_checkpoint(ckpt: str) -> None:
+    """CLS_CKPT: [weights]' tensors and, for the class token and the two
+    embedders a class token and self-conditioning add (cls_token_embedder,
+    enc_feat_embedder), N(0, 0.02^2) ones from seed 1, in the reference
+    ``{"ema": ...}`` layout."""
+    from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
+
+    state = load_reference_checkpoint(ckpt)
+    g = torch.Generator().manual_seed(1)
+    d = 1152
+    for key, shape in (("cls_token", (1, 1, d)), ("cls_token_embedder.weight", (d, d)),
+                       ("cls_token_embedder.bias", (d,)), ("enc_feat_embedder.weight", (d, d)),
+                       ("enc_feat_embedder.bias", (d,))):
+        state[f"model.{key}"] = torch.randn(shape, generator=g) * 0.02
+    torch.save({"ema": state}, CLS_CKPT)
+
+
+def phase_sample_cls(ckpt: str) -> dict:
+    """[sample-cls]: the generate CLI on configs/test/maskdit-256.yaml's model
+    with ``pad_cls_token`` and ``self_cond`` (SAMPLE_CLS_CONFIG, as JSON)
+    from CLS_CKPT, 8 seeds, CFG 1.5, 40 steps. Each of the 79 evaluations
+    runs the encoder for the pooled feature (28 whole-row forwards at the
+    CFG batch of 16, L 257) and then the model (28 more at L 257 and 8 in
+    the decoder at L 256, hd 32): checked to the launch. Then one CFG
+    evaluation of that model, kernels vs plain, in bf16 and fp32, within
+    MODEL_REL_BOUND."""
+    from maskdit_tpu_torch.models.layers import attention_route
+    from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
+
+    t0 = time.perf_counter()
+    write_cls_checkpoint(ckpt)
+    config = os.path.join(SCRATCH, "maskdit-256-cls.json")
+    with open(config, "w") as f:
+        json.dump(SAMPLE_CLS_CONFIG, f)
+    routes = (attention_route(16, 257, 72, False), attention_route(16, 256, 32, False))
+    log(f"[sample-cls] {CLS_CKPT} written in {time.perf_counter() - t0:.1f} s; routes: encoder "
+        f"(16, 257, 72) '{routes[0]}', decoder (16, 256, 32) '{routes[1]}'")
+    argv = [
+        "--ckpt_path", CLS_CKPT, "--outdir", os.path.join(SCRATCH, "samples-cls"), "--no_decode",
+        "--config", config, "--seeds", f"0-{SEEDS - 1}", "--max_batch_size", str(SEEDS),
+        "--cfg_scale", str(CFG), "--num_steps", str(STEPS),
+    ]
+    per_eval = 2 * DEPTH + DECODER_DEPTH
+    out, launches = run_generate("sample-cls", argv, SEEDS, 32)
+    expect_launches("sample-cls", launches, packed_fwd=(2 * STEPS - 1) * per_eval)
+    state = load_reference_checkpoint(CLS_CKPT)
+    x, sigma, y = denoiser_inputs(SEEDS, 32)
+    for dtype in (torch.bfloat16, torch.float32):
+        model = parity_model(state, dtype, 32, pad_cls_token=True, use_encoder_feat=True)
+        out[dtype_name(dtype)] = check_denoiser("sample-cls", model, x, sigma, y,
+                                                packed_fwd=per_eval)
+        del model
+    del state
+    free_device_memory()
+    return dict(out, launches=launches)
+
+
+def write_features() -> int:
+    """The feature LMDB at FEATURE_ROOT: one FEATURE_DIM-float row from
+    N(0, 1) (FEATURE_SEED) per record of [extract]'s latent LMDB, under its
+    label. Returns the record count."""
+    from maskdit_tpu_torch.data.features import write_feature_lmdb
+    from maskdit_tpu_torch.data.native_io import open_reader
+
+    db = open_reader(os.path.join(TRAIN_DATA_ROOT, "train"))
+    n = int(db.get(b"length").decode())
+    labels = [int(db.get(f"y-{i}".encode()).decode()) for i in range(n)]
+    db.close()
+    feats = np.random.default_rng(FEATURE_SEED).standard_normal((n, FEATURE_DIM), np.float32)
+    write_feature_lmdb(os.path.join(FEATURE_ROOT, "train"), feats, labels)
+    return n
+
+
+@contextlib.contextmanager
+def corner_inputs():
+    """The token counts the encoder's blocks take (DiTBlocks of XL/2's
+    width) and the shapes the feature embedder (the Linear of FEATURE_DIM
+    inputs) takes, from forward hooks."""
+    from maskdit_tpu_torch.models.layers import DiTBlock, Linear
+
+    seen = {"encoder": set(), "feat": []}
+
+    def hook(mod, args):
+        if isinstance(mod, DiTBlock) and args[0].shape[-1] == 1152:
+            seen["encoder"].add(args[0].shape[1])
+        elif isinstance(mod, Linear) and mod.in_features == FEATURE_DIM:
+            seen["feat"].append(tuple(args[0].shape))
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def phase_train_cls_feat() -> dict:
+    """[train-cls-feat]: the train CLI on TRAIN_CLS_CONFIG: the released
+    256-px config with a class token and FEATURE_DIM-wide features joined
+    from the feature LMDB, batch 128, mask 0.5, TRAIN_STEPS_CLS steps.
+    Finite losses; per step 36 whole-row forwards and backwards (the
+    encoder at 128 kept tokens + the class token, the decoder at 256) and
+    one update, no other kernel; the encoder took 129 tokens and the
+    feature embedder a (128, FEATURE_DIM) batch at every step."""
+    from maskdit_tpu_torch.models.layers import attention_route
+
+    t0 = time.perf_counter()
+    n = write_features()
+    routes = (attention_route(16, 129, 72, True), attention_route(16, 256, 32, True))
+    log(f"[train-cls-feat] feature LMDB: {n} records of {FEATURE_DIM} floats (seed "
+        f"{FEATURE_SEED}) in {time.perf_counter() - t0:.1f} s; routes with a backward: encoder "
+        f"(16, 129, 72) '{routes[0]}', decoder (16, 256, 32) '{routes[1]}'")
+    with corner_inputs() as seen:
+        out = run_train("train-cls-feat", TRAIN_CLS_CONFIG, 32, dict(
+            packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
+            write_checkpoints=False)
+    log(f"[train-cls-feat] encoder token counts {sorted(seen['encoder'])}; feature batches "
+        f"{seen['feat']}")
+    if (seen["encoder"] != {129}
+            or seen["feat"] != [(TRAIN_BATCH, FEATURE_DIM)] * TRAIN_STEPS_CLS):
+        raise AssertionError(f"train-cls-feat: {seen}")
+    return out
+
+
+def phase_parity_cls() -> dict:
+    """[parity-cls]: one fp32 step of [train-cls-feat]'s model (class token,
+    FEATURE_DIM features) at PARITY_BATCH from one state with the same
+    injected draws and features, kernels vs plain, within [parity-train]'s
+    fp32 bounds: at mask 0.5 (the encoder at L 129 on #1 / #2) and at mask 0
+    (L 257 on #3 / #4; the decoder on #1 / #2 at L 256), the kernels' step
+    checked to the launch."""
+    tag, fp32, n = "parity-cls", torch.float32, PARITY_BATCH
+    batch, draws = parity_batch(32, n)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch["feat"] = torch.randn(n, FEATURE_DIM, device="cuda", generator=g)
+    enc, dec = DEPTH, DECODER_DEPTH
+    out = {}
+    for ratio, d, launches in (
+            (0.5, draws, dict(packed_fwd=enc + dec, packed_bwd=enc + dec, adam=1)),
+            (0.0, draws._replace(mask_info=None),
+             dict(big_fwd=enc, big_bwd=enc, packed_fwd=dec, packed_bwd=dec, adam=1))):
+        what = f"mask {ratio} (L {129 if ratio else 257}), kernels vs plain"
+        got = train_step_result(fp32, 32, batch, d, mask_ratio=ratio, corners=CLS_MODEL_KW,
+                                tag=f"{tag} mask {ratio}", launches=launches)
+        ref = train_step_result(fp32, 32, batch, d, mask_ratio=ratio, corners=CLS_MODEL_KW,
+                                plain=True)
+        out[f"mask{ratio}"] = compare_steps(tag, what, fp32, 32, n, got, ref)
+        del got, ref
+    free_device_memory()
+    return out
+
+
 def launch_workers(tag: str, nproc: int, *args: str) -> dict:
     """Run this script's worker ``tag`` in ``nproc`` processes under
     torch.distributed.run (a rendezvous on localhost); its output is logged;
@@ -2332,10 +2593,11 @@ def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = 
 
     free_device_memory()
     torch.manual_seed(0)
-    model = create_model("edm", img_resolution=res, img_channels=4, num_classes=1000,
-                         model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1,
-                         use_flash=use_flash,
-                         dtype=torch.float32 if fp32 else torch.bfloat16).cuda()
+    with torch.device("cuda"):  # initialised on the card: the host's init is slower
+        model = create_model("edm", img_resolution=res, img_channels=4, num_classes=1000,
+                             model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1,
+                             use_flash=use_flash,
+                             dtype=torch.float32 if fp32 else torch.bfloat16).cuda()
     opt = make_optimizer(1e-4, batch)
     state = create_train_state(model, opt)
     step = make_train_step(opt, mask_ratio=mask_ratio, mae_loss_coef=0.1)
@@ -2875,15 +3137,17 @@ def main() -> None:
         parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
         phase_train_profile("train-profile-512", 64, TRAIN_BATCH_512, 2)
         mark("train-512")
-        parity_flash = phase_flash_parity(ckpt)
-        # the checkpoint recomputes each layer's forward in the backward
-        train_flash = run_train("train-flash", TRAIN_CONFIG_512, 64, dict(
-            flash_fwd=2 * ATTN_PER_STEP, flash_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
-            ("model.use_flash=true", "data.streaming=true",
-             f"train.max_num_steps={TRAIN_STEPS_FLASH}"))
-        parity_train_flash = phase_parity_train("parity-train-flash", 64, PARITY_BATCH_512,
-                                                use_flash=True)
-        phase_train_profile("train-profile-flash", 64, TRAIN_BATCH_512, 2, use_flash=True)
+        with xl_depth(FLASH_DEPTH):
+            parity_flash = phase_flash_parity(ckpt)
+            # the checkpoint recomputes each layer's forward in the backward
+            train_flash = run_train("train-flash", TRAIN_CONFIG_512, 64, dict(
+                flash_fwd=2 * FLASH_ATTN_PER_STEP, flash_bwd=FLASH_ATTN_PER_STEP,
+                adam=ADAM_PER_STEP),
+                ("model.use_flash=true", "data.streaming=true",
+                 f"train.max_num_steps={TRAIN_STEPS_FLASH}"))
+            parity_train_flash = phase_parity_train("parity-train-flash", 64, PARITY_BATCH_512,
+                                                    use_flash=True)
+            phase_train_profile("train-profile-flash", 64, TRAIN_BATCH_512, 2, use_flash=True)
         mark("train-flash")
         finetune = {"256": phase_finetune("train-finetune256", "256-latent-const"),
                     "cos": phase_finetune("train-finetune-cos", "256-latent-cos"),
@@ -2894,6 +3158,10 @@ def main() -> None:
         phase_train_profile("train-profile-finetune512", 64, FINETUNE_BATCH_512, 1, fp32=True,
                             mask_ratio=0.0)
         mark("finetune")
+        sample_cls = phase_sample_cls(ckpt)
+        train_cls = phase_train_cls_feat()
+        parity_cls = phase_parity_cls()
+        mark("model corners")
         gate = phase_overfit_gate()
         mark("overfit-gate")
     finally:
@@ -2931,39 +3199,44 @@ def main() -> None:
             for k, v in finetune.items()) + f"; parity {parity_finetune}; kernel-fp32 " + ", ".join(
             f"{k} {v['route']} fwd {v['fwd']['ms']:.3f} / bwd {v['bwd']['ms']:.3f} ms"
             for k, v in fp32_k["rows"].items()) +
-        f"; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+        f"; model corners: sample-cls {sample_cls['images_per_s']:.3f} images/s (cold), rel err "
+        f"bf16 {sample_cls['bfloat16']:.3e}, fp32 {sample_cls['float32']:.3e}; train-cls-feat "
+        f"{train_cls['images_per_s']:.2f} images/s, {train_cls['ms_per_step']:.1f} ms/step; "
+        f"parity-cls {parity_cls}; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
     paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
              train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
-             *finetune.values())
+             *finetune.values(), sample_cls, train_cls)
     count = lambda key: sum(p["launches"][key] for p in paths)
     fp32_err = lambda rows, route, d, sweep: max(
         [v["err"] for (_, dt), v in rows.items() if dt == "float32"]
-        + [v[d]["err"] for v in fp32_k["rows"].values() if v["route"] == route] + [sweep])
+        + [v[d]["err"] for v in fp32_k["rows"].values() if v["route"] == route] + [sweep]
+        + [v["err"] for v in fp32_k["cls"][f"{route}_{d}"].values()])
     packed_fp32 = [fp32_err(rows, "packed", d, fp32_k["packed_sweep_err"])
                    for rows, d in ((kernels, "fwd"), (bwd, "bwd"))]
     big_fp32 = [fp32_err(big[d], "big", d, fp32_k["sweep_err"]) for d in ("fwd", "bwd")]
     print(json.dumps({"kernels": [
         {**kernel_line("packed_attention_fwd", "packed_attention_fwd.cu",
                        "flash_batched.py:162", count("packed_fwd"),
-                       bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES]),
+                       bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES + CLS_FWD_SHAPES]),
                        kernels[("encoder", "bfloat16")]),
          "max_abs_err_fp32": packed_fp32[0]},
         {**kernel_line("packed_attention_bwd", "packed_attention_bwd.cu",
                        "flash_batched.py:177", count("packed_bwd"),
-                       bf16(bwd, ["train_encoder", "train_decoder"]),
+                       bf16(bwd, ["train_encoder", "train_decoder", "cls_train_encoder"]),
                        bwd[("train_encoder", "bfloat16")]),
          "max_abs_err_fp32": packed_fp32[1]},
         kernel_line("fused_adam_ema", "fused_adam_ema.cu", "fused_adam.py:109", count("adam"),
                     adam[ADAM_VARIANTS[0]]["err"], adam[ADAM_VARIANTS[0]]),
         {**kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",
                        "flash_big.py:213", count("big_fwd"),
-                       bf16(big["fwd"], [s[0] for s in BIG_FWD_SHAPES]),
+                       bf16(big["fwd"], [s[0] for s in BIG_FWD_SHAPES + CLS_BIG_SHAPES]),
                        big["fwd"][("sample_encoder", "bfloat16")]),
          "max_abs_err_fp32": big_fp32[0]},
         {**kernel_line("packed_attention_big_bwd", "packed_attention_big_bwd.cu",
                        "flash_big.py:234", count("big_bwd"),
-                       bf16(big["bwd"], ["train_encoder", "train_decoder"]),
+                       bf16(big["bwd"], ["train_encoder", "train_decoder",
+                                         "cls_unmasked_encoder"]),
                        big["bwd"][("train_encoder", "bfloat16")]),
          "max_abs_err_fp32": big_fp32[1]},
         kernel_line("flash_fwd", "flash_fwd.cu", "flash.py:96", count("flash_fwd"),

@@ -297,9 +297,12 @@ class ImageNetLatentDataset(Dataset):
     so extracted datasets are interchangeable. Flipped copies are stored
     (extract_latent's --xflip appends them as records [N, 2N)).
 
-    ``native`` picks the reader (``self.reader_kind`` names it). A feature
-    LMDB (``feat_path``, the ``ext_feature_dim`` path) is not ported yet:
-    a directory there raises, where the JAX dataset would join it.
+    ``native`` picks the reader (``self.reader_kind`` names it).
+    ``feat_path`` (a directory; "None" or "" mean none), the
+    ``model.ext_feature_dim`` path, joins a feature LMDB of the same split
+    record by record (JAX datasets.py:196-230): each record's label becomes
+    ``[label, feature (feat_dim,) float32]``, and a record whose label
+    differs between the two LMDBs raises.
     """
 
     flips = "stored"
@@ -315,13 +318,15 @@ class ImageNetLatentDataset(Dataset):
         native: bool = True,
         **view_kwargs,
     ):
-        if feat_path not in (None, "None", "") and os.path.isdir(str(feat_path)):
-            raise NotImplementedError(
-                f"data.feat_path {feat_path!r}: external features (model.ext_feature_dim) "
-                "are not ported yet")
         self._path = os.path.join(path, split)
+        self.feat_dim = feat_dim
         self._db = open_reader(self._path, native=native)
         self.reader_kind = self._db.kind
+        self._feat_db = None
+        if feat_path not in (None, "None", "") and os.path.isdir(str(feat_path)):
+            if feat_dim <= 0:
+                raise ValueError(f"data.feat_path {feat_path!r} needs model.ext_feature_dim > 0")
+            self._feat_db = open_reader(os.path.join(feat_path, split), native=native)
         length = int(self._db.get(b"length").decode("utf-8"))
         self._init_view(
             num_records=length,
@@ -334,10 +339,21 @@ class ImageNetLatentDataset(Dataset):
             self._db.get(f"z-{record_id}".encode()), dtype=np.float32
         ).reshape([-1, self.resolution, self.resolution]).copy()
         y = int(self._db.get(f"y-{record_id}".encode()).decode("utf-8"))
-        return z, y
+        if self._feat_db is None:
+            return z, y
+        feat = np.frombuffer(
+            self._feat_db.get(f"feat-{record_id}".encode()), dtype=np.float32
+        ).reshape([self.feat_dim]).copy()
+        feat_y = int(self._feat_db.get(f"y-{record_id}".encode()).decode("utf-8"))
+        if y != feat_y:
+            raise ValueError(f"record {record_id}: label {y} in the latent LMDB, {feat_y} in "
+                             "the feature LMDB (ordering mismatch between the two)")
+        return z, [y, feat]
 
     def close(self) -> None:
         self._db.close()
+        if self._feat_db is not None:
+            self._feat_db.close()
 
 
 def write_latent_lmdb(

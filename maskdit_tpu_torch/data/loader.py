@@ -24,7 +24,8 @@ from maskdit_tpu_torch.parallel import dist
 class DataLoader:
     """Epoch-based shuffled loader over a map-style dataset of (x, y).
 
-    Yields {'x': (B, ...) float32, 'y': (B, K) float32} numpy batches of
+    Yields {'x': (B, ...) float32, 'y': (B, K) float32} numpy batches (and
+    'feat' (B, F) float32 from a dataset that joins features) of
     this process's rows, forever (epochs roll over), with the JAX loader's
     per-epoch order; the last partial batch of an epoch is dropped.
     ``process_index`` / ``process_count`` default to the process group's
@@ -83,8 +84,17 @@ class DataLoader:
 
     @staticmethod
     def _collate(samples) -> dict[str, np.ndarray]:
-        xs, ys = zip(*samples)
-        return {"x": np.stack(xs).astype(np.float32), "y": np.stack(ys).astype(np.float32)}
+        """The batch of (x, y) samples; a ``[onehot, feature]`` condition (the
+        feature-LMDB join) gives ``feat`` beside ``y`` (JAX loader.py:
+        103-111)."""
+        xs, conds = zip(*samples)
+        batch = {"x": np.stack(xs).astype(np.float32)}
+        if isinstance(conds[0], list):
+            batch["y"] = np.stack([c[0] for c in conds]).astype(np.float32)
+            batch["feat"] = np.stack([c[1] for c in conds]).astype(np.float32)
+        else:
+            batch["y"] = np.stack(conds).astype(np.float32)
+        return batch
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         # the JAX loader's check (:118-131): a slice smaller than a batch

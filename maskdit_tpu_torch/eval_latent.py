@@ -27,7 +27,7 @@ import torch
 
 from maskdit_tpu_torch.evals import fid as fid_lib
 from maskdit_tpu_torch.fid import add_detector_args, build_detector
-from maskdit_tpu_torch.models import check_model_keys, create_model
+from maskdit_tpu_torch.models import create_model
 from maskdit_tpu_torch.models.precond import EDMPrecond
 from maskdit_tpu_torch.parallel import dist
 from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
@@ -39,10 +39,12 @@ from maskdit_tpu_torch.utils.port import load_vae
 
 def build_model(model_cfg, device) -> EDMPrecond:
     """The sampling model of a config's ``model`` section (a dict or a
-    config node), in bf16 compute, on ``device``, in eval mode."""
+    config node), in bf16 compute, on ``device``, in eval mode. It has the
+    config's class token and feature embedder, so a trained state dict
+    loads strictly; it samples without features (no feature LMDB is
+    given), as the JAX evaluation does."""
     if model_cfg.get("precond", "edm") != "edm":
         raise NotImplementedError(f"precond '{model_cfg['precond']}' is not ported (edm only)")
-    check_model_keys(model_cfg)
     model = create_model(
         "edm",
         img_resolution=model_cfg["in_size"],
@@ -51,6 +53,8 @@ def build_model(model_cfg, device) -> EDMPrecond:
         model_type=model_cfg["model_type"],
         use_decoder=model_cfg["use_decoder"],
         mae_loss_coef=model_cfg.get("mae_loss_coef", 0),
+        pad_cls_token=model_cfg.get("pad_cls_token", False),
+        ext_feature_dim=model_cfg.get("ext_feature_dim", 0),
         dtype=torch.bfloat16,
     )
     return model.to(device).eval()

@@ -6,6 +6,10 @@ Usage:
       [--config configs/test/maskdit-256.yaml] \
       [--pretrained_path assets/stable_diffusion/autoencoder_kl.pth] ...
 
+Class-sample mode (reference generate.py:39-60): ``--label_dict L.json
+--class_idx N --results_dir R`` writes into ``R/<class name>/`` instead of
+``--outdir``. ``--subdirs`` puts the PNGs under thousand-seed folders.
+
 Loads the EMA weights of a reference ``.pt`` checkpoint, samples with the
 EDM (or ablation) sampler on ``--device`` (under ``python -m
 torch.distributed.run`` each process samples its rank-strided batches of
@@ -15,6 +19,13 @@ batch with the SD-VAE of ``--pretrained_path`` (the released
 ``--no_decode`` writes the latents of each batch as
 ``latents_<first seed>.npy`` instead. The model computes in bf16 unless
 ``--fp32``.
+
+The model corners as the JAX CLI reads them (root generate.py:115-167,
+240-266): ``--pad_cls_token``, ``--ext_feature_dim``, ``--use_encoder_feat``
+(from ``--config``: ``model.pad_cls_token``, ``model.ext_feature_dim`` and
+``model.self_cond``); with ``--feat_path`` (a feature LMDB) and
+``--ext_feature_dim > 0`` each batch is conditioned on features drawn by
+``--sample_mode``, with their own labels, so ``--class_idx`` is refused.
 """
 
 from __future__ import annotations
@@ -26,9 +37,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from maskdit_tpu_torch.models import DIT_CONFIGS, check_model_keys, create_model
+from maskdit_tpu_torch.data.features import SAMPLE_MODES, retrieve_n_features
+from maskdit_tpu_torch.models import DIT_CONFIGS, create_model
 from maskdit_tpu_torch.parallel import dist
-from maskdit_tpu_torch.sampling.generate import SamplerConfig, generate_with_params
+from maskdit_tpu_torch.sampling.generate import (
+    SamplerConfig,
+    generate_with_params,
+    resolve_class_outdir,
+)
 from maskdit_tpu_torch.utils import config as config_lib
 from maskdit_tpu_torch.utils.ckpt import load_into, load_reference_checkpoint
 from maskdit_tpu_torch.utils.logging import Logger, parse_float_none, parse_int_list, str2bool
@@ -54,11 +70,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("sampling parameters")
     parser.add_argument("--ckpt_path", type=str, required=True,
                         help="reference .pt checkpoint; its 'ema' weights are used")
-    parser.add_argument("--outdir", type=str, required=True)
+    parser.add_argument("--outdir", type=str, default=None,
+                        help="output dir; or use --label_dict/--results_dir")
     parser.add_argument("--config", type=str, default=None,
                         help="model config (YAML, or JSON of the same schema); "
                         "overrides the --model_type/... flags")
+    parser.add_argument("--label_dict", type=str, default=None,
+                        help="JSON {class_idx: [synset, class_name]}; with "
+                        "--class_idx, samples go to <results_dir>/<class_name>")
+    parser.add_argument("--results_dir", type=str, default="samples")
     parser.add_argument("--seeds", type=parse_int_list, default="0-63")
+    parser.add_argument("--subdirs", action="store_true")
     parser.add_argument("--class_idx", type=int, default=None)
     parser.add_argument("--max_batch_size", type=int, default=64)
     parser.add_argument("--cfg_scale", type=parse_float_none, default=None)
@@ -82,8 +104,18 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_classes", type=int, default=1000)
     parser.add_argument("--model_type", type=str,
                         choices=list(DIT_CONFIGS), default="DiT-XL/2")
+    parser.add_argument("--precond", type=str, default="edm", choices=["edm"])
     parser.add_argument("--use_decoder", type=str2bool, default=False)
+    parser.add_argument("--pad_cls_token", type=str2bool, default=False)
     parser.add_argument("--mae_loss_coef", type=float, default=0)
+    parser.add_argument("--ext_feature_dim", type=int, default=0)
+    parser.add_argument("--use_encoder_feat", type=str2bool, default=False,
+                        help="self-conditioning on the pooled encoder feature "
+                        "(from --config: model.self_cond)")
+    parser.add_argument("--feat_path", type=str, default="",
+                        help="feature LMDB to draw external features from")
+    parser.add_argument("--sample_mode", type=str, default="rand_full",
+                        choices=list(SAMPLE_MODES))
     parser.add_argument("--use_strict_load", type=str2bool, default=True)
     parser.add_argument("--fp32", action="store_true",
                         help="run the denoiser in fp32 (parity mode)")
@@ -104,13 +136,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         m = config_lib.load_file(args.config).model
         if m.precond != "edm":
             parser.error(f"precond '{m.precond}' is not ported (edm only)")
-        check_model_keys(m)
         args.model_type = m.model_type
         args.image_size = m.in_size
         args.image_channels = m.in_channels
         args.num_classes = m.num_classes
+        args.precond = m.precond
         args.use_decoder = m.use_decoder
         args.mae_loss_coef = m.get("mae_loss_coef", 0)
+        args.pad_cls_token = m.get("pad_cls_token", False)
+        args.ext_feature_dim = m.get("ext_feature_dim", 0)
+        # the reference reads model.self_cond, which no released config
+        # defines: absent means False, as in the JAX CLI
+        args.use_encoder_feat = m.get("self_cond", False)
+    if args.label_dict is not None:
+        if args.class_idx is None:
+            parser.error("--label_dict requires --class_idx")
+        args.outdir, class_name = resolve_class_outdir(
+            args.label_dict, args.class_idx, args.results_dir)
+        print(f"sampling class {args.class_idx} ({class_name}) into {args.outdir}")
+    elif args.outdir is None:
+        parser.error("one of --outdir or --label_dict is required")
+    if args.feat_path and args.ext_feature_dim > 0 and args.class_idx is not None:
+        parser.error("--class_idx cannot combine with --feat_path: retrieved feature rows "
+                     "carry their own matching class labels")
 
     created = dist.init_distributed(device=args.device)
     try:
@@ -133,6 +181,9 @@ def _generate(args: argparse.Namespace, device: torch.device) -> dict:
             model_type=args.model_type,
             use_decoder=args.use_decoder,
             mae_loss_coef=args.mae_loss_coef,
+            pad_cls_token=args.pad_cls_token,
+            ext_feature_dim=args.ext_feature_dim,
+            use_encoder_feat=args.use_encoder_feat,
             dtype=torch.float32 if args.fp32 else torch.bfloat16,
         )
         load_into(model, load_reference_checkpoint(args.ckpt_path),
@@ -153,6 +204,14 @@ def _generate(args: argparse.Namespace, device: torch.device) -> dict:
             schedule=args.schedule,
             scaling=args.scaling,
         )
+        feat_fn = None
+        if args.feat_path and args.ext_feature_dim > 0:
+            # each batch draws (feature, label) rows from the feature LMDB,
+            # seeded by its first seed, so any rank / world split draws the
+            # same rows for the same batch (JAX generate.py:240-258)
+            feat_fn = lambda batch_seeds: retrieve_n_features(
+                len(batch_seeds), args.feat_path, args.ext_feature_dim, args.num_classes,
+                sample_mode=args.sample_mode, seed=int(batch_seeds[0]))
         what = "latents" if vae is None else "images"
         dist.mprint(f"generating {len(args.seeds)} {what} to {args.outdir} "
                     f"(cfg={args.cfg_scale}, steps={args.num_steps}, device={device}, "
@@ -163,6 +222,7 @@ def _generate(args: argparse.Namespace, device: torch.device) -> dict:
             model, args.seeds, args.outdir, sampler_cfg,
             class_idx=args.class_idx, max_batch_size=args.max_batch_size,
             save_latents=vae is None, vae=vae, rank=rank, world=world,
+            subdirs=args.subdirs, feat_fn=feat_fn,
         )
         _synchronize(device)
         dist.barrier()  # every process's images are written

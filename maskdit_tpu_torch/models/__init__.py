@@ -2,7 +2,6 @@ from maskdit_tpu_torch.models.dit import DIT_CONFIGS, MaskDiT, create_dit
 from maskdit_tpu_torch.models.precond import (
     PRECOND_MODELS,
     EDMPrecond,
-    check_model_keys,
     create_model,
 )
 
@@ -12,6 +11,5 @@ __all__ = [
     "create_dit",
     "EDMPrecond",
     "PRECOND_MODELS",
-    "check_model_keys",
     "create_model",
 ]

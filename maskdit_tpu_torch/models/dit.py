@@ -8,7 +8,9 @@ encoder runs on the kept tokens only and the decoder on all of them, the
 dropped ones filled with the mask token (models/masking.py). A pad-to-max
 ``MaskInfo`` (``len_keep`` set) runs the encoder at ``len_max`` tokens
 with attention limited to the first ``len_keep`` keys and scatters only
-those back. The JAX package's ``ScannedBlocks`` and remat policies are not
+those back. The model corners (a class token, external features,
+self-conditioning on the pooled encoder feature) are ``MaskDiT``'s
+options. The JAX package's ``ScannedBlocks`` and remat policies are not
 ported: they exist only to cut XLA compile time.
 
 API as in the JAX package: ``model(x, t, y)`` returns a dict whose 'x' is
@@ -28,14 +30,26 @@ from maskdit_tpu_torch.models.layers import (
     DiTBlock,
     FinalLayer,
     LabelEmbedder,
+    Linear,
     PatchEmbed,
     TimestepEmbedder,
     get_2d_sincos_pos_embed,
+    layer_norm_no_affine,
 )
 
 DECODER_HIDDEN_SIZE = 512  # reference: maskdit.py:310
 DECODER_DEPTH = 8  # reference: maskdit.py:311
 DECODER_NUM_HEADS = 16  # reference: maskdit.py:312
+
+
+def _embedder(in_features: int, out_features: int, dtype: torch.dtype) -> Linear:
+    """A Linear of the conditioning (feat_embedder, cls_token_embedder,
+    enc_feat_embedder): weight ~ N(0, 0.02^2), zero bias, as the JAX
+    ``nn.Dense(kernel_init=normal_002)``."""
+    lin = Linear(in_features, out_features, compute_dtype=dtype)
+    nn.init.normal_(lin.weight, std=0.02)
+    nn.init.zeros_(lin.bias)
+    return lin
 
 
 class MaskDiT(nn.Module):
@@ -46,6 +60,17 @@ class MaskDiT(nn.Module):
     reads them in ``setup``. ``use_flash`` goes to every encoder and
     decoder block's ``Attention`` (None = auto, True = ops/flash.py's
     kernels, False = the plain path).
+
+    The model corners (JAX dit.py:116-119, reference maskdit.py:285-330):
+    ``pad_cls_token`` puts a learned class token (``cls_token``) in front of
+    the encoder's tokens, so the encoder runs at one more token; with the
+    decoder its normalised output conditions the decoder through
+    ``cls_token_embedder``, and it enters the decoder's tokens only with
+    ``direct_cls_token`` (``decoder_extras``). ``ext_feature_dim > 0`` adds
+    ``feat_embedder(feat)`` to the conditioning; ``use_encoder_feat`` (with
+    the decoder) conditions on the pooled encoder feature of ``encode``
+    through ``enc_feat_embedder``, computed first at inference when no
+    ``feat`` is given.
     """
 
     def __init__(
@@ -61,6 +86,10 @@ class MaskDiT(nn.Module):
         learn_sigma: bool = False,
         use_decoder: bool = False,
         mae_loss_coef: float = 0.0,
+        pad_cls_token: bool = False,
+        direct_cls_token: bool = False,
+        ext_feature_dim: int = 0,
+        use_encoder_feat: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         use_flash: Optional[bool] = None,
     ):
@@ -69,9 +98,14 @@ class MaskDiT(nn.Module):
         self.patch_size = patch_size
         self.in_channels = in_channels
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        self.hidden_size = hidden_size
         self.num_classes = num_classes
         self.use_decoder = use_decoder
         self.mae_loss_coef = mae_loss_coef
+        self.pad_cls_token = pad_cls_token
+        self.direct_cls_token = direct_cls_token
+        self.ext_feature_dim = ext_feature_dim
+        self.use_encoder_feat = use_encoder_feat
         self.dtype = dtype
         grid = input_size // patch_size
 
@@ -79,9 +113,16 @@ class MaskDiT(nn.Module):
         self.t_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
         if num_classes:
             self.y_embedder = LabelEmbedder(num_classes, hidden_size, dtype=dtype)
+        if pad_cls_token:
+            self.cls_token = nn.Parameter(torch.empty(1, 1, hidden_size).normal_(std=0.02))
+        if ext_feature_dim > 0:
+            self.feat_embedder = _embedder(ext_feature_dim, hidden_size, dtype)
+        # the fixed sin-cos tables, with a zero row per leading extra token
+        # (JAX dit.py:255-269)
         self.register_buffer(
             "pos_embed",
-            torch.from_numpy(get_2d_sincos_pos_embed(hidden_size, grid))[None],
+            torch.from_numpy(get_2d_sincos_pos_embed(
+                hidden_size, grid, cls_token=pad_cls_token, extra_tokens=self.extras))[None],
             persistent=False,
         )
         self.blocks = nn.ModuleList(
@@ -94,7 +135,9 @@ class MaskDiT(nn.Module):
             self.decoder_layer = DecoderLayer(hidden_size, DECODER_HIDDEN_SIZE, dtype=dtype)
             self.register_buffer(
                 "decoder_pos_embed",
-                torch.from_numpy(get_2d_sincos_pos_embed(DECODER_HIDDEN_SIZE, grid))[None],
+                torch.from_numpy(get_2d_sincos_pos_embed(
+                    DECODER_HIDDEN_SIZE, grid, cls_token=pad_cls_token,
+                    extra_tokens=self.decoder_extras))[None],
                 persistent=False,
             )
             self.decoder_blocks = nn.ModuleList(
@@ -109,46 +152,140 @@ class MaskDiT(nn.Module):
                 self.mask_token = nn.Parameter(
                     torch.empty(1, 1, DECODER_HIDDEN_SIZE).normal_(std=0.02)
                 )
+            if pad_cls_token:
+                self.cls_token_embedder = _embedder(hidden_size, hidden_size, dtype)
+            if use_encoder_feat:
+                self.enc_feat_embedder = _embedder(hidden_size, hidden_size, dtype)
             final_hidden_size = DECODER_HIDDEN_SIZE
         self.final_layer = FinalLayer(
             final_hidden_size, hidden_size, patch_size, self.out_channels, dtype=dtype
         )
 
-    def _condition(self, t: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
-        """c = t_emb + y_emb (reference: maskdit.py:491-504)."""
+    @property
+    def extras(self) -> int:
+        """Leading tokens of the encoder (the class token)."""
+        return 1 if self.pad_cls_token else 0
+
+    @property
+    def decoder_extras(self) -> int:
+        """Leading tokens of the decoder (reference: maskdit.py:285-289,
+        313-314): the class token goes on past the encoder without a
+        decoder, or with ``direct_cls_token``."""
+        if self.pad_cls_token and (not self.use_decoder or self.direct_cls_token):
+            return 1
+        return 0
+
+    def _condition(self, t: torch.Tensor, y: Optional[torch.Tensor],
+                   feat: Optional[torch.Tensor]) -> torch.Tensor:
+        """c = t_emb + y_emb (+ feat_emb) (reference: maskdit.py:491-504):
+        the external feature where ``ext_feature_dim > 0``, else an encoder
+        feature of the model's width with ``use_encoder_feat``."""
         c = self.t_embedder(t)
         if self.num_classes and y is not None:
             c = c + self.y_embedder(y)
+        if self.ext_feature_dim > 0 and feat is not None:
+            c = c + self.feat_embedder(feat)
+        elif (self.use_encoder_feat and self.use_decoder and feat is not None
+              and feat.shape[-1] == self.hidden_size):
+            c = c + self.enc_feat_embedder(feat)
         return c
+
+    def _embed_and_mask(
+        self, x: torch.Tensor, mask_ratio: float, mask_info: Optional[masking.MaskInfo],
+        train: bool, generator: Optional[torch.Generator],
+    ) -> tuple[torch.Tensor, Optional[masking.MaskInfo]]:
+        """Patch embedding + position, the mask (drawn from ``generator``
+        unless given; tokens dropped only with ``train``: at inference the
+        mask is ignored, as in the reference, maskdit.py:479-483), then the
+        class token in front (JAX dit.py:294-312)."""
+        pos = self.pos_embed
+        x_tok = self.x_embedder(x) + pos[:, self.extras:].to(self.dtype)
+        if mask_ratio > 0 and mask_info is None:
+            mask_info = masking.random_mask(
+                x_tok.shape[0], x_tok.shape[1], mask_ratio, generator, device=x.device
+            )
+        if mask_ratio > 0 and train:
+            x_tok = masking.gather_tokens(x_tok, mask_info.ids_keep)
+        if self.pad_cls_token:
+            cls = (self.cls_token + pos[:, :self.extras]).to(self.dtype)
+            x_tok = torch.cat([cls.expand(x_tok.shape[0], -1, -1), x_tok], dim=1)
+        return x_tok, mask_info
+
+    def _kv_valid(self, mask_info: Optional[masking.MaskInfo], train: bool,
+                  mask_ratio: float) -> Optional[torch.Tensor]:
+        """Pad-to-max: the valid prefix of the encoder's tokens, the kept
+        ones and the leading extras (JAX dit.py:314-322); None = all."""
+        if train and mask_ratio > 0 and mask_info is not None and mask_info.len_keep is not None:
+            return mask_info.len_keep + self.extras
+        return None
+
+    def encode(
+        self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor],
+        mask_ratio: float = 0.0, mask_info: Optional[masking.MaskInfo] = None,
+        feat: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+    ) -> tuple[torch.Tensor, Optional[masking.MaskInfo]]:
+        """The pooled, normalised encoder feature for self-conditioning
+        (reference: maskdit.py:426-464; JAX dit.py:324-342): the mean of the
+        encoder's output tokens past the extras (over the valid prefix only
+        under pad-to-max), then a LayerNorm without affine. The mask, where
+        ``mask_ratio > 0``, drops tokens."""
+        x_tok, mask_info = self._embed_and_mask(x, mask_ratio, mask_info, True, generator)
+        kv_valid = self._kv_valid(mask_info, True, mask_ratio)
+        c = self._condition(t, y, feat)
+        for block in self.blocks:
+            x_tok = block(x_tok, c, kv_valid)
+        body = x_tok[:, self.extras:]
+        if kv_valid is not None:
+            # the padded tail carries garbage: a masked mean
+            len_keep = mask_info.len_keep
+            valid = (torch.arange(body.shape[1], device=body.device) < len_keep)[None, :, None]
+            x_feat = (body * valid).sum(dim=1) / len_keep
+        else:
+            x_feat = body.mean(dim=1)
+        return layer_norm_no_affine(x_feat), mask_info
+
+    def forward_encoder(
+        self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None,
+        mask_ratio: float = 0.0, mask_info: Optional[masking.MaskInfo] = None,
+        feat: Optional[torch.Tensor] = None, train: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> tuple[dict, torch.Tensor, Optional[masking.MaskInfo]]:
+        """The encoder's tokens and the conditioning (reference:
+        maskdit.py:467-509): ({'x': tokens}, c, mask_info)."""
+        x_tok, mask_info = self._embed_and_mask(x, mask_ratio, mask_info, train, generator)
+        kv_valid = self._kv_valid(mask_info, train, mask_ratio)
+        c = self._condition(t, y, feat)
+        for block in self.blocks:
+            x_tok = block(x_tok, c, kv_valid)
+        return {"x": x_tok}, c, mask_info
 
     def forward(
         self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None,
         mask_ratio: float = 0.0, mask_info: Optional[masking.MaskInfo] = None,
         train: bool = False, generator: Optional[torch.Generator] = None,
+        feat: Optional[torch.Tensor] = None,
     ) -> dict:
         """Full forward (reference: DiT.forward, maskdit.py:511-557).
 
         With ``mask_ratio > 0`` a mask is drawn from ``generator`` unless
         ``mask_info`` is given, and returned as ``out['mask']``; only with
-        ``train`` does it drop tokens (at inference it is ignored, as in
-        the reference, maskdit.py:479-483).
+        ``train`` does it drop tokens. ``feat`` is the external feature
+        (``ext_feature_dim``) or the encoder feature; at inference with
+        ``use_encoder_feat`` and no ``feat``, ``encode`` computes it first.
         """
-        x_tok = self.x_embedder(x) + self.pos_embed.to(self.dtype)
+        if not train and self.use_encoder_feat and feat is None:
+            feat, _ = self.encode(x, t, y)
+        x_tok, c, mask_info = self.forward_encoder(
+            x, t, y, mask_ratio=mask_ratio, mask_info=mask_info, feat=feat, train=train,
+            generator=generator,
+        )
+        x_tok = x_tok["x"]
         masked = mask_ratio > 0
-        if masked and mask_info is None:
-            mask_info = masking.random_mask(
-                x_tok.shape[0], x_tok.shape[1], mask_ratio, generator, device=x.device
-            )
-        if masked and train:
-            x_tok = masking.gather_tokens(x_tok, mask_info.ids_keep)
-        # pad-to-max: the valid prefix of the kept tokens (JAX dit.py:314-322)
-        kv_valid = mask_info.len_keep if masked and train else None
-        c = self._condition(t, y)
-        for block in self.blocks:
-            x_tok = block(x_tok, c, kv_valid)
         out = {"mask": mask_info.mask} if masked else {}
         if self.use_decoder:
-            x_tok = self.decoder_layer(x_tok, c)
+            if self.pad_cls_token:
+                c = c + self.cls_token_embedder(layer_norm_no_affine(x_tok[:, 0]))
+            x_tok = self.decoder_layer(x_tok[:, self.extras - self.decoder_extras:], c)
             if masked and train:
                 # the learned token exists only with the MAE loss; zeros
                 # otherwise (JAX dit.py:383-387)
@@ -156,41 +293,45 @@ class MaskDiT(nn.Module):
                     self.mask_token if self.mae_loss_coef > 0
                     else x_tok.new_zeros((1, 1, x_tok.shape[2]))
                 )
-                x_tok = self._scatter(x_tok, mask_info, mask_token)
+                x_tok = self._scatter(x_tok, mask_info, mask_token, self.decoder_extras)
             x_tok = x_tok + self.decoder_pos_embed.to(self.dtype)
             for block in self.decoder_blocks:
                 x_tok = block(x_tok, c)
         x_tok = self.final_layer(x_tok, c)
         if not self.use_decoder and masked and train:
             zero_tok = x_tok.new_zeros((1, 1, x_tok.shape[2]))
-            x_tok = self._scatter(x_tok, mask_info, zero_tok)
-        out["x"] = self.unpatchify(x_tok)
+            x_tok = self._scatter(x_tok, mask_info, zero_tok, self.extras)
+        out["x"] = self.unpatchify(x_tok[:, self.decoder_extras:])
         return out
 
     @staticmethod
     def _scatter(x_tok: torch.Tensor, mask_info: masking.MaskInfo,
-                 token: torch.Tensor) -> torch.Tensor:
-        """The kept tokens back to all L, holes filled with ``token``: the
-        packed or the pad-to-max scatter (JAX dit.py:388-410)."""
+                 token: torch.Tensor, extras: int) -> torch.Tensor:
+        """The kept tokens back to all L past the ``extras`` leading ones,
+        holes filled with ``token``: the packed or the pad-to-max scatter
+        (JAX dit.py:388-412)."""
         if mask_info.len_keep is not None:
             return masking.scatter_tokens_padded(x_tok, mask_info.ids_restore, token,
-                                                 mask_info.len_keep)
-        return masking.scatter_tokens(x_tok, mask_info.ids_restore, token)
+                                                 mask_info.len_keep, extras=extras)
+        return masking.scatter_tokens(x_tok, mask_info.ids_restore, token, extras=extras)
 
     def forward_with_cfg(
         self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor, cfg_scale: float,
+        feat: Optional[torch.Tensor] = None,
     ) -> dict:
         """CFG double-batch forward (reference: maskdit.py:559-587).
 
         The conditional half uses y, the unconditional half the zero label
-        vector (the null class of the Linear-on-one-hot embedder). Guidance
-        applies to the first in_channels channels only, as the reference
-        does (maskdit.py:578-581).
+        vector (the null class of the Linear-on-one-hot embedder); ``feat``
+        conditions both halves. Guidance applies to the first in_channels
+        channels only, as the reference does (maskdit.py:578-581).
         """
         combined = torch.cat([x, x], dim=0)
         y_full = torch.cat([y, torch.zeros_like(y)], dim=0)
         t_full = torch.cat([t, t], dim=0) if t.shape[0] == x.shape[0] else t
-        model_out = self(combined, t_full, y_full, train=False)["x"]
+        if feat is not None:
+            feat = torch.cat([feat, feat], dim=0)
+        model_out = self(combined, t_full, y_full, train=False, feat=feat)["x"]
         eps, rest = model_out[:, : self.in_channels], model_out[:, self.in_channels:]
         cond_eps, uncond_eps = eps.chunk(2, dim=0)
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)

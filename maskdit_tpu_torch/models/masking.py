@@ -89,31 +89,36 @@ def gather_tokens(x: torch.Tensor, ids_keep: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_tokens(
-    x: torch.Tensor, ids_restore: torch.Tensor, mask_token: torch.Tensor
+    x: torch.Tensor, ids_restore: torch.Tensor, mask_token: torch.Tensor, extras: int = 0,
 ) -> torch.Tensor:
-    """(N, len_keep, D) -> (N, L, D), holes filled with ``mask_token``
-    (reference: unmask_tokens, maskdit.py:157-163).
+    """(N, extras + len_keep, D) -> (N, extras + L, D), holes filled with
+    ``mask_token`` (reference: unmask_tokens, maskdit.py:157-163).
 
-    As the JAX package writes it: the kept tokens and the broadcast mask
-    tokens are concatenated, then gathered by ``ids_restore``. The gradient
-    reaches ``mask_token`` through the gather. The JAX package's leading
-    ``extras`` tokens (class token, external features) are not ported.
+    As the JAX package writes it (masking.py:103-124): the kept tokens and
+    the broadcast mask tokens are concatenated, then gathered by
+    ``ids_restore``. The ``extras`` leading tokens (the class token) are
+    carried past the gather unshuffled. The gradient reaches ``mask_token``
+    through the gather.
     """
     n, t, d = x.shape
-    mask_toks = mask_token.to(x.dtype).expand(n, ids_restore.shape[1] - t, d)
+    mask_toks = mask_token.to(x.dtype).expand(n, ids_restore.shape[1] + extras - t, d)
     index = ids_restore.long()[..., None].expand(-1, -1, d)
-    return torch.gather(torch.cat([x, mask_toks], dim=1), 1, index)
+    out = torch.gather(torch.cat([x[:, extras:], mask_toks], dim=1), 1, index)
+    return torch.cat([x[:, :extras], out], dim=1) if extras else out
 
 
 def scatter_tokens_padded(
     x: torch.Tensor, ids_restore: torch.Tensor, mask_token: torch.Tensor,
-    len_keep: torch.Tensor,
+    len_keep: torch.Tensor, extras: int = 0,
 ) -> torch.Tensor:
-    """(N, len_max, D), of which the first ``len_keep`` tokens are valid ->
-    (N, L, D) (JAX masking.py:127-149): a position whose rank is at least
-    ``len_keep`` gets ``mask_token``, including ranks that point into the
-    padded tail, so the tail never reaches the output."""
+    """(N, extras + len_max, D), of which the first ``len_keep`` tokens
+    after the ``extras`` leading ones are valid -> (N, extras + L, D) (JAX
+    masking.py:127-149): a position whose rank is at least ``len_keep`` gets
+    ``mask_token``, including ranks that point into the padded tail, so the
+    tail never reaches the output; the leading tokens are carried past."""
     n, t, d = x.shape
-    pool = torch.cat([x, mask_token.to(x.dtype).expand(n, 1, d)], dim=1)  # index t: the token
-    index = torch.where(ids_restore < len_keep, ids_restore, t).long()
-    return torch.gather(pool, 1, index[..., None].expand(-1, -1, d))
+    body = x[:, extras:]
+    pool = torch.cat([body, mask_token.to(x.dtype).expand(n, 1, d)], dim=1)  # the token last
+    index = torch.where(ids_restore < len_keep, ids_restore, t - extras).long()
+    out = torch.gather(pool, 1, index[..., None].expand(-1, -1, d))
+    return torch.cat([x[:, :extras], out], dim=1) if extras else out

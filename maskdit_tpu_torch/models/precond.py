@@ -37,6 +37,9 @@ class EDMPrecond(nn.Module):
         model_type: str = "DiT-B/2",
         use_decoder: bool = False,
         mae_loss_coef: float = 0.0,
+        pad_cls_token: bool = False,
+        ext_feature_dim: int = 0,
+        use_encoder_feat: bool = False,
         learn_sigma: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         use_flash: Optional[bool] = None,
@@ -55,6 +58,9 @@ class EDMPrecond(nn.Module):
             num_classes=num_classes,
             use_decoder=use_decoder,
             mae_loss_coef=mae_loss_coef,
+            pad_cls_token=pad_cls_token,
+            ext_feature_dim=ext_feature_dim,
+            use_encoder_feat=use_encoder_feat,
             learn_sigma=learn_sigma,
             dtype=dtype,
             use_flash=use_flash,
@@ -81,12 +87,13 @@ class EDMPrecond(nn.Module):
         self, x: torch.Tensor, sigma: torch.Tensor, class_labels=None,
         cfg_scale: Optional[float] = None, mask_ratio: float = 0.0,
         mask_info: Optional[MaskInfo] = None, train: bool = False,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, feat: Optional[torch.Tensor] = None,
     ) -> dict:
         """Denoiser forward D(x; sigma) (reference: maskdit.py:756-773).
 
-        ``mask_ratio``, ``mask_info`` and ``generator`` go to the model;
-        with a mask ratio the result carries the model's ``mask``.
+        ``mask_ratio``, ``mask_info``, ``generator`` and ``feat`` (the
+        external or encoder feature) go to the model; with a mask ratio the
+        result carries the model's ``mask``.
         """
         x = x.float()
         y = self._coerce_labels(x, class_labels)
@@ -95,15 +102,25 @@ class EDMPrecond(nn.Module):
         if cfg_scale is None:
             model_out = self.model(
                 x_in, c_noise.reshape(-1), y, mask_ratio=mask_ratio,
-                mask_info=mask_info, train=train, generator=generator,
+                mask_info=mask_info, train=train, generator=generator, feat=feat,
             )
         else:
             model_out = self.model.forward_with_cfg(
-                x_in, c_noise.reshape(-1), y, cfg_scale
+                x_in, c_noise.reshape(-1), y, cfg_scale, feat=feat
             )
         f_x = model_out["x"].float()
         model_out["x"] = c_skip * x + c_out * f_x
         return model_out
+
+    def encode(self, x: torch.Tensor, sigma: torch.Tensor, class_labels=None,
+               **model_kwargs) -> torch.Tensor:
+        """The pooled encoder feature at noise level sigma (reference:
+        maskdit.py:743-754); ``model_kwargs`` go to ``MaskDiT.encode``."""
+        x = x.float()
+        y = self._coerce_labels(x, class_labels)
+        _, _, _, c_in, c_noise = self._coeffs(sigma, self.sigma_data)
+        feat, _ = self.model.encode(c_in * x, c_noise.reshape(-1), y, **model_kwargs)
+        return feat
 
     @staticmethod
     def round_sigma(sigma):
@@ -112,21 +129,6 @@ class EDMPrecond(nn.Module):
 
 
 PRECOND_MODELS = {"edm": EDMPrecond}
-
-# model.* config keys of the JAX package that the port's models do not build
-# yet, with the value that needs nothing (maskdit_tpu/train/trainer.py:
-# 158-159 and generate.py:150-151 read them)
-NOT_PORTED_MODEL_KEYS = {"pad_cls_token": False, "ext_feature_dim": 0}
-
-
-def check_model_keys(model_config) -> None:
-    """Raise NotImplementedError where a config's model section asks for
-    something the port would otherwise build silently without: a cls token
-    or external features. Takes a dict or a config object with ``get``."""
-    for key, default in NOT_PORTED_MODEL_KEYS.items():
-        value = model_config.get(key, default)
-        if value != default:
-            raise NotImplementedError(f"model.{key}={value!r} is not ported yet")
 
 
 def create_model(

@@ -11,6 +11,7 @@ PNG codec; without one the latents go to ``.npy`` files.
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
@@ -49,9 +50,11 @@ class SamplerConfig:
 def make_sample_fn(
     model: EDMPrecond, cfg: SamplerConfig,
 ) -> Callable[..., torch.Tensor]:
-    """Build ``sample(latents, labels, generator=None) -> latents``.
+    """Build ``sample(latents, labels, generator=None, feat=None) -> latents``.
 
-    ``generator`` feeds the churn noise and is needed only with S_churn > 0.
+    ``generator`` feeds the churn noise and is needed only with S_churn > 0;
+    ``feat`` (B, F), where given, conditions every evaluation (the
+    reference samplers pass ``feat=`` to the net, sample.py:56, 172).
     """
     kwargs: dict = {"num_steps": cfg.num_steps, "S_churn": cfg.S_churn}
     # noise levels the net supports (reference sample.py:36-37,104-106,157;
@@ -75,10 +78,11 @@ def make_sample_fn(
 
     @torch.no_grad()
     def sample(latents: torch.Tensor, labels: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               feat: Optional[torch.Tensor] = None) -> torch.Tensor:
         def denoise(x: torch.Tensor, sigma: float) -> torch.Tensor:
             sig = torch.full((x.shape[0],), sigma, dtype=torch.float32, device=x.device)
-            return model(x, sig, labels, cfg_scale=cfg.cfg_scale)["x"]
+            return model(x, sig, labels, cfg_scale=cfg.cfg_scale, feat=feat)["x"]
 
         return sampler(denoise, latents, generator=generator, **kwargs)
 
@@ -106,6 +110,18 @@ def to_uint8(images: np.ndarray) -> np.ndarray:
     return arr.transpose(0, 2, 3, 1)
 
 
+def resolve_class_outdir(label_dict_path: str, class_idx: int,
+                         results_dir: str) -> tuple[str, str]:
+    """The class-named sample folder of ``class_idx`` (reference
+    generate.py:22-28; JAX sampling/generate.py:135-155):
+    ``label_dict[str(class_idx)][1]`` is the class's name, and the samples
+    go to ``<results_dir>/<name>``. Returns (outdir, class name)."""
+    with open(label_dict_path) as f:
+        entry = json.load(f)[str(class_idx)]
+    class_name = entry[1] if isinstance(entry, (list, tuple)) else str(entry)
+    return os.path.join(results_dir, class_name), class_name
+
+
 def save_images(
     images_np: np.ndarray, seeds: Sequence[int], outdir: str, subdirs: bool = False
 ) -> None:
@@ -130,16 +146,24 @@ def generate_with_params(
     world: int = 1,
     save_latents: bool = False,
     vae=None,
+    subdirs: bool = False,
+    feat_fn: Optional[Callable] = None,
 ) -> Optional[np.ndarray]:
     """Sample ``seeds`` with ``model`` (which carries its weights and device).
 
     Seed batching mirrors sample.py:232-235: equal batches, then
     rank-strided assignment. With a ``vae`` (an ``AutoencoderKL`` on the
     model's device) each batch is decoded and, with ``outdir``, written as
-    ``{seed:06d}.png``; without one the batch's latents go to
-    ``outdir/latents_<first seed>.npy``, which needs ``save_latents``. With
-    ``outdir`` None the stacked uint8 NHWC images (or the latents) are
-    returned.
+    ``{seed:06d}.png`` (under thousand-seed folders with ``subdirs``);
+    without one the batch's latents go to ``outdir/latents_<first
+    seed>.npy``, which needs ``save_latents``. With ``outdir`` None the
+    stacked uint8 NHWC images (or the latents) are returned.
+
+    ``feat_fn(batch_seeds) -> (features (B, F), one-hot labels (B, K))``
+    conditions each batch on external features (a model built with
+    ``ext_feature_dim > 0``): the retrieved labels replace the per-seed
+    labels, since a feature row and its class come from one training
+    sample (JAX sampling/generate.py:186-262).
     """
     if outdir is not None and vae is None and not save_latents:
         raise ValueError("need a VAE to write PNGs; pass vae, or save_latents=True")
@@ -162,15 +186,20 @@ def generate_with_params(
             labels = F.one_hot(labels_idx, model.num_classes).float()
         else:
             labels = torch.zeros((len(batch_seeds), 0), device=device)
+        feat = None
+        if feat_fn is not None:
+            feat_np, labels_np = feat_fn(batch_seeds.tolist())
+            feat = torch.from_numpy(np.asarray(feat_np, np.float32)).to(device)
+            labels = torch.from_numpy(np.asarray(labels_np, np.float32)).to(device)
         churn = None
         if sampler_cfg.S_churn > 0:
             churn = torch.Generator(device).manual_seed(int(batch_seeds[0]))
-        z = sample_fn(latents, labels, churn)
+        z = sample_fn(latents, labels, churn, feat)
         out = to_uint8(decode_images(vae, z)) if vae is not None else z.cpu().numpy()
         if outdir is None:
             collected.append(out)
         elif vae is not None:
-            save_images(out, batch_seeds.tolist(), outdir)
+            save_images(out, batch_seeds.tolist(), outdir, subdirs)
         else:
             os.makedirs(outdir, exist_ok=True)
             np.save(os.path.join(outdir, f"latents_{int(batch_seeds[0]):06d}.npy"), out)

@@ -90,6 +90,7 @@ class EDMLoss:
         noise: Optional[torch.Tensor] = None,
         mask_info: Optional[MaskInfo] = None,
         mask_len_max: Optional[int] = None,
+        feat: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """Returns (per-sample loss (N,), aux dict).
 
@@ -98,7 +99,8 @@ class EDMLoss:
         and ``mask_info``, replace the draw from ``generator``.
         ``mask_len_max`` switches to pad-to-max masking: the mask keeps
         ``padded_len_keep(L, mask_ratio)`` of ``mask_len_max`` tokens, and
-        the masked loss runs at every ratio, 0 included.
+        the masked loss runs at every ratio, 0 included. ``feat`` (N, F),
+        the external features, goes to the model (JAX loss.py:91, 133).
         """
         n = images.shape[0]
         device = images.device
@@ -128,7 +130,7 @@ class EDMLoss:
 
         model_out = net(
             y + noise, sigma.reshape(-1), labels, mask_ratio=ratio_arg,
-            mask_info=mask_info, train=True,
+            mask_info=mask_info, train=True, feat=feat,
         )
         d_yn = model_out["x"].float()
         loss_px = weight * (d_yn - y).square()

@@ -335,8 +335,10 @@ def make_train_step(
     metrics``, which updates ``state`` in place.
 
     batch: {'x': (N, C or 2C, H, W) latents or moments, 'y': (N, K)
-    one-hot}, on the model's device. The metrics are 0-d tensors (read
-    them at log time, so the step does not wait for the device).
+    one-hot, and 'feat' (N, F) external features where the model takes
+    them}, on the model's device; 'feat' is split over the micro-batches as
+    'x' and 'y' are (JAX state.py:319-432). The metrics are 0-d tensors
+    (read them at log time, so the step does not wait for the device).
 
     ``pad_to_max`` (JAX state.py:240-330) makes one step serve every mask
     ratio: the ratio arrives as ``batch['mask_ratio']``, and the encoder
@@ -368,6 +370,7 @@ def make_train_step(
         state.bind(grad_dtype, acc_dtype)
         x = batch["x"].float()
         y = batch.get("y")
+        feat = batch.get("feat")
         patch = model.model.patch_size
         ratio, len_max = mask_ratio, None
         if pad_to_max:
@@ -405,7 +408,7 @@ def make_train_step(
                 mae_loss_coef=mae_loss_coef, patch_size=patch,
                 sigma=_rows(draws.sigma, rows),
                 noise=_rows(draws.noise, rows), mask_info=_rows(draws.mask_info, rows),
-                mask_len_max=len_max,
+                mask_len_max=len_max, feat=_rows(feat, rows),
             )
             loss = loss_vec.mean()
             loss.backward()  # adds into the parameters' .grad

@@ -18,9 +18,11 @@ SIGTERM/SIGINT, the log line (loss, steps/s, images/s, MFU, peak device
 memory) and the eval hook (``eval_hook(step, ema)`` after each checkpoint,
 its metrics logged as ``eval/<name>``) and the train-step options
 ``amp_grads``, ``accum_dtype``, ``moment_dtype``, ``nu_dtype`` and
-``ema_every`` (``train/state.py``). Model keys the port does not build
-yet raise (see ``check_model_keys``), and so do the train keys of
-``NOT_PORTED``.
+``ema_every`` (``train/state.py``), and the model corners
+``model.pad_cls_token`` and ``model.ext_feature_dim`` (with
+``data.feat_path``, a feature LMDB joined to the latent LMDB; the batch's
+features are dropped when the model takes none, as in the JAX trainer).
+The train keys of ``NOT_PORTED`` raise.
 
 On a CUDA device every attention call and every optimizer update launches
 the port's kernels; there is no switch. ``model.use_flash`` picks the
@@ -41,7 +43,7 @@ from maskdit_tpu_torch.data.datasets import Dataset, ImageNetLatentDataset, Synt
 from maskdit_tpu_torch.data.loader import DataLoader, prefetch, to_device
 from maskdit_tpu_torch.data.wds import StreamingWDSLoader, WebDatasetLatents
 from maskdit_tpu_torch.models.masking import len_keep_for
-from maskdit_tpu_torch.models.precond import check_model_keys, create_model
+from maskdit_tpu_torch.models.precond import create_model
 from maskdit_tpu_torch.parallel.data_parallel import data_parallel
 from maskdit_tpu_torch.parallel.dist import (
     barrier, is_main_process, local_device, mprint, process_count, process_index,
@@ -155,7 +157,6 @@ class Trainer:
                 raise NotImplementedError(f"train.{key}={t[key]!r} is not ported: {why}")
         if m.get("precond", "edm") != "edm":
             raise NotImplementedError(f"model.precond '{m['precond']}' is not ported (edm only)")
-        check_model_keys(m)
         data = config["data"]
         if data.get("streaming", False) and data.get("category") not in ("wds", "webdataset"):
             # the JAX trainer's check (maskdit_tpu/train/trainer.py:225-233)
@@ -184,6 +185,8 @@ class Trainer:
             model_type=m["model_type"],
             use_decoder=m["use_decoder"],
             mae_loss_coef=m["mae_loss_coef"],
+            pad_cls_token=m.get("pad_cls_token", False),
+            ext_feature_dim=m.get("ext_feature_dim", 0),
             dtype=torch.float32 if t.get("fp32", False) else torch.bfloat16,
             # an explicit model.use_flash wins (null means auto); see
             # default_use_flash
@@ -351,6 +354,8 @@ class Trainer:
                 ratio = float(self.mask_ratio_fn(progress))
                 step_fn = self._step_for_ratio(ratio)
                 generator.manual_seed(step_seed(self.seed + 1, step))
+                if self.config["model"].get("ext_feature_dim", 0) == 0:
+                    host_batch.pop("feat", None)  # JAX trainer.py:367-368
                 batch = to_device(host_batch, self.device)
                 if self.pad_to_max:
                     batch["mask_ratio"] = ratio  # the step's ratio rides the batch

@@ -62,6 +62,9 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         if layer in m:
             lin(f"model.{layer}.adaLN_modulation.1", m[layer]["adaLN_modulation"])
             lin(f"model.{layer}.linear", m[layer]["linear"])
+    for emb in ("feat_embedder", "cls_token_embedder", "enc_feat_embedder"):
+        if emb in m:
+            lin(f"model.{emb}", m[emb])
     for tok in ("mask_token", "cls_token"):
         if tok in m:
             state[f"model.{tok}"] = np.asarray(m[tok])

@@ -171,12 +171,31 @@ def test_latent_dataset_items_equal_jax(latent_root, native, view):
 
 
 def test_latent_dataset_refuses_a_feature_lmdb(latent_root, tmp_path):
-    """``data.feat_path`` (the ``ext_feature_dim`` path) is not ported: a
-    feature directory the JAX dataset would join raises; "None" does not."""
-    with pytest.raises(NotImplementedError, match="feat_path"):
-        datasets.ImageNetLatentDataset(latent_root, resolution=RES, feat_path=str(tmp_path),
-                                       feat_dim=16)
-    assert len(datasets.ImageNetLatentDataset(latent_root, resolution=RES, feat_path="None")) == N
+    """``data.feat_path`` (the ``ext_feature_dim`` path), which the port once
+    refused: a feature LMDB with the latent LMDB's labels joins record by
+    record, each item ``[onehot, feature]`` equal to the JAX dataset's
+    (flipped records too); "None" joins nothing; without a feature width
+    the directory is refused, as the JAX dataset asserts one."""
+    from maskdit_tpu_torch.data.features import write_feature_lmdb
+
+    reader = lmdb_lite.Reader(os.path.join(latent_root, "train"))
+    labels = [int(reader.get(f"y-{i}")) for i in range(2 * N)]
+    reader.close()
+    feats = np.random.default_rng(4).normal(size=(2 * N, 16)).astype(np.float32)
+    write_feature_lmdb(str(tmp_path / "train"), feats, labels)
+    kw = dict(resolution=RES, feat_path=str(tmp_path), feat_dim=16, label_dim=10, xflip=True)
+    ours = datasets.ImageNetLatentDataset(latent_root, **kw)
+    theirs = jax_datasets.ImageNetLatentDataset(latent_root, **kw)
+    assert len(ours) == len(theirs) == 2 * N
+    for i in range(2 * N):
+        (x, (y, f)), (tx, (ty, tf)) = ours[i], theirs[i]
+        np.testing.assert_array_equal(x, tx)
+        np.testing.assert_array_equal(y, ty)
+        np.testing.assert_array_equal(f, tf)
+    with pytest.raises(ValueError, match="ext_feature_dim"):
+        datasets.ImageNetLatentDataset(latent_root, resolution=RES, feat_path=str(tmp_path))
+    plain = datasets.ImageNetLatentDataset(latent_root, resolution=RES, feat_path="None")
+    assert len(plain) == N and not isinstance(plain[0][1], list)
 
 
 @pytest.mark.parametrize("seed,xflip", [(0, False), (5, True)])

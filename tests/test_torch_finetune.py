@@ -376,7 +376,7 @@ def test_cos4_schedule_matches_the_jax_trainer(tiny_xl, tmp_path, encoder_widths
     if pad_to_max:
         real = masking.scatter_tokens_padded
         monkeypatch.setattr(masking, "scatter_tokens_padded",
-                            lambda x, r, t, n: kept.append(int(n)) or real(x, r, t, n))
+                            lambda x, r, t, n, **kw: kept.append(int(n)) or real(x, r, t, n, **kw))
     cfg = cli.apply_overrides(cli.load_config(FINETUNE["256-latent-cos"]), [
         "train.batchsize=2", f"train.max_num_steps={steps}", "log.log_every=1",
         f"data.root={write_data(tmp_path, '256-latent-cos')}", f"train.pad_to_max={pad_to_max}"])

@@ -142,23 +142,101 @@ def test_unported_options_raise(tiny_port, tmp_path, override, why):
         Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
 
 
+def _jax_trainer_params(cfg: dict) -> dict:
+    """The state-dict shapes of the JAX trainer's model for ``cfg``
+    (maskdit_tpu/train/trainer.py:149-165, its ``create_train_state``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from maskdit_tpu.models import create_model as jax_create_model
+    from maskdit_tpu.train.state import create_train_state as jax_create_train_state
+    from maskdit_tpu.train.state import make_optimizer as jax_make_optimizer
+    from maskdit_tpu_torch.utils.port import state_dict_from_flax
+
+    m = cfg["model"]
+    model = jax_create_model(
+        "edm", img_resolution=m["in_size"], img_channels=m["in_channels"],
+        num_classes=m["num_classes"], model_type=m["model_type"], use_decoder=m["use_decoder"],
+        mae_loss_coef=m["mae_loss_coef"], pad_cls_token=m.get("pad_cls_token", False),
+        ext_feature_dim=m.get("ext_feature_dim", 0), dtype=jnp.float32, use_flash=False)
+    shapes = jax.eval_shape(lambda: jax_create_train_state(
+        model, jax.random.PRNGKey(0), jax_make_optimizer(1e-4, 8)).params)
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    return {k: tuple(v.shape) for k, v in state_dict_from_flax(zeros).items()}
+
+
+def _latents_with_features(root, res: int, classes: int, feat_dim: int) -> tuple[str, str]:
+    """A latent LMDB of 16 records (moments at ``res``) and a feature LMDB
+    with the same labels."""
+    from maskdit_tpu_torch.data.datasets import write_latent_lmdb
+    from maskdit_tpu_torch.data.features import write_feature_lmdb
+
+    rng = np.random.default_rng(3)
+    labels = rng.integers(0, classes, 16)
+    write_latent_lmdb(str(root / "latents" / "train"),
+                      rng.normal(size=(16, 8, res, res)).astype(np.float32), labels)
+    write_feature_lmdb(str(root / "feats" / "train"),
+                       rng.normal(size=(16, feat_dim)).astype(np.float32), labels)
+    return str(root / "latents"), str(root / "feats")
+
+
 @pytest.mark.parametrize("override,error,default", [
-    ("model.pad_cls_token=true", NotImplementedError, "model.pad_cls_token=false"),
-    ("model.ext_feature_dim=16", NotImplementedError, "model.ext_feature_dim=0"),
+    ("model.pad_cls_token=true", None, "model.pad_cls_token=false"),
+    ("model.ext_feature_dim=16", None, "model.ext_feature_dim=0"),
     ("data.streaming=true", ValueError, "data.streaming=false"),
 ], ids=["pad_cls_token", "ext_feature_dim", "streaming"])
-def test_config_keys_the_port_would_ignore_raise(tiny_port, tmp_path, override, error, default):
-    """The JAX trainer builds a cls token and external features from these
+def test_config_keys_the_port_would_ignore_raise(tiny_port, tiny_dit, tmp_path, override, error,
+                                                 default):
+    """The JAX trainer builds a class token and external features from these
     model keys (maskdit_tpu/train/trainer.py:158-159) and refuses streaming
-    outside wds (:225-233); the port raises rather than train another model,
-    and takes each key at its default."""
-    key = override.split("=")[0]
-    cfg = cli.apply_overrides(cli.load_config(SMOKE), [override])
-    match = "data.streaming requires data.category: wds" if error is ValueError else key
-    with pytest.raises(error, match=match):
-        Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
+    outside wds (:225-233). The port builds the JAX trainer's model, the
+    same parameters under the same names and shapes (with external features
+    also ``feat_embedder``, which the JAX trainer's ``create_train_state``
+    leaves out: it initialises without a feature, ROADMAP C8), and trains it
+    two steps to finite losses, the features read from a feature LMDB
+    joined to the latent LMDB and carried to every step; streaming outside
+    wds raises. Each key at its default builds a Trainer."""
+    overrides = [override]
+    if override.startswith("model.ext_feature_dim"):
+        latents, feats = _latents_with_features(tmp_path, 16, 16, 16)
+        overrides += ["data.category=lmdb", f"data.root={latents}", f"data.feat_path={feats}"]
+    cfg = cli.apply_overrides(cli.load_config(SMOKE), overrides)
+    if error is not None:
+        with pytest.raises(error, match="data.streaming requires data.category: wds"):
+            Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
+    else:
+        trainer = Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1,
+                          max_steps_override=2)
+        ours = {k: tuple(v.shape) for k, v in trainer.model.state_dict().items()
+                if not k.endswith("pos_embed")}
+        theirs = _jax_trainer_params(cfg)
+        extra = {"model.feat_embedder.weight": (64, 16), "model.feat_embedder.bias": (64,)}
+        if "ext_feature_dim" in override:
+            assert set(theirs).isdisjoint(extra)
+            theirs.update(extra)
+        assert ours == theirs
+        feats = []
+        real = trainer._step_for_ratio
+
+        def step_for_ratio(ratio):
+            step = real(ratio)
+
+            def run(state, batch, generator):
+                feats.append(batch.get("feat"))
+                return step(state, batch, generator)
+            return run
+
+        trainer._step_for_ratio = step_for_ratio
+        assert trainer.train() == 2
+        assert all(np.isfinite(loss) for r in trainer.history for loss in r["losses"])
+        if "ext_feature_dim" in override:
+            assert all(f is not None and f.shape == (8, 16) and f.dtype == torch.float32
+                       for f in feats)
+        else:
+            assert feats == [None, None]
+            assert "model.cls_token" in ours
     cfg = cli.apply_overrides(cli.load_config(SMOKE), [default])
-    Trainer(cfg, results_dir=str(tmp_path), device="cpu", num_workers=1)
+    Trainer(cfg, results_dir=str(tmp_path / "default"), device="cpu", num_workers=1)
 
 
 def _record_draws(trainer: Trainer, draws: list) -> None:
