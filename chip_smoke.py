@@ -47,9 +47,12 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      (indexed), 36 + 36 blocked-attention launches and
      one fused-update launch per step; train-step parity; a profile;
   8. the ``use_flash`` path (ops/flash.py, kernels #5 and #6): both kernels
-     against their plain versions at every L of their window (bf16, head
-     dims 32, 64, 72), then timed at the 512-px shapes, at the edges of
-     the window and at an odd head dim; then, on DiT-XL/2 at full width
+     against their plain versions at every L of their window (bf16 and
+     fp32, head dims 32, 64, 72) and, in fp32 (the tensor-core kernels of
+     csrc/attention_fp32_mma.cuh, 'mma6'), at every head dim that is a
+     multiple of 8 from 8 to 128, then timed at the 512-px shapes, at the
+     edges of the window and at an odd head dim, and in fp32 at the
+     unmasked finetunes' shapes; then, on DiT-XL/2 at full width
      with FLASH_DEPTH (4) of its 28 encoder blocks: one CFG denoiser
      evaluation at 512 px with ``use_flash=True``, kernels vs plain; the
      train CLI on the released 512-px config with the overrides
@@ -120,7 +123,10 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      every head dim that is a multiple of 8 from 8 to 128;
      [train-finetune256], [train-finetune-cos] and
      [train-finetune512] the train CLI on the three YAMLs at their batches
-     (64, 64, 16), full width and depth, 6, 6 and 4 steps, each importing
+     (64, 64, 16), full width and depth, 6, 6 and 4 steps, and
+     [train-finetune512-flash] the 512-px one again with
+     ``model.use_flash=true`` (72 flash forwards, 36 flash backwards in
+     fp32 and one update per step, no other attention kernel), each importing
      [weights]' tensors from a reference .pt without the mask token: finite
      losses, each step's route launches (the cos4 run's kept tokens change
      per step: 128, 144, 176, 224, 240, 240, held to the schedule) and one
@@ -128,8 +134,11 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      initialisation and every other parameter equal to the file's; MFU
      beside the share of the fp32 peak; [parity-train-finetune] one fp32
      step kernels vs plain at mask 0 and at a cos4 bucket, and the
-     pad-to-max step against the packed step at that ratio; a profile of
-     one step of each unmasked finetune. These runs write no checkpoint;
+     pad-to-max step against the packed step at that ratio;
+     [parity-train-finetune-flash] one fp32 step of the 512-px model with
+     ``use_flash`` at mask 0 (FLASH_DEPTH encoder blocks), kernels vs plain
+     and against the blocked kernels' step; a profile of one step of each
+     unmasked finetune and of the flash one. These runs write no checkpoint;
  15. the model corners (after 14., at DiT-XL/2's full width and depth):
      the class-token lengths' kernel rows (with 3. and 14.: #1 at (16, 257,
      16, 72) and (128, 129, 16, 72), #2 at the latter, #3 / #4 at (64,
@@ -435,6 +444,18 @@ FINETUNE_ATTN_SHAPES = [
     ("finetune_cos_encoder_224", FINETUNE_BATCH, 224, 16, 72),
     ("finetune_cos_encoder_240", FINETUNE_BATCH, 240, 16, 72),
 ]
+# [train-finetune512-flash]: the 512-px finetune (FINETUNE_CONFIG_512,
+# its cuts) with the CLI override FINETUNE_FLASH_OVERRIDES, the key both
+# packages read (the YAML leaves it unset): every attention layer takes the
+# flash kernels #5 / #6 in fp32 at full width and depth, 2 forwards (the
+# checkpoint's recompute) and 1 backward per layer and step.
+# [parity-train-finetune-flash]: one fp32 step of that model at mask 0,
+# FLASH_DEPTH encoder blocks, batch PARITY_BATCH_512: kernels vs plain and
+# flash vs the blocked kernels #3 / #4. FLASH_FP32_SHAPES: the flash
+# kernels' fp32 rows at the unmasked finetunes' shapes (512 px and 256 px
+# with the flag)
+FINETUNE_FLASH_OVERRIDES = ("model.use_flash=true",)
+FLASH_FP32_SHAPES = FINETUNE_ATTN_SHAPES[:4]
 # bf16 products per fp32 product in the fp32 tensor-core kernels (#1-#4:
 # csrc/attention_fp32_mma.cuh); an fp32 row prints, beside the fp32 FMA
 # bound, the tensor cores' bound of that scheme (FP32_TERMS x the products
@@ -682,28 +703,20 @@ def check_smem_formulas() -> None:
                 flash_batched.bwd_smem_bytes(l, hd, es), (l, hd, es)
             assert big_bwd.packed_attention_big_bwd_smem_bytes(l, hd, es) == \
                 flash_big.bwd_smem_bytes(l, hd, es), (l, hd, es)
-        for rows in flash.BLOCK_ROWS:
-            assert fl.flash_fwd_smem_bytes(l, hd, rows, 4) == \
-                flash.fwd_smem_bytes(l, hd, rows, 4), (l, hd, rows)
-        assert fl.flash_fwd_smem_bytes(l, hd, flash.MMA_ROWS, 2) == \
-            flash.fwd_smem_bytes(l, hd, flash.MMA_ROWS, 2), (l, hd)
         for es in (2, 4):
+            assert fl.flash_fwd_smem_bytes(hd, es) == flash.fwd_smem_bytes(hd, es), (hd, es)
             assert fl_bwd.flash_bwd_smem_bytes(hd, es) == flash.bwd_smem_bytes(hd, es), (hd, es)
-    for l in (1408, 1536, 2048):  # where the flash forward's 32-row fp32 blocks stop fitting
-        for rows in flash.BLOCK_ROWS:
-            assert fl.flash_fwd_smem_bytes(l, 72, rows, 4) == flash.fwd_smem_bytes(l, 72, rows, 4)
-        assert fl.flash_fwd_smem_bytes(l, 72, flash.MMA_ROWS, 2) == \
-            flash.fwd_smem_bytes(l, 72, flash.MMA_ROWS, 2)
     for hd in SWEEP_HEAD_DIMS:  # the tensor-core forward's and backward's, per head dim
         assert big.packed_attention_big_fwd_smem_bytes(2048, hd, 2) == \
-            fl.flash_fwd_smem_bytes(2048, hd, flash.MMA_ROWS, 2) == \
-            flash_big.mma_fwd_smem_bytes(hd), hd
+            fl.flash_fwd_smem_bytes(hd, 2) == flash_big.mma_fwd_smem_bytes(hd), hd
         assert bwd.packed_attention_bwd_smem_bytes(2048, hd, 2) == \
             big_bwd.packed_attention_big_bwd_smem_bytes(2048, hd, 2) == \
             flash_batched.mma_bwd_smem_bytes(hd), hd
         assert fl_bwd.flash_bwd_smem_bytes(hd, 2) == flash.bwd_smem_bytes(hd, 2), hd
-        # the fp32 tensor-core kernels (#1 / #3 forward, #2 / #4 backward:
-        # one header, the same layouts at every L)
+        # the fp32 tensor-core kernels (#1 / #3 / #5 forward, #2 / #4 / #6
+        # backward: one header, the same tiles in both layouts at every L)
+        assert fl.flash_fwd_smem_bytes(hd, 4) == flash_batched.fp32_fwd_smem_bytes(hd), hd
+        assert fl_bwd.flash_bwd_smem_bytes(hd, 4) == flash_batched.fp32_bwd_smem_bytes(hd), hd
         for l in (77, 224, 2048):
             assert fwd.packed_attention_fwd_smem_bytes(l, hd, 4) == \
                 big.packed_attention_big_fwd_smem_bytes(l, hd, 4) == \
@@ -724,9 +737,9 @@ def check_smem_formulas() -> None:
                 assert fwd.packed_attention_fwd_smem_bytes(l, hd, 2) == \
                     flash_batched.mma_fwd_smem_bytes(l, hd), (l, hd)
     log("[kernel] the routing rule's shared-memory formulas equal the libraries' at 11 shapes "
-        "in bf16 and fp32, the flash forward's at 14, the tensor-core kernels' (the blocked "
-        "forward, both packed backwards in bf16 and fp32, the fp32 forwards, the flash "
-        "backward, the whole-row forward at 7 L) at 16 head dims")
+        "in bf16 and fp32, the tensor-core kernels' (the blocked and flash forwards, both "
+        "packed backwards and the flash backward in bf16 and fp32, the fp32 forwards, the "
+        "whole-row forward at 7 L) at 16 head dims")
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, rel_bound: float,
@@ -1066,8 +1079,10 @@ def phase_fp32_kernels() -> dict:
 
 
 def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
-                  g: torch.Generator, iters: int) -> dict:
-    """The flash forward kernel against its plain version at one shape."""
+                  g: torch.Generator, iters: int, variant: str | None = None) -> dict:
+    """The flash forward kernel against its plain version at one shape.
+    ``variant`` names the kernel that ran; by default ``flash.fwd_kernel``'s,
+    which must be on the tensor cores (mma, or mma6 in fp32)."""
     from maskdit_tpu_torch.ops import flash
 
     q, k, v = (torch.randn(n * h, l, hd, generator=g, device="cuda").to(dtype) for _ in range(3))
@@ -1086,11 +1101,14 @@ def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype
     library_ms = sdpa_ms(*(t.view(n, h, l, hd) for t in (q, k, v)), scale, iters)
     bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 2, 4, 1)
     dt = dtype_name(dtype)
-    log(f"[kernel-flash] fwd {name} N={n} L={l} H={h} hd={hd} {dt}: max_abs_err {err:.3e} "
-        f"(bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements differing "
-        f"{share:.5f}, lse err {lse_err:.3e} (bound {lse_bnd:.3e}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), {bound_ms / ms:.3f} of it")
+    ran = variant or flash.fwd_kernel(dtype)
+    check_variant(f"flash fwd {name}", dtype, hd, ran, fp32=variant is None)
+    log(f"[kernel-flash] fwd {name} N={n} L={l} H={h} hd={hd} {dt} ({ran}): max_abs_err "
+        f"{err:.3e} (bound {bnd:.3e} = {FWD_REL_BOUND[dtype]:.0e} x max|ref|), elements "
+        f"differing {share:.5f}, lse err {lse_err:.3e} (bound {lse_bnd:.3e}); kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it"
+        + tensor_core_bound_note(n, l, h, hd, dtype, 2, ms))
     if not (ok and lse_err <= lse_bnd and launches == 1):
         raise AssertionError(f"flash fwd {name} {dt}: err {err} > {bnd}, share {share}, lse "
                              f"{lse_err} > {lse_bnd} or {launches} launches")
@@ -1099,10 +1117,10 @@ def flash_fwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype
 
 
 def flash_bwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype,
-                  g: torch.Generator, iters: int) -> dict:
+                  g: torch.Generator, iters: int, variant: str | None = None) -> dict:
     """The flash backward kernel against its plain version at one shape, on
     the forward kernel's residuals; the library time is SDPA's forward and
-    backward."""
+    backward. ``variant`` as for flash_fwd_row (``flash.bwd_kernel``)."""
     from maskdit_tpu_torch.ops import flash
 
     q, k, v, do = (torch.randn(n * h, l, hd, generator=g, device="cuda").to(dtype)
@@ -1125,53 +1143,120 @@ def flash_bwd_row(name: str, n: int, l: int, h: int, hd: int, dtype: torch.dtype
                          do.view(n, h, l, hd))
     bound_ms, bound_by = attention_bound(n, l, h, hd, dtype, 5, 8, 1)
     dt = dtype_name(dtype)
-    check_variant(f"flash bwd {name}", dtype, hd, flash.bwd_kernel(dtype))
-    log(f"[kernel-flash] bwd {name} N={n} L={l} H={h} hd={hd} {dt} ({flash.bwd_kernel(dtype)}): "
+    ran = variant or flash.bwd_kernel(dtype)
+    check_variant(f"flash bwd {name}", dtype, hd, ran, fp32=variant is None)
+    log(f"[kernel-flash] bwd {name} N={n} L={l} H={h} hd={hd} {dt} ({ran}): "
         f"dq/dk/dv max_abs_err "
         f"{'/'.join(f'{c[0]:.3e}' for c in checks)} (bounds "
         f"{'/'.join(f'{c[1]:.3e}' for c in checks)} = {BWD_REL_BOUND[dtype]:.0e} x max|ref|), "
         f"elements differing {'/'.join(f'{c[2]:.5f}' for c in checks)}; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library (SDPA fwd + bwd) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it")
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it"
+        + tensor_core_bound_note(n, l, h, hd, dtype, 5, ms))
     if not (ok and launches == 1):
         raise AssertionError(f"flash bwd {name} {dt}: checks {checks} or {launches} launches")
     return dict(err=err, share=share, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_flash_window() -> None:
+def flash_pair_errors(q, k, v, do, scale: float, dtype: torch.dtype) -> tuple:
+    """Both flash kernels on q, k, v, do (one launch each) against their
+    plain versions: o, dq, dk, dv within FWD_REL_BOUND / BWD_REL_BOUND (and
+    BF16_MISMATCH_BOUND) and lse within LSE_REL_BOUND of max|lse|. Returns
+    the worst error as a share of its bound, the largest share of differing
+    elements and the worst absolute errors of the forward (o) and of the
+    backward (dq, dk, dv)."""
+    from maskdit_tpu_torch.ops import flash
+
+    before = flash.flash_fwd.launches, flash.flash_bwd.launches
+    o, lse = flash.flash_fwd(q, k, v, scale)
+    grads = flash.flash_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    launches = flash.flash_fwd.launches - before[0], flash.flash_bwd.launches - before[1]
+    ref_o, ref_lse = flash.flash_fwd_reference(q, k, v, scale)
+    ref_grads = flash.flash_bwd_reference(q, k, v, o, lse, do, scale)
+    worst, worst_share, abs_err = 0.0, 0.0, []
+    pairs = [(o, ref_o, FWD_REL_BOUND[dtype])] + [
+        (a, b, BWD_REL_BOUND[dtype]) for a, b in zip(grads, ref_grads)]
+    for got, ref, rel in pairs:
+        err, bnd, share, ok = compare(got, ref, rel, dtype)
+        if not ok:
+            raise AssertionError(f"err {err} > {bnd} or share {share}")
+        worst, worst_share = max(worst, err / bnd), max(worst_share, share)
+        abs_err.append(err)
+    lse_err = (lse - ref_lse).abs().max().item() / ref_lse.abs().max().item()
+    if lse_err > LSE_REL_BOUND or launches != (1, 1):
+        raise AssertionError(f"lse rel err {lse_err}, launches {launches}")
+    return worst, worst_share, abs_err[0], max(abs_err[1:])
+
+
+def check_flash_window() -> dict:
     """Both flash kernels launch and agree with their plain versions (o,
     lse, dq, dk, dv) at every L of their window, 128 to 2048 in steps of
-    128, at the model head dims 32, 64 and 72, in bf16 (N*H = 2)."""
+    128, at the model head dims 32, 64 and 72, in bf16 and fp32 (N*H = 2).
+    Returns the worst fp32 absolute errors, forward and backward."""
     from maskdit_tpu_torch.ops import flash
 
     g = torch.Generator(device="cuda").manual_seed(8)
-    bf16 = torch.bfloat16
-    worst, worst_share, shapes = 0.0, 0.0, 0
-    for hd in (32, 64, 72):
-        for l in range(flash.LANE, flash.MAX_L + 1, flash.LANE):
-            q, k, v, do = (torch.randn(2, l, hd, generator=g, device="cuda").to(bf16)
-                           for _ in range(4))
-            scale = hd ** -0.5
-            o, lse = flash.flash_fwd(q, k, v, scale)
-            grads = flash.flash_bwd(q, k, v, o, lse, do, scale)
-            ref_o, ref_lse = flash.flash_fwd_reference(q, k, v, scale)
-            ref_grads = flash.flash_bwd_reference(q, k, v, o, lse, do, scale)
-            pairs = [(o, ref_o, FWD_REL_BOUND[bf16])] + [
-                (a, b, BWD_REL_BOUND[bf16]) for a, b in zip(grads, ref_grads)]
-            for got, ref, rel in pairs:
-                err, bnd, share, ok = compare(got, ref, rel, bf16)
-                if not ok:
-                    raise AssertionError(f"flash window L={l} hd={hd}: err {err} > {bnd} "
-                                         f"or share {share}")
-                worst, worst_share = max(worst, err / bnd), max(worst_share, share)
-            lse_err = (lse - ref_lse).abs().max().item()
-            if lse_err > LSE_REL_BOUND * ref_lse.abs().max().item():
-                raise AssertionError(f"flash window L={l} hd={hd}: lse err {lse_err}")
-            shapes += 1
-    log(f"[kernel-flash] window: fwd and bwd at every L of 128-2048 (step 128) x hd 32, 64, "
-        f"72, bf16, N*H 2: {shapes} shapes within their bounds; the worst error "
-        f"{worst:.3f} of its bound, the largest share of differing elements {worst_share:.5f}")
+    fp32_abs = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, worst_share, shapes = 0.0, 0.0, 0
+        for hd in (32, 64, 72):
+            for l in range(flash.LANE, flash.MAX_L + 1, flash.LANE):
+                q, k, v, do = (torch.randn(2, l, hd, generator=g, device="cuda").to(dtype)
+                               for _ in range(4))
+                try:
+                    err, share, *abs_err = flash_pair_errors(q, k, v, do, hd ** -0.5, dtype)
+                except AssertionError as e:
+                    raise AssertionError(f"flash window L={l} hd={hd} {dtype_name(dtype)}: "
+                                         f"{e}") from None
+                worst, worst_share = max(worst, err), max(worst_share, share)
+                if dtype == torch.float32:
+                    fp32_abs = {d: max(fp32_abs[d], e) for d, e in zip(("fwd", "bwd"), abs_err)}
+                shapes += 1
+        log(f"[kernel-flash] window: fwd and bwd at every L of 128-2048 (step 128) x hd 32, "
+            f"64, 72, {dtype_name(dtype)} ({flash.fwd_kernel(dtype)} / "
+            f"{flash.bwd_kernel(dtype)}), N*H 2: {shapes} shapes within their bounds; the "
+            f"worst error {worst:.3f} of its bound, the largest share of differing elements "
+            f"{worst_share:.5f}")
+    return fp32_abs
+
+
+def check_flash_fp32_head_dims() -> dict:
+    """The fp32 flash kernels (#5, #6: csrc/attention_fp32_mma.cuh in the
+    separate-heads layout, 'mma6') launch once per call and agree with their
+    plain versions (o, lse, dq, dk, dv) at every head dim of
+    SWEEP_HEAD_DIMS, at SWEEP_SHAPE; timed. Returns the worst absolute
+    errors, forward and backward."""
+    from maskdit_tpu_torch.ops import flash
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    fp32 = torch.float32
+    n, l, h = SWEEP_SHAPE
+    check_variant("flash fwd fp32 hd sweep", fp32, 8, flash.fwd_kernel(fp32), fp32=True)
+    check_variant("flash bwd fp32 hd sweep", fp32, 8, flash.bwd_kernel(fp32), fp32=True)
+    worst, worst_abs, rows = 0.0, {"fwd": 0.0, "bwd": 0.0}, []
+    for hd in SWEEP_HEAD_DIMS:
+        scale = hd ** -0.5
+        q, k, v, do = (torch.randn(n * h, l, hd, generator=g, device="cuda") for _ in range(4))
+        try:
+            err, _, *abs_err = flash_pair_errors(q, k, v, do, scale, fp32)
+        except AssertionError as e:
+            raise AssertionError(f"flash fp32 hd sweep hd={hd}: {e}") from None
+        worst = max(worst, err)
+        worst_abs = {d: max(worst_abs[d], e) for d, e in zip(("fwd", "bwd"), abs_err)}
+        o, lse = flash.flash_fwd(q, k, v, scale)
+        ms = cuda_ms(lambda: flash.flash_fwd(q, k, v, scale), 5)
+        bms = cuda_ms(lambda: flash.flash_bwd(q, k, v, o, lse, do, scale), 5)
+        rows.append(f"{hd}: {ms:.4f} / {bms:.4f}")
+    log(f"[kernel-flash] head dims: the fp32 flash forward and backward (#5, #6, mma6) at (N, "
+        f"L, H) = {SWEEP_SHAPE}, hd {SWEEP_HEAD_DIMS.start}-{SWEEP_HEAD_DIMS.stop - 1} step "
+        f"{SWEEP_HEAD_DIMS.step}: {2 * len(SWEEP_HEAD_DIMS)} rows (o, lse; dq, dk, dv) within "
+        f"their bounds; the worst error {worst:.3f} of its bound (fwd {worst_abs['fwd']:.3e}, "
+        f"bwd {worst_abs['bwd']:.3e}); fwd / bwd ms "
+        "by hd " + ", ".join(rows))
+    free_device_memory()
+    return worst_abs
 
 
 def check_fwd_head_dims() -> None:
@@ -1287,20 +1372,27 @@ def check_flash_bwd_head_dims() -> None:
 
 
 def phase_flash_kernels() -> dict:
-    """ops/flash.py's kernels (#5 and #6) over their window, both bf16
-    forwards and the bf16 flash backward over the head dims, then #5 and #6
-    at FLASH_SHAPES and FLASH_BWD_SHAPES, bf16 and fp32."""
-    check_flash_window()
+    """ops/flash.py's kernels (#5 and #6) over their window in bf16 and
+    fp32, both bf16 forwards and the bf16 flash backward over the head dims
+    and both fp32 flash kernels over them, then #5 and #6 at FLASH_SHAPES
+    and FLASH_BWD_SHAPES, bf16 and fp32, and at FLASH_FP32_SHAPES in fp32."""
+    window_err = check_flash_window()
     check_fwd_head_dims()
     check_flash_bwd_head_dims()
+    sweep_err = check_flash_fp32_head_dims()
     g = torch.Generator(device="cuda").manual_seed(7)
-    out = {"fwd": {}, "bwd": {}}
+    out = {"fwd": {}, "bwd": {},
+           "fp32_err": {d: max(window_err[d], sweep_err[d]) for d in ("fwd", "bwd")}}
     for key, shapes, row, iters in (("fwd", FLASH_SHAPES, flash_fwd_row, 10),
                                     ("bwd", FLASH_BWD_SHAPES, flash_bwd_row, 5)):
         for name, n, l, h, hd in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 out[key][(name, dtype_name(dtype))] = row(name, n, l, h, hd, dtype, g, iters)
                 free_device_memory()
+    for name, n, l, h, hd in FLASH_FP32_SHAPES:
+        for key, row, iters in (("fwd", flash_fwd_row, 5), ("bwd", flash_bwd_row, 3)):
+            out[key][(name, "float32")] = row(name, n, l, h, hd, torch.float32, g, iters)
+            free_device_memory()
     return out
 
 
@@ -2117,7 +2209,9 @@ def finetune_plan(config: dict) -> tuple[list, list, dict]:
     """Each step's bucketed mask ratio and kept token count, recomputed from
     the port's schedules as the trainer steps through them, and the
     launches the steps' attention routes (encoder at the kept tokens, hd 72;
-    decoder at all of them, hd 32; with a backward) and updates give."""
+    decoder at all of them, hd 32; with a backward and the config's
+    ``model.use_flash``) and updates give: a 'flash' layer launches its
+    forward twice (the checkpoint's recompute)."""
     from maskdit_tpu_torch.models.layers import attention_route
     from maskdit_tpu_torch.models.masking import len_keep_for
     from maskdit_tpu_torch.train.schedules import bucket_ratio, get_mask_ratio_fn
@@ -2130,28 +2224,31 @@ def finetune_plan(config: dict) -> tuple[list, list, dict]:
     launches = {"adam": ADAM_PER_STEP * steps}
     for l in kept:
         for length, hd, blocks in ((l, 72, DEPTH), (full, 32, DECODER_DEPTH)):
-            route = attention_route(16, length, hd, True)
-            if route not in ("packed", "big"):
+            route = attention_route(16, length, hd, True, m.get("use_flash"))
+            if route not in ("packed", "big", "flash"):
                 raise AssertionError(f"finetune: L {length} hd {hd} routes to {route}")
-            for way in ("fwd", "bwd"):
-                launches[f"{route}_{way}"] = launches.get(f"{route}_{way}", 0) + blocks
+            for way, calls in (("fwd", 2 if route == "flash" else 1), ("bwd", 1)):
+                launches[f"{route}_{way}"] = launches.get(f"{route}_{way}", 0) + calls * blocks
     return ratios, kept, launches
 
 
-def phase_finetune(tag: str, name: str) -> dict:
+def phase_finetune(tag: str, name: str, overrides=()) -> dict:
     """The finetune main path: configs/finetune/imagenet<name>.yaml through
     the train CLI as released (``--ckpt_path FINETUNE_CKPT --use_strict_load
-    False``), fp32 at full width and depth. Checks finite losses, the
-    launches of each step's route and one update per step and no other
-    kernel, each step's kept token count against the schedule, TF32 off
-    after the run, and the import: non-strict, the mask token alone missing
-    and kept at its initialisation, every other parameter (model and EMA)
-    equal to the file's."""
+    False``) with the config ``overrides``, fp32 at full width and depth.
+    Checks finite losses, the launches of each step's route and one update
+    per step and no other kernel, each step's kept token count against the
+    schedule, TF32 off after the run, and the import: non-strict, the mask
+    token alone missing and kept at its initialisation, every other
+    parameter (model and EMA) equal to the file's."""
+    from maskdit_tpu_torch.train.cli import apply_overrides
+
     config, _ = FINETUNE_CONFIGS[name]
     res = config["model"]["in_size"]
-    ratios, kept, launches = finetune_plan(config)
+    ratios, kept, launches = finetune_plan(apply_overrides(json.loads(json.dumps(config)),
+                                                           overrides))
     with recorded_import() as imported, encoder_widths() as widths:
-        out = run_train(tag, config, res, {}, options=(
+        out = run_train(tag, config, res, {}, overrides, options=(
             "--ckpt_path", FINETUNE_CKPT, "--use_strict_load", "False"), extra=launches,
             write_checkpoints=False, ratios=ratios)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
@@ -2205,6 +2302,35 @@ def phase_parity_train_finetune() -> dict:
     out["pad_to_max"] = compare_steps(tag, f"pad-to-max (L 256, {len_keep} valid) vs packed at "
                                       f"ratio {ratio}", fp32, 32, n, pad, got)
     del got, pad
+    free_device_memory()
+    return out
+
+
+def phase_parity_train_finetune_flash() -> dict:
+    """[parity-train-finetune-flash]: one fp32 step at mask 0 (L 1024) of
+    the 512-px finetune's model with ``use_flash`` (run under
+    ``xl_depth(FLASH_DEPTH)``), at PARITY_BATCH_512, from one state with
+    the same injected draws, within the fp32 train bounds: the flash
+    kernels' step (2 forward launches and 1 backward per layer, 1 update)
+    against the plain attention and update, and against the default step on
+    the blocked kernels #3 / #4."""
+    tag, fp32, n, res = "parity-train-finetune-flash", torch.float32, PARITY_BATCH_512, 64
+    batch, draws = parity_batch(res, n)
+    unmasked = draws._replace(mask_info=None)
+    layers = FLASH_ATTN_PER_STEP
+    got = train_step_result(fp32, res, batch, unmasked, use_flash=True, mask_ratio=0.0, tag=tag,
+                            launches=dict(flash_fwd=2 * layers, flash_bwd=layers,
+                                          adam=ADAM_PER_STEP))
+    ref = train_step_result(fp32, res, batch, unmasked, use_flash=True, mask_ratio=0.0,
+                            plain=True)
+    out = {"plain": compare_steps(tag, "use_flash at mask 0 (L 1024), kernels vs plain", fp32,
+                                  res, n, got, ref)}
+    del ref
+    ref = train_step_result(fp32, res, batch, unmasked, mask_ratio=0.0, tag=tag,
+                            launches=dict(big_fwd=layers, big_bwd=layers, adam=ADAM_PER_STEP))
+    out["blocked"] = compare_steps(tag, "use_flash vs the blocked kernels at mask 0", fp32, res,
+                                   n, got, ref)
+    del got, ref
     free_device_memory()
     return out
 
@@ -3151,12 +3277,18 @@ def main() -> None:
         mark("train-flash")
         finetune = {"256": phase_finetune("train-finetune256", "256-latent-const"),
                     "cos": phase_finetune("train-finetune-cos", "256-latent-cos"),
-                    "512": phase_finetune("train-finetune512", "512-latent")}
+                    "512": phase_finetune("train-finetune512", "512-latent"),
+                    "512-flash": phase_finetune("train-finetune512-flash", "512-latent",
+                                                FINETUNE_FLASH_OVERRIDES)}
         parity_finetune = phase_parity_train_finetune()
+        with xl_depth(FLASH_DEPTH):
+            parity_finetune["flash"] = phase_parity_train_finetune_flash()
         phase_train_profile("train-profile-finetune256", 32, FINETUNE_BATCH, 1, fp32=True,
                             mask_ratio=0.0)
         phase_train_profile("train-profile-finetune512", 64, FINETUNE_BATCH_512, 1, fp32=True,
                             mask_ratio=0.0)
+        phase_train_profile("train-profile-finetune512-flash", 64, FINETUNE_BATCH_512, 1,
+                            use_flash=True, fp32=True, mask_ratio=0.0)
         mark("finetune")
         sample_cls = phase_sample_cls(ckpt)
         train_cls = phase_train_cls_feat()
@@ -3215,6 +3347,8 @@ def main() -> None:
     packed_fp32 = [fp32_err(rows, "packed", d, fp32_k["packed_sweep_err"])
                    for rows, d in ((kernels, "fwd"), (bwd, "bwd"))]
     big_fp32 = [fp32_err(big[d], "big", d, fp32_k["sweep_err"]) for d in ("fwd", "bwd")]
+    flash_fp32 = {d: max([v["err"] for (_, dt), v in flash_k[d].items() if dt == "float32"]
+                         + [flash_k["fp32_err"][d]]) for d in ("fwd", "bwd")}
     print(json.dumps({"kernels": [
         {**kernel_line("packed_attention_fwd", "packed_attention_fwd.cu",
                        "flash_batched.py:162", count("packed_fwd"),
@@ -3239,12 +3373,14 @@ def main() -> None:
                                          "cls_unmasked_encoder"]),
                        big["bwd"][("train_encoder", "bfloat16")]),
          "max_abs_err_fp32": big_fp32[1]},
-        kernel_line("flash_fwd", "flash_fwd.cu", "flash.py:96", count("flash_fwd"),
-                    bf16(flash_k["fwd"], ["train_encoder", "train_decoder"]),
-                    flash_k["fwd"][("train_encoder", "bfloat16")]),
-        kernel_line("flash_bwd", "flash_bwd.cu", "flash.py:114", count("flash_bwd"),
-                    bf16(flash_k["bwd"], ["train_encoder", "train_decoder"]),
-                    flash_k["bwd"][("train_encoder", "bfloat16")]),
+        {**kernel_line("flash_fwd", "flash_fwd.cu", "flash.py:96", count("flash_fwd"),
+                       bf16(flash_k["fwd"], ["train_encoder", "train_decoder"]),
+                       flash_k["fwd"][("train_encoder", "bfloat16")]),
+         "max_abs_err_fp32": flash_fp32["fwd"]},
+        {**kernel_line("flash_bwd", "flash_bwd.cu", "flash.py:114", count("flash_bwd"),
+                       bf16(flash_k["bwd"], ["train_encoder", "train_decoder"]),
+                       flash_k["bwd"][("train_encoder", "bfloat16")]),
+         "max_abs_err_fp32": flash_fp32["bwd"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

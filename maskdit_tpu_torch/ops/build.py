@@ -25,15 +25,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The whole-row and the blocked kernels' libraries also hold the fp32
-# tensor-core kernels (csrc/attention_fp32_mma.cuh: one forward or two
+# The whole-row, the blocked and the flash kernels' libraries also hold the
+# fp32 tensor-core kernels (csrc/attention_fp32_mma.cuh: one forward or two
 # backward kernels x 16 head dims of unrolled mma.sync), minutes of nvcc's
 # optimizer on one thread; -split-compile=0 runs it on every core. Their
 # bf16 kernels' SASS is the same either way.
 KERNEL_FLAGS = {
     name: ("-split-compile=0",)
     for name in ("packed_attention_fwd", "packed_attention_bwd",
-                 "packed_attention_big_fwd", "packed_attention_big_bwd")
+                 "packed_attention_big_fwd", "packed_attention_big_bwd", "flash_fwd",
+                 "flash_bwd")
 }
 
 

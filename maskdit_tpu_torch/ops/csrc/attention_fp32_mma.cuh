@@ -1,20 +1,26 @@
 // The fp32 attention on Hopper's tensor cores (sm_90a): the forward and the
-// backward of packed qkv for fp32 at a head dim that is a multiple of 8, the
-// path of the released finetunes (configs/finetune/*.yaml train with
-// train.fp32 and TF32 off). In fp32 the whole-row kernels #1 / #2
-// (flash_batched._packed_fwd / _packed_bwd) and the blocked kernels #3 / #4
-// (flash_big._big_fwd / _big_bwd) compute one function, so
+// backward for fp32 at a head dim that is a multiple of 8, the path of the
+// released finetunes (configs/finetune/*.yaml train with train.fp32 and TF32
+// off), with or without model.use_flash. In fp32 the whole-row kernels #1 /
+// #2 (flash_batched._packed_fwd / _packed_bwd) and the blocked kernels #3 /
+// #4 (flash_big._big_fwd / _big_bwd) compute one function on packed qkv, so
 // packed_attention_fwd.cu, packed_attention_bwd.cu,
 // packed_attention_big_fwd.cu and packed_attention_big_bwd.cu all launch
-// these kernels; the helpers serve any fp32 attention kernel. Per (sample,
-// head), in fp32, with every "round to the input type" of the TPU kernels
-// the identity:
+// these kernels in the PackedQkv layout; the flash kernels #5 / #6
+// (flash._flash_fwd / _flash_bwd: separate q, k, v and a saved logsumexp)
+// launch them in the SeparateHeads layout from flash_fwd.cu and
+// flash_bwd.cu. Per (sample, head), in fp32, with every "round to the input
+// type" of the TPU kernels the identity:
 //   s = (q . k) * scale; p = softmax(s) (the final max and sum); o = p . v;
 //   delta = sum(do * o); ds = p * (dp - delta) * scale with dp = do . v^T;
 //   dq = ds . k, dk = ds^T . q, dv = p^T . do (dk, dv over all queries).
+// The flash pair differs where _flash_fwd / _flash_bwd do: the forward also
+// writes lse = m + log l, and the backward forms p = exp(s - lse) (not
+// exp(s - m) / l; the two differ in their last bits) with delta from the
+// stored o, which flash_bwd.cu's delta pass sums before these kernels run.
 //
-// What bounds it: the forward's two and the backward's six L x L x hd
-// products (4 and 12 N H L^2 hd operations) against a few N L D fp32
+// What bounds it: the forward's two and the backward's six (flash: five)
+// L x L x hd products (4 and 12 N H L^2 hd operations) against a few N L D fp32
 // elements of traffic: above the card's balance at every L the finetunes
 // run (128-1024), so arithmetic. On fp32 FMAs (67 TFLOP/s) that
 // bound is ~15x the bf16 tensor cores' (989 TFLOP/s); plain TF32 (one
@@ -34,25 +40,30 @@
 // attention_bwd_mma.cuh): blocks of 64 rows of one head, 4 warps of 16
 // rows, K, V, Q and dO streamed in 64-row tiles by cp.async, shared memory
 // that does not grow with L, deterministic, no atomics:
-//   * forward, grid (ceil(L / 64), heads, n): ONE pass over the keys, s, a
-//     running row max m and sum l, o += e . v with e = exp(s - m), o and l
-//     rescaled by exp(m_old - m_new) as m grows, o / l at the end. (The bf16
-//     forward takes two passes so that p / l is rounded to bf16 once, from
-//     the final m and l; in fp32 nothing is rounded there and the rescale
-//     adds a few fp32 roundings, far inside 1e-5: one product fewer.)
-//   * backward query kernel, the same grid: the forward's pass gives m, l
-//     and o; delta = sum(do * o); m, l, delta go to the fp32 (3, n, heads, L)
-//     scratch; a second pass forms s, p = exp(s - m) / l, dp and ds and adds
-//     ds . k to dq;
+//   * forward, grid (ceil(L / 64), heads, n) (separate heads: (ceil(L /
+//     64), N*H)): ONE pass over the keys, s, a running row max m and sum l,
+//     o += e . v with e = exp(s - m), o and l rescaled by exp(m_old - m_new)
+//     as m grows, o / l at the end, and lse = m + log l where the layout
+//     keeps one. (The bf16 forward takes two passes so that p / l is rounded
+//     to bf16 once, from the final m and l; in fp32 nothing is rounded there
+//     and the rescale adds a few fp32 roundings, far inside 1e-5: one
+//     product fewer.)
+//   * backward query kernel, the same grid: in the packed layout the
+//     forward's pass gives m, l and o; delta = sum(do * o); m, l, delta go
+//     to the fp32 (3, n, heads, L) scratch; with separate heads lse and
+//     delta are read instead and that pass is not run. Then one pass forms
+//     s, p (exp(s - m) / l, or exp(s - lse)), dp and ds and adds ds . k to
+//     dq;
 //   * backward key kernel, grid over keys: its 64 keys' K and V stay in
 //     shared memory, Q and dO stream; per tile each warp takes 16 queries,
-//     forms s and dp, p from the saved m and l, and ds, stored fp32 and
-//     transposed; then each warp takes 16 keys and adds p^T . dO to dv and
-//     ds^T . Q to dk.
+//     forms s and dp, p from the saved m and l (or lse), and ds, stored
+//     fp32 and transposed; then each warp takes 16 keys and adds p^T . dO
+//     to dv and ds^T . Q to dk.
 // s and dp come from the same helper (tile_dots: the same pieces, the same
 // mma sequence, S = Q . K^T in both kernels), p from the same expf and
-// correctly rounded division (div_rn), ds with pinned multiplies (dscore),
-// so the key kernel's p and ds are bit for bit the query kernel's.
+// correctly rounded division (div_rn; row_prob), ds with pinned multiplies
+// (dscore), so the key kernel's p and ds are bit for bit the query
+// kernel's.
 //
 // Where the pieces are formed. Three bf16 pieces of a tile take 1.5x its
 // fp32 bytes, and the key kernel's six tiles plus p^T and ds^T would not fit
@@ -93,8 +104,9 @@
 // dv), 8 x 4 of s or dp and their second accumulators, and the pieces of
 // one k-step; __launch_bounds__(128, 2) gives each thread up to 255 (two
 // blocks per SM at hd 72, as shared memory allows). The build's -Xptxas -v
-// report (beside the library) lists spills: none at hd <= 64, up to 144 B
-// at hd 104-128.
+// report (beside the library) lists spills: none at hd <= 64 in the packed
+// layout (the separate-heads key kernel 4 B at hd 56-72, the packed one at
+// hd 72), up to 144 B at hd 104-128.
 
 #pragma once
 
@@ -407,19 +419,84 @@ __device__ __forceinline__ float dscore(float p, float dp, float delta, float sc
   return __fmul_rn(__fmul_rn(p, dp - delta), scale);
 }
 
+// where one block's (sample, head) lies for the forward: its q, k and v
+// rows (row r at q + r * stride, ...), its o rows (at o + r * out_stride)
+// and, in a layout with one, its logsumexp row
+struct FwdHead {
+  const float* q;
+  const float* k;
+  const float* v;
+  size_t stride;
+  float* o;
+  size_t out_stride;
+  float* lse;
+};
+
 // packed qkv (n, L, 3D) fp32, head h at features h*hd, D + h*hd and 2D +
 // h*hd of each row; o (n, L, D); grid (ceil(L / 64), heads, n)
-struct FwdProblem {
+struct PackedQkv {
+  static constexpr bool kLse = false;
   const float* qkv;
   float* o;
   int n, heads;
 
   dim3 grid(int L) const { return dim3((L + kRows - 1) / kRows, heads, n); }
+  __device__ FwdHead head(int L, int hd) const {
+    const size_t d = static_cast<size_t>(heads) * hd;
+    const float* q = qkv + static_cast<size_t>(blockIdx.z) * L * 3 * d +
+                     static_cast<size_t>(blockIdx.y) * hd;
+    return {q, q + d, q + 2 * d, 3 * d,
+            o + static_cast<size_t>(blockIdx.z) * L * d + static_cast<size_t>(blockIdx.y) * hd, d,
+            nullptr};
+  }
 };
 
-// and for the backward: dout (n, L, D), dqkv like qkv, stats (3, n, heads,
-// L) fp32: the row max, sum and delta
-struct BwdProblem {
+// q, k, v and o (heads, L, hd) contiguous, lse (heads, L) fp32 = m + log l
+// from the final running max and sum; grid (ceil(L / 64), heads)
+struct SeparateHeads {
+  static constexpr bool kLse = true;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* lse;
+  int heads;
+
+  dim3 grid(int L) const { return dim3((L + kRows - 1) / kRows, heads); }
+  __device__ FwdHead head(int L, int hd) const {
+    const size_t base = static_cast<size_t>(blockIdx.y) * L * hd;
+    return {q + base, k + base, v + base, static_cast<size_t>(hd), o + base,
+            static_cast<size_t>(hd), lse + static_cast<size_t>(blockIdx.y) * L};
+  }
+};
+
+// and for the backward: q, k, v rows as above, dO's rows (at dout + r *
+// dout_stride), the gradients' (at dq + r * grad_stride, ...) and each
+// row's statistics at [r]: in the packed layout the max m, the sum l and
+// delta, which its query kernel writes and its key kernel reads; with
+// separate heads the forward's lse and delta = sum(do * o) from the stored
+// o, which the caller gives
+struct BwdHead {
+  const float* q;
+  const float* k;
+  const float* v;
+  size_t stride;
+  const float* dout;
+  size_t dout_stride;
+  float* dq;
+  float* dk;
+  float* dv;
+  size_t grad_stride;
+  float* m;
+  float* l;
+  const float* lse;
+  float* delta;
+};
+
+// packed: dout (n, L, D), dqkv like qkv, stats (3, n, heads, L) fp32: the
+// row max, sum and delta
+struct PackedQkvBwd {
+  static constexpr bool kLse = false;
   const float* qkv;
   const float* dout;
   float* dqkv;
@@ -427,23 +504,54 @@ struct BwdProblem {
   int n, heads;
 
   dim3 grid(int L) const { return dim3((L + kRows - 1) / kRows, heads, n); }
+  __device__ BwdHead head(int L, int hd) const {
+    const size_t d = static_cast<size_t>(heads) * hd;
+    const size_t in = static_cast<size_t>(blockIdx.z) * L * 3 * d +
+                      static_cast<size_t>(blockIdx.y) * hd;
+    const size_t plane = static_cast<size_t>(n) * heads * L;
+    float* m = stats + (static_cast<size_t>(blockIdx.z) * heads + blockIdx.y) * L;
+    return {qkv + in, qkv + in + d, qkv + in + 2 * d, 3 * d,
+            dout + static_cast<size_t>(blockIdx.z) * L * d + static_cast<size_t>(blockIdx.y) * hd,
+            d, dqkv + in, dqkv + in + d, dqkv + in + 2 * d, 3 * d, m, m + plane, nullptr,
+            m + 2 * plane};
+  }
 };
 
-// this block's (sample, head): offsets of its q rows in qkv (k at + D, v at
-// + 2D) and of its dout / o rows
-struct HeadOffsets {
-  size_t qkv, out, stats;
-  size_t d;
+// separate heads: q, k, v, dout, dq, dk, dv (heads, L, hd) contiguous, lse
+// and delta (heads, L) fp32; grid (ceil(L / 64), heads)
+struct SeparateHeadsBwd {
+  static constexpr bool kLse = true;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  float* dq;
+  float* dk;
+  float* dv;
+  const float* lse;
+  float* delta;
+  int heads;
+
+  dim3 grid(int L) const { return dim3((L + kRows - 1) / kRows, heads); }
+  __device__ BwdHead head(int L, int hd) const {
+    const size_t base = static_cast<size_t>(blockIdx.y) * L * hd;
+    const size_t row = static_cast<size_t>(blockIdx.y) * L;
+    const size_t s = static_cast<size_t>(hd);
+    return {q + base, k + base, v + base, s, dout + base, s, dq + base,
+            dk + base, dv + base, s, nullptr, nullptr, lse + row, delta + row};
+  }
 };
 
-__device__ __forceinline__ HeadOffsets head_offsets(int heads, int L, int hd) {
-  const size_t d = static_cast<size_t>(heads) * hd;
-  HeadOffsets h;
-  h.d = d;
-  h.qkv = static_cast<size_t>(blockIdx.z) * L * 3 * d + static_cast<size_t>(blockIdx.y) * hd;
-  h.out = static_cast<size_t>(blockIdx.z) * L * d + static_cast<size_t>(blockIdx.y) * hd;
-  h.stats = (static_cast<size_t>(blockIdx.z) * heads + blockIdx.y) * L;
-  return h;
+// p from s and a row's statistics: with an lse (kLse; m holds it) p =
+// exp(s - lse), _flash_bwd's function; else exp(s - m) / l correctly
+// rounded, r = 1 / l
+template <bool kLse>
+__device__ __forceinline__ float row_prob(float s, float m, float l, float r) {
+  if constexpr (kLse) {
+    return expf(s - m);
+  } else {
+    return prob(s, m, l, r);
+  }
 }
 
 // One pass over all keys for this warp's 16 queries (rows 16 warp .. of
@@ -523,9 +631,9 @@ __device__ __forceinline__ void attend(float (&o)[HD / 8][4], float (&m)[2], flo
   }
 }
 
-template <int HD>
+template <int HD, class Layout>
 __global__ void __launch_bounds__(kThreads, 2)
-attention_fwd_kernel(FwdProblem problem, int L, float scale) {
+attention_fwd_kernel(Layout layout, int L, float scale) {
   constexpr int SQ = a_stride(HD);
   constexpr int SB = b_stride(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -533,18 +641,31 @@ attention_fwd_kernel(FwdProblem problem, int L, float scale) {
   float* ks = qs + kRows * SQ;                      // K ring, 2 tiles
   float* vs = ks + 2 * kKeys * SB;                  // V ring, 2 tiles
 
-  const HeadOffsets h = head_offsets(problem.heads, L, HD);
-  const float* q = problem.qkv + h.qkv;
+  const FwdHead h = layout.head(L, HD);
   const int q0 = blockIdx.x * kRows;
-  load_tile<HD, SQ>(qs, q, 3 * h.d, q0, L);
+  const int row0 = q0 + 16 * (threadIdx.x >> 5);
+  load_tile<HD, SQ>(qs, h.q, h.stride, q0, L);
   float o[HD / 8][4], m[2], l[2];
-  attend<HD, SQ>(o, m, l, qs, ks, vs, q + h.d, q + 2 * h.d, 3 * h.d, L, scale);
-  store_rows<HD>(problem.o + h.out, h.d, o, q0 + 16 * (threadIdx.x >> 5), L);
+  attend<HD, SQ>(o, m, l, qs, ks, vs, h.k, h.v, h.stride, L, scale);
+  store_rows<HD>(h.o, h.out_stride, o, row0, L);
+  if constexpr (Layout::kLse) {
+    // lse = m + log l of rows g and g + 8, from the quad's first thread
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + (lane >> 2) + 8 * r;
+      if ((lane & 3) == 0 && row < L) h.lse[row] = m[r] + logf(l[r]);
+    }
+  }
 }
 
-template <int HD>
+// The query kernel: dq += ds . k over all keys. With the packed layout its
+// first pass is the forward's, for m, l and o, then delta = sum(do * o); it
+// writes m, l and delta for the key kernel. With an lse it reads lse and
+// delta and runs the second pass alone.
+template <int HD, class Layout>
 __global__ void __launch_bounds__(kThreads, 2)
-attention_bwd_query_kernel(BwdProblem problem, int L, float scale) {
+attention_bwd_query_kernel(Layout layout, int L, float scale) {
   constexpr int SA = a_stride(HD);
   constexpr int SB = b_stride(HD);
   constexpr int kTile = kKeys * SB;
@@ -554,13 +675,7 @@ attention_bwd_query_kernel(BwdProblem problem, int L, float scale) {
   float* ks = gs + kRows * SA;                      // K ring, 2 tiles
   float* vs = ks + 2 * kTile;                       // V ring, 2 tiles
 
-  const HeadOffsets h = head_offsets(problem.heads, L, HD);
-  const float* q = problem.qkv + h.qkv;
-  const float* k = q + h.d;
-  const float* v = q + 2 * h.d;
-  const size_t stride = 3 * h.d;
-  const size_t plane = static_cast<size_t>(problem.n) * problem.heads * L;
-  float* st = problem.stats + h.stats;
+  const BwdHead h = layout.head(L, HD);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * kRows;
@@ -568,13 +683,24 @@ attention_bwd_query_kernel(BwdProblem problem, int L, float scale) {
   const float* qw = qs + 16 * warp * SA;
   const float* gw = gs + 16 * warp * SA;
 
-  // ---- the forward's pass: m, l and o; then delta = sum(do * o) ----------
-  load_tile<HD, SA>(qs, q, stride, q0, L);
-  load_tile<HD, SA>(gs, problem.dout + h.out, h.d, q0, L);
+  load_tile<HD, SA>(qs, h.q, h.stride, q0, L);
+  load_tile<HD, SA>(gs, h.dout, h.dout_stride, q0, L);
+  // rows g and g + 8: m (or the lse), l and delta
   float m[2], l[2], delta[2];
-  {
+  if constexpr (Layout::kLse) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // a query past L: lse = +inf makes its p, and so its ds, 0
+      const int row = q0 + 16 * warp + (lane >> 2) + 8 * r;
+      const bool valid = row < L;
+      m[r] = valid ? h.lse[row] : INFINITY;
+      l[r] = 1.f;
+      delta[r] = valid ? h.delta[row] : 0.f;
+    }
+  } else {
+    // ---- the forward's pass: m, l and o; then delta = sum(do * o) --------
     float o[HD / 8][4];
-    attend<HD, SA>(o, m, l, qs, ks, vs, k, v, stride, L, scale);
+    attend<HD, SA>(o, m, l, qs, ks, vs, h.k, h.v, h.stride, L, scale);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float* g = gw + ((lane >> 2) + 8 * r) * SA + 2 * (lane & 3);
@@ -589,27 +715,27 @@ attention_bwd_query_kernel(BwdProblem problem, int L, float scale) {
       delta[r] = part;
       const int row = q0 + 16 * warp + (lane >> 2) + 8 * r;
       if ((lane & 3) == 0 && row < L) {
-        st[row] = m[r];
-        st[plane + row] = l[r];
-        st[2 * plane + row] = part;
+        h.m[row] = m[r];
+        h.l[row] = l[r];
+        h.delta[row] = part;
       }
     }
   }
   const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
 
-  // ---- second pass: s, p, dp, ds; dq += ds . k ------------------------------
+  // ---- s, p, dp, ds over the key tiles; dq += ds . k -----------------------
   float dq[HD / 8][4];
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dq[j][c] = 0.f;
-  load_tile<HD, SB>(ks, k, stride, 0, L);
-  load_tile<HD, SB>(vs, v, stride, 0, L);
+  load_tile<HD, SB>(ks, h.k, h.stride, 0, L);
+  load_tile<HD, SB>(vs, h.v, h.stride, 0, L);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
-      load_tile<HD, SB>(ks + ((t + 1) & 1) * kTile, k, stride, (t + 1) * kKeys, L);
-      load_tile<HD, SB>(vs + ((t + 1) & 1) * kTile, v, stride, (t + 1) * kKeys, L);
+      load_tile<HD, SB>(ks + ((t + 1) & 1) * kTile, h.k, h.stride, (t + 1) * kKeys, L);
+      load_tile<HD, SB>(vs + ((t + 1) & 1) * kTile, h.v, h.stride, (t + 1) * kKeys, L);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -623,19 +749,20 @@ attention_bwd_query_kernel(BwdProblem problem, int L, float scale) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int r = c >> 1;
-        s[j][c] = dscore(prob(s[j][c], m[r], l[r], rl[r]), dp[j][c], delta[r], scale);
+        s[j][c] = dscore(row_prob<Layout::kLse>(s[j][c], m[r], l[r], rl[r]), dp[j][c], delta[r],
+                         scale);
       }
     uint32_t da[4][3][4];
     split_accumulators(da, s);
     tile_accumulate<HD, SB>(dq, da, kt);
     __syncthreads();
   }
-  store_rows<HD>(problem.dqkv + h.qkv, stride, dq, q0 + 16 * warp, L);
+  store_rows<HD>(h.dq, h.grad_stride, dq, q0 + 16 * warp, L);
 }
 
-template <int HD>
+template <int HD, class Layout>
 __global__ void __launch_bounds__(kThreads, 2)
-attention_bwd_key_kernel(BwdProblem problem, int L, float scale) {
+attention_bwd_key_kernel(Layout layout, int L, float scale) {
   constexpr int SA = a_stride(HD);
   constexpr int SB = b_stride(HD);
   constexpr int kDepth = key_depth(HD);
@@ -648,12 +775,7 @@ attention_bwd_key_kernel(BwdProblem problem, int L, float scale) {
   float* pt = gs + kDepth * kTile;                  // p^T, [64 keys][kTStride]
   float* dt = pt + kKeys * kTStride;                // ds^T, the same
 
-  const HeadOffsets h = head_offsets(problem.heads, L, HD);
-  const float* q = problem.qkv + h.qkv;
-  const float* dout = problem.dout + h.out;
-  const size_t stride = 3 * h.d;
-  const size_t plane = static_cast<size_t>(problem.n) * problem.heads * L;
-  const float* st = problem.stats + h.stats;
+  const BwdHead h = layout.head(L, HD);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int k0 = blockIdx.x * kKeys;
@@ -665,17 +787,17 @@ attention_bwd_key_kernel(BwdProblem problem, int L, float scale) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[j][c] = dv[j][c] = 0.f;
 
-  load_tile<HD, SA>(kb, q + h.d, stride, k0, L);
-  load_tile<HD, SA>(vb, q + 2 * h.d, stride, k0, L);
-  load_tile<HD, SB>(qs, q, stride, 0, L);
-  load_tile<HD, SB>(gs, dout, h.d, 0, L);
+  load_tile<HD, SA>(kb, h.k, h.stride, k0, L);
+  load_tile<HD, SA>(vb, h.v, h.stride, k0, L);
+  load_tile<HD, SB>(qs, h.q, h.stride, 0, L);
+  load_tile<HD, SB>(gs, h.dout, h.dout_stride, 0, L);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     // two-deep: tile t + 1 is in flight while the block computes on tile t;
     // one-deep: tile t was issued at the end of the last iteration
     if (kDepth == 2 && t + 1 < ntiles) {
-      load_tile<HD, SB>(qs + ((t + 1) & 1) * kTile, q, stride, (t + 1) * kRows, L);
-      load_tile<HD, SB>(gs + ((t + 1) & 1) * kTile, dout, h.d, (t + 1) * kRows, L);
+      load_tile<HD, SB>(qs + ((t + 1) & 1) * kTile, h.q, h.stride, (t + 1) * kRows, L);
+      load_tile<HD, SB>(gs + ((t + 1) & 1) * kTile, h.dout, h.dout_stride, (t + 1) * kRows, L);
     }
     cp_async_commit();
     cp_async_wait<kDepth - 1>();
@@ -692,11 +814,16 @@ attention_bwd_key_kernel(BwdProblem problem, int L, float scale) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = t * kRows + 16 * warp + (lane >> 2) + 8 * r;
-      // a query past L: m = +inf makes its p, and so its ds, 0
+      // a query past L: m (or lse) = +inf makes its p, and so its ds, 0
       const bool valid = row < L;
-      m[r] = valid ? st[row] : INFINITY;
-      l[r] = valid ? st[plane + row] : 1.f;
-      dl[r] = valid ? st[2 * plane + row] : 0.f;
+      if constexpr (Layout::kLse) {
+        m[r] = valid ? h.lse[row] : INFINITY;
+        l[r] = 1.f;
+      } else {
+        m[r] = valid ? h.m[row] : INFINITY;
+        l[r] = valid ? h.l[row] : 1.f;
+      }
+      dl[r] = valid ? h.delta[row] : 0.f;
       rl[r] = __frcp_rn(l[r]);
     }
     // element (j, c) of row r: key 8j + 2t + (c & 1), query ql(r) of the tile
@@ -710,7 +837,7 @@ attention_bwd_key_kernel(BwdProblem problem, int L, float scale) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           prow[(8 * j + (c & 1)) * kTStride + 8 * (c >> 1)] =
-              prob(s[j][c], m[c >> 1], l[c >> 1], rl[c >> 1]);
+              row_prob<Layout::kLse>(s[j][c], m[c >> 1], l[c >> 1], rl[c >> 1]);
     }
     {
       float dp[8][4];
@@ -737,13 +864,12 @@ attention_bwd_key_kernel(BwdProblem problem, int L, float scale) {
     }
     __syncthreads();
     if (kDepth == 1 && t + 1 < ntiles) {
-      load_tile<HD, SB>(qs, q, stride, (t + 1) * kRows, L);
-      load_tile<HD, SB>(gs, dout, h.d, (t + 1) * kRows, L);
+      load_tile<HD, SB>(qs, h.q, h.stride, (t + 1) * kRows, L);
+      load_tile<HD, SB>(gs, h.dout, h.dout_stride, (t + 1) * kRows, L);
     }
   }
-  float* dbase = problem.dqkv + h.qkv;
-  store_rows<HD>(dbase + h.d, stride, dk, k0 + 16 * warp, L);
-  store_rows<HD>(dbase + 2 * h.d, stride, dv, k0 + 16 * warp, L);
+  store_rows<HD>(h.dk, h.grad_stride, dk, k0 + 16 * warp, L);
+  store_rows<HD>(h.dv, h.grad_stride, dv, k0 + 16 * warp, L);
 }
 
 // Raise a kernel's dynamic shared-memory limit (48 KB by default) and
@@ -764,65 +890,64 @@ inline cudaError_t device_index(int& dev) {
   return dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
 }
 
-template <int HD>
-cudaError_t launch_fwd_hd(const FwdProblem& problem, int L, float scale, cudaStream_t stream) {
+template <int HD, class Layout>
+cudaError_t launch_fwd_hd(const Layout& layout, int L, float scale, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = device_index(dev);
   if (err != cudaSuccess) return err;
   if (!configured[dev]) {
-    err = configure(attention_fwd_kernel<HD>, fwd_smem_bytes(HD));
+    err = configure(attention_fwd_kernel<HD, Layout>, fwd_smem_bytes(HD));
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
-  attention_fwd_kernel<HD>
-      <<<problem.grid(L), kThreads, fwd_smem_bytes(HD), stream>>>(problem, L, scale);
+  attention_fwd_kernel<HD, Layout>
+      <<<layout.grid(L), kThreads, fwd_smem_bytes(HD), stream>>>(layout, L, scale);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_bwd_hd(const BwdProblem& problem, int L, float scale, cudaStream_t stream) {
+template <int HD, class Layout>
+cudaError_t launch_bwd_hd(const Layout& layout, int L, float scale, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = device_index(dev);
   if (err != cudaSuccess) return err;
   if (!configured[dev]) {
-    err = configure(attention_bwd_query_kernel<HD>, query_smem_bytes(HD));
+    err = configure(attention_bwd_query_kernel<HD, Layout>, query_smem_bytes(HD));
     if (err != cudaSuccess) return err;
-    err = configure(attention_bwd_key_kernel<HD>, key_smem_bytes(HD));
+    err = configure(attention_bwd_key_kernel<HD, Layout>, key_smem_bytes(HD));
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
-  attention_bwd_query_kernel<HD>
-      <<<problem.grid(L), kThreads, query_smem_bytes(HD), stream>>>(problem, L, scale);
+  attention_bwd_query_kernel<HD, Layout>
+      <<<layout.grid(L), kThreads, query_smem_bytes(HD), stream>>>(layout, L, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_key_kernel<HD>
-      <<<problem.grid(L), kThreads, key_smem_bytes(HD), stream>>>(problem, L, scale);
+  attention_bwd_key_kernel<HD, Layout>
+      <<<layout.grid(L), kThreads, key_smem_bytes(HD), stream>>>(layout, L, scale);
   return cudaGetLastError();
 }
 
-// The forward at head dim hd (a multiple of 8, at most kMaxHd), one
-// instantiation per hd, so every loop over hd unrolls. qkv must be 16-byte
-// aligned (cp.async).
-template <int HD = 8>
-cudaError_t launch_fwd(const FwdProblem& problem, int L, int hd, float scale,
-                       cudaStream_t stream) {
-  if (hd == HD) return launch_fwd_hd<HD>(problem, L, scale, stream);
+// The forward at head dim hd (a multiple of 8, at most kMaxHd) in a layout
+// (PackedQkv, SeparateHeads), one instantiation per hd, so every loop over
+// hd unrolls. q, k and v must be 16-byte aligned (cp.async).
+template <class Layout, int HD = 8>
+cudaError_t launch_fwd(const Layout& layout, int L, int hd, float scale, cudaStream_t stream) {
+  if (hd == HD) return launch_fwd_hd<HD>(layout, L, scale, stream);
   if constexpr (HD < kMaxHd) {
-    return launch_fwd<HD + 8>(problem, L, hd, scale, stream);
+    return launch_fwd<Layout, HD + 8>(layout, L, hd, scale, stream);
   } else {
     return cudaErrorInvalidValue;
   }
 }
 
-// Both backward kernels, likewise; qkv and dout 16-byte aligned.
-template <int HD = 8>
-cudaError_t launch_bwd(const BwdProblem& problem, int L, int hd, float scale,
-                       cudaStream_t stream) {
-  if (hd == HD) return launch_bwd_hd<HD>(problem, L, scale, stream);
+// Both backward kernels (PackedQkvBwd, SeparateHeadsBwd), likewise; q, k,
+// v and dout 16-byte aligned.
+template <class Layout, int HD = 8>
+cudaError_t launch_bwd(const Layout& layout, int L, int hd, float scale, cudaStream_t stream) {
+  if (hd == HD) return launch_bwd_hd<HD>(layout, L, scale, stream);
   if constexpr (HD < kMaxHd) {
-    return launch_bwd<HD + 8>(problem, L, hd, scale, stream);
+    return launch_bwd<Layout, HD + 8>(layout, L, hd, scale, stream);
   } else {
     return cudaErrorInvalidValue;
   }

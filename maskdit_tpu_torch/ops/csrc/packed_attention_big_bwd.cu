@@ -77,7 +77,7 @@ int packed_attention_big_bwd(const void* qkv, const void* dout, void* dqkv, void
       return static_cast<int>(attention_bwd_mma::launch(problem, l, hd, scale, s));
     }
     case 1: {
-      const attention_fp32_mma::BwdProblem problem{static_cast<const float*>(qkv),
+      const attention_fp32_mma::PackedQkvBwd problem{static_cast<const float*>(qkv),
                                                    static_cast<const float*>(dout),
                                                    static_cast<float*>(dqkv), st, n, heads};
       return static_cast<int>(attention_fp32_mma::launch_bwd(problem, l, hd, scale, s));

@@ -67,7 +67,7 @@ int packed_attention_big_fwd(const void* qkv, void* out, int n, int l, int heads
       return static_cast<int>(attention_fwd_mma::launch(layout, l, hd, scale, s));
     }
     case 1: {
-      const attention_fp32_mma::FwdProblem problem{static_cast<const float*>(qkv),
+      const attention_fp32_mma::PackedQkv problem{static_cast<const float*>(qkv),
                                                    static_cast<float*>(out), n, heads};
       return static_cast<int>(attention_fp32_mma::launch_fwd(problem, l, hd, scale, s));
     }

@@ -600,7 +600,7 @@ int packed_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* st
       if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
           reinterpret_cast<uintptr_t>(dout) % 16 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-      const attention_fp32_mma::BwdProblem problem{static_cast<const float*>(qkv),
+      const attention_fp32_mma::PackedQkvBwd problem{static_cast<const float*>(qkv),
                                                    static_cast<const float*>(dout),
                                                    static_cast<float*>(dqkv), st, n, heads};
       return static_cast<int>(attention_fp32_mma::launch_bwd(problem, l, hd, scale, s));

@@ -568,7 +568,7 @@ int packed_attention_fwd(const void* qkv, void* out, int n, int l, int heads,
         return static_cast<int>(launch<float>(qkv, out, n, l, heads, hd, scale, s));
       if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-      const attention_fp32_mma::FwdProblem problem{static_cast<const float*>(qkv),
+      const attention_fp32_mma::PackedQkv problem{static_cast<const float*>(qkv),
                                                    static_cast<float*>(out), n, heads};
       return static_cast<int>(attention_fp32_mma::launch_fwd(problem, l, hd, scale, s));
     }

@@ -17,13 +17,18 @@ rounding points, so it has kernels of its own:
 
   * a CPU tensor goes to the plain PyTorch versions,
     ``flash_fwd_reference`` and ``flash_bwd_reference``;
-  * a CUDA tensor launches ``csrc/flash_fwd.cu`` (replaces ``_flash_fwd``;
-    in bf16 the tensor-core kernel of ``csrc/attention_fwd_mma.cuh``,
-    shared with ops/flash_big.py) and ``csrc/flash_bwd.cu`` (replaces
-    ``_flash_bwd``; in bf16 tensor-core kernels that split p and ds
-    exactly into three bf16 pieces, see ``bwd_kernel``), or raises. They
-    take a head dim that is a multiple of 8 up to 128; any other raises
-    NotImplementedError.
+  * a CUDA tensor launches ``csrc/flash_fwd.cu`` (replaces ``_flash_fwd``)
+    and ``csrc/flash_bwd.cu`` (replaces ``_flash_bwd``), or raises. Both
+    types run tensor-core kernels (``fwd_kernel``, ``bwd_kernel``): bf16
+    the forward of ``csrc/attention_fwd_mma.cuh`` (shared with
+    ops/flash_big.py) and a backward that splits p and ds exactly into
+    three bf16 pieces; fp32 (``model.use_flash`` with ``train.fp32``) the
+    kernels of ``csrc/attention_fp32_mma.cuh`` in their separate-heads
+    layout (shared with the packed kernels in fp32), each fp32 product as
+    six bf16 products of exact pieces, lse written by the forward and p =
+    exp(s - lse) in the backward. They take a head dim that is a multiple
+    of 8 up to 128; any other raises NotImplementedError. Their shared
+    memory does not grow with L.
 
 ``flash_fwd.launches`` and ``flash_bwd.launches`` count kernel launches
 and nothing else; ``flash_mha_plain`` applies the Function with the plain
@@ -39,21 +44,20 @@ import torch
 
 from maskdit_tpu_torch.ops import build
 from maskdit_tpu_torch.ops.attention import mha_reference
-from maskdit_tpu_torch.ops.flash_batched import DTYPE_CODES, MAX_HEAD_DIM, SMEM_LIMIT, _align16
+from maskdit_tpu_torch.ops.flash_batched import (
+    DTYPE_CODES,
+    MAX_HEAD_DIM,
+    fp32_bwd_smem_bytes,
+    fp32_fwd_smem_bytes,
+)
 from maskdit_tpu_torch.ops.flash_big import mma_fwd_smem_bytes
 
 KERNEL = "flash_fwd"
 BWD_KERNEL = "flash_bwd"
 LANE = 128
 MAX_L = 2048
-# keys (forward), or keys and queries (backward), per tile the kernels stream
+# rows of the tiles the bf16 backward keeps in shared memory
 TILE = 64
-# queries per fp32 forward block: 32, or 16 where the (32, L) logits block
-# would not fit a block's shared memory (L above 1408 at hd 72)
-BLOCK_ROWS = (32, 16)
-# queries per bf16 (tensor-core) forward block, at every L
-MMA_ROWS = 64
-THREADS = 256
 
 
 def supports(l: int) -> bool:
@@ -62,28 +66,13 @@ def supports(l: int) -> bool:
     return l % LANE == 0 and l <= MAX_L
 
 
-def fwd_smem_bytes(l: int, hd: int, rows: int, esize: int = 4) -> int:
-    """Shared memory of one forward block of ``rows`` queries for inputs of
-    ``esize`` bytes. bf16 (2): the tensor-core kernel's,
-    ``flash_big.mma_fwd_smem_bytes`` (``rows`` is MMA_ROWS). fp32 (4):
-    ``smem_layout`` of csrc/flash_fwd.cu, q fp32 [hd][rows], the logits
-    row block fp32 [L][rows] (L padded to the tile), two fp32 [64][hd + 1]
-    key/value tiles, two fp32 [THREADS] reductions."""
-    if esize == 2:
-        return mma_fwd_smem_bytes(hd)
-    lp = -(-l // TILE) * TILE
-    s = _align16(hd * rows * 4)
-    tile = _align16(s + lp * rows * 4)
-    red = _align16(tile + 2 * TILE * (hd + 1) * 4)
-    return red + 2 * THREADS * 4
-
-
-def fwd_block_rows(l: int, hd: int, esize: int = 4) -> int:
-    """The forward's queries per block at (L, hd): MMA_ROWS in bf16; in
-    fp32 the first of BLOCK_ROWS whose layout fits, else 0."""
-    if esize == 2:
-        return MMA_ROWS
-    return next((r for r in BLOCK_ROWS if fwd_smem_bytes(l, hd, r) <= SMEM_LIMIT), 0)
+def fwd_smem_bytes(hd: int, esize: int = 4) -> int:
+    """Shared memory of one forward block for inputs of ``esize`` bytes, the
+    same at every L. bf16 (2): the tensor-core kernel's,
+    ``flash_big.mma_fwd_smem_bytes``. fp32 (4): flash_batched's
+    ``fp32_fwd_smem_bytes`` (csrc/attention_fp32_mma.cuh; the separate-heads
+    layout keeps the packed one's Q tile and K and V rings)."""
+    return mma_fwd_smem_bytes(hd) if esize == 2 else fp32_fwd_smem_bytes(hd)
 
 
 def bwd_smem_bytes(hd: int, esize: int = 4) -> int:
@@ -91,22 +80,26 @@ def bwd_smem_bytes(hd: int, esize: int = 4) -> int:
     of ``esize`` bytes, the same at every L (csrc/flash_bwd.cu). bf16 (2):
     the tensor-core key kernel's six bf16 [64][hd16 + 8] tiles (its K and V,
     the Q and dO rings; hd16 = hd padded to a multiple of 16) and its fp32
-    p^T and ds^T tiles, [64][72] each. fp32 (4): the FMA key pass's two fp32
-    [hd][32] operands of the block, two buffers of two fp32 [64][hd + 1]
-    tiles, and fp32 [64][32] blocks of p and ds."""
+    p^T and ds^T tiles, [64][72] each. fp32 (4): flash_batched's
+    ``fp32_bwd_smem_bytes`` (csrc/attention_fp32_mma.cuh: the same tiles in
+    both layouts; the query kernel's lse and delta come from device memory,
+    not shared memory)."""
     if esize == 2:
         hd16 = -(-hd // 16) * 16
         return 6 * TILE * (hd16 + 8) * 2 + 2 * TILE * (TILE + 8) * 4
-    tiles = _align16(2 * hd * 32 * 4)
-    p = _align16(tiles + 4 * TILE * (hd + 1) * 4)
-    return _align16(p + TILE * 32 * 4) + TILE * 32 * 4
+    return fp32_bwd_smem_bytes(hd)
 
 
 def bwd_kernel(dtype: torch.dtype) -> str:
-    """Which backward kernels a call runs: 'mma', the tensor-core kernels
-    (p and ds split exactly into three bf16 pieces), in bf16; 'fma', the
-    fp32-FMA passes, in fp32."""
-    return "mma" if dtype == torch.bfloat16 else "fma"
+    """Which kernels a call runs, forward or backward: 'mma', bf16 operands
+    on mma.sync (the backward splits p and ds exactly into three bf16
+    pieces); 'mma6', fp32, the kernels of csrc/attention_fp32_mma.cuh, each
+    product as six bf16 mma.sync products of exact pieces, as
+    ``flash_batched.bwd_kernel`` names them."""
+    return "mma" if dtype == torch.bfloat16 else "mma6"
+
+
+fwd_kernel = bwd_kernel
 
 
 def check_head_dim(name: str, shape: tuple) -> None:
@@ -160,7 +153,7 @@ def _library() -> ctypes.CDLL:
     lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_fwd.restype = ctypes.c_int
-    lib.flash_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.flash_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.flash_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
@@ -216,9 +209,8 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float)
         err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             lse.data_ptr(), n, l, hd, scale, DTYPE_CODES[q.dtype],
                             torch.cuda.current_stream().cuda_stream)
-    es = q.element_size()
     _raise_on("flash_fwd", lib, "flash_fwd_error_string", err, q.shape, q.dtype,
-              fwd_smem_bytes(l, hd, fwd_block_rows(l, hd, es) or BLOCK_ROWS[-1], es))
+              fwd_smem_bytes(hd, q.element_size()))
     flash_fwd.launches += 1
     return o, lse
 

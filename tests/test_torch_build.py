@@ -40,14 +40,15 @@ def test_library_path_ignores_other_sources(csrc):
 
 
 def test_library_path_changes_with_the_flags(csrc, monkeypatch):
-    """A kernel's own flags give a new library path; the whole-row and the
-    blocked kernels (each library holds fp32 tensor-core kernels) build
-    with nvcc's optimizer on every core."""
+    """A kernel's own flags give a new library path; the whole-row, the
+    blocked and the flash kernels (each library holds fp32 tensor-core
+    kernels) build with nvcc's optimizer on every core."""
     before = build.library_path("kernel", csrc)
     monkeypatch.setitem(build.KERNEL_FLAGS, "kernel", ("-split-compile=0",))
     assert build.library_path("kernel", csrc) != before
     assert build.flags("kernel")[-1] == "-split-compile=0"
     for name in ("packed_attention_fwd", "packed_attention_bwd",
-                 "packed_attention_big_fwd", "packed_attention_big_bwd"):
+                 "packed_attention_big_fwd", "packed_attention_big_bwd", "flash_fwd",
+                 "flash_bwd"):
         assert "-split-compile=0" in build.flags(name)
     assert build.flags("fused_adam_ema") == build.NVCC_FLAGS

@@ -21,9 +21,16 @@ reference ``.pt`` with ``--use_strict_load False``. Held here:
 * the per-step ratio and kept token count over a whole short cos4 schedule
   against the JAX trainer's ``mask_ratio_fn`` + ``bucket_ratio`` (and with
   ``pad_to_max``, its ``_mask_len_max`` and the padded count);
-* the MFU of an unmasked finetune counts the step's own mask ratio.
+* the MFU of an unmasked finetune counts the step's own mask ratio;
+* the 512-px finetune with ``model.use_flash=true`` (chip_smoke.py's
+  ``[train-finetune512-flash]``): its config is the YAML's but for the flag,
+  data.root and the cuts; the CLI routes every attention to the flash
+  Function (2 forwards and 1 backward per layer and step); one fp32 step at
+  mask 0 on the flash path against the JAX step on its Pallas kernels in
+  interpret mode.
 """
 
+import json
 import os
 import shlex
 import types
@@ -34,9 +41,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from maskdit_tpu.models import create_model as jax_create_model
 from maskdit_tpu.models import masking as jax_masking
 from maskdit_tpu.models.masking import MaskInfo as JaxMaskInfo
+from maskdit_tpu.ops import flash as jax_flash
 from maskdit_tpu.train.loss import EDMLoss as JaxEDMLoss
 from maskdit_tpu.train.schedules import bucket_ratio as jax_bucket_ratio
 from maskdit_tpu.train.schedules import get_mask_ratio_fn as jax_mask_ratio_fn
@@ -48,6 +57,7 @@ from maskdit_tpu_torch.data.datasets import write_latent_lmdb
 from maskdit_tpu_torch.data.wds import write_wds_shards
 from maskdit_tpu_torch.models import create_model, dit, layers, masking
 from maskdit_tpu_torch.models.layers import DecoderLayer
+from maskdit_tpu_torch.ops import flash
 from maskdit_tpu_torch.train import cli
 from maskdit_tpu_torch.train.loss import EDMLoss
 from maskdit_tpu_torch.train.state import (
@@ -315,24 +325,25 @@ def cos4_bucket_at(progress):
     return jax_bucket_ratio(float(jax_mask_ratio_fn("cos4", 0.5, 0)(progress)), L)
 
 
-@pytest.mark.parametrize("ratio", [0.0, cos4_bucket_at(0.5)], ids=["mask0", "cos4_bucket"])
-def test_finetune_step_matches_jax(pair, ratio):
-    jax_model, params, kw = pair
-    assert ratio in (0.0, 0.25)
+def assert_step_matches_jax(jax_model, params, kw, ratio, res):
+    """One port step (fresh Adam, EMA) at ``ratio`` on ``res`` x ``res``
+    latents against ``jax_step`` on the same injected draws: loss,
+    gradients, parameters, EMA and moments within LOSS_REL, GRAD_REL,
+    STATE_REL. Returns the draws."""
     lr, decay = 5e-5, 0.9999
     model = create_model("edm", dtype=torch.float32, **kw)
     model.load_state_dict(state_dict_from_flax(params))
     opt = make_optimizer(lr, N)
     state = create_train_state(model, opt)
     rng_np = np.random.default_rng(91)
-    moments = rng_np.normal(size=(N, 2 * CIN, RES, RES)).astype(np.float32)
+    moments = rng_np.normal(size=(N, 2 * CIN, res, res)).astype(np.float32)
     labels = np.eye(K, dtype=np.float32)[rng_np.integers(0, K, N)]
     gen = torch.Generator().manual_seed(92)
-    draws = draw_step(gen, N, (CIN, RES, RES), torch.device("cpu"), grad_accum=1, reparam=True,
+    draws = draw_step(gen, N, (CIN, res, res), torch.device("cpu"), grad_accum=1, reparam=True,
                       dropout=True, mask_ratio=ratio, patch_size=2, loss_fn=EDMLoss())
     assert (draws.mask_info is None) == (ratio == 0.0)
     rng = jax.random.PRNGKey(93)
-    sigma, noise = jax_draws(rng, (N, CIN, RES, RES))
+    sigma, noise = jax_draws(rng, (N, CIN, res, res))
     draws = draws._replace(sigma=torch.from_numpy(sigma), noise=torch.from_numpy(noise))
     step = make_train_step(opt, mask_ratio=ratio, mae_loss_coef=0.1, ema_decay=decay)
     metrics = step(state, {"x": torch.from_numpy(moments), "y": torch.from_numpy(labels)},
@@ -355,6 +366,14 @@ def test_finetune_step_matches_jax(pair, ratio):
         for k, v in state_dict_from_flax(tree).items():
             if v.norm() > 0:
                 assert rel(state.named(flat)[k], v) <= STATE_REL, k
+    return draws
+
+
+@pytest.mark.parametrize("ratio", [0.0, cos4_bucket_at(0.5)], ids=["mask0", "cos4_bucket"])
+def test_finetune_step_matches_jax(pair, ratio):
+    jax_model, params, kw = pair
+    assert ratio in (0.0, 0.25)
+    draws = assert_step_matches_jax(jax_model, params, kw, ratio, RES)
     if ratio > 0:  # the encoder saw the bucket's kept tokens
         assert draws.mask_info.ids_keep.shape[1] == jax_masking.len_keep_for(L, ratio) == 48
 
@@ -434,3 +453,118 @@ def test_route_at_the_cos4_buckets_against_the_jax_choice():
                    240: ("big", "plain"), 256: ("packed", "packed")}
     # the decoder at all 256 tokens (16 heads of 32): the whole-row kernels
     assert layers.attention_route(16, 256, 32, True) == jax_choice(16, 256, 32) == "packed"
+
+
+# ---------------------------------------------------------------------------
+# the 512-px finetune with model.use_flash (chip_smoke's finetune512-flash)
+# ---------------------------------------------------------------------------
+
+def test_chip_smoke_finetune512_flash_is_the_released_config():
+    """chip_smoke.py's [train-finetune512-flash] runs
+    configs/finetune/imagenet512-latent.yaml as [train-finetune512] does
+    (its data.root and cuts) with FINETUNE_FLASH_OVERRIDES, which sets
+    model.use_flash, a key the YAML leaves unset, to true; nothing else
+    differs."""
+    config, cuts = chip_smoke.FINETUNE_CONFIGS["512-latent"]
+    flashed = cli.apply_overrides(json.loads(json.dumps(config)),
+                                  chip_smoke.FINETUNE_FLASH_OVERRIDES)
+    released = cli.load_config(FINETUNE["512-latent"])
+    assert "use_flash" not in released["model"] and flashed["model"]["use_flash"] is True
+    assert set(flashed["model"]) == set(released["model"]) | {"use_flash"}
+    assert set(flashed["train"]) == set(released["train"])
+    for section in ("model", "train"):
+        for key, value in released[section].items():
+            if f"{section}.{key}" not in cuts:
+                assert flashed[section][key] == value, f"{section}.{key}"
+    for path, (was, now) in cuts.items():
+        section, key = path.split(".")
+        assert released[section][key] == was and flashed[section][key] == now, path
+    assert flashed["data"] == {**released["data"], "root": chip_smoke.TRAIN_DATA_ROOT_512}
+    assert flashed["train"]["fp32"] is True
+
+
+def test_finetune512_with_use_flash_trains_through_the_cli(tiny_xl, tmp_path, encoder_widths,
+                                                          monkeypatch):
+    """The 512-px finetune YAML through the train CLI with
+    ``model.use_flash=true``, as released otherwise (the import of a
+    reference file without the mask token), at tiny widths: every encoder
+    and decoder block routes to 'flash' at L 1024 and runs the flash
+    Function's plain versions on the CPU, the forward twice (the
+    checkpoint's recompute) and the backward once per step."""
+    routes, calls = [], {"fwd": 0, "bwd": 0}
+    real_route = layers.attention_route
+
+    def route(*args, **kw):
+        routes.append(real_route(*args, **kw))
+        return routes[-1]
+
+    def counting(fn, key):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(layers, "attention_route", route)
+    monkeypatch.setattr(flash, "flash_fwd_reference", counting(flash.flash_fwd_reference, "fwd"))
+    monkeypatch.setattr(flash, "flash_bwd_reference", counting(flash.flash_bwd_reference, "bwd"))
+    model = create_model("edm", img_resolution=64, img_channels=CIN, num_classes=1000,
+                         model_type="DiT-XL/2", use_decoder=True, mae_loss_coef=0.1)
+    path = str(tmp_path / "ref.pt")
+    reference_file(path, model)
+    out = cli.main(["--config", FINETUNE["512-latent"], "--ckpt_path", path, "--use_strict_load",
+                    "False", "--device", "cpu", "--num_workers", "1", "--max_steps", "1",
+                    "--results_dir", str(tmp_path / "results"), "train.batchsize=2",
+                    f"data.root={write_data(tmp_path, '512-latent')}",
+                    *chip_smoke.FINETUNE_FLASH_OVERRIDES])
+    assert out["step"] == 1 and np.isfinite(out["history"][0]["losses"]).all()
+    assert out["state"].params.dtype == torch.float32
+    attns = [m for m in out["state"].model.modules() if isinstance(m, layers.Attention)]
+    assert len(attns) == 2 and all(a.use_flash is True for a in attns)
+    assert routes == ["flash", "flash"]
+    assert calls == {"fwd": 4, "bwd": 2}
+    assert encoder_widths == [1024]
+
+
+@pytest.fixture(scope="module")
+def flash_pair(tiny_dit_module):
+    """``pair``'s tiny DiT-S/2 with ``use_flash=True`` in both packages, at
+    32 x 32 latents (L 256 unmasked: in the flash kernels' window)."""
+    mp = pytest.MonkeyPatch()
+    patch_tiny_port(mp)
+    kw = dict(img_resolution=2 * RES, img_channels=CIN, num_classes=K, model_type="DiT-S/2",
+              use_decoder=True, mae_loss_coef=0.1, use_flash=True)
+    jax_model = jax_create_model("edm", dtype=jnp.float32, **kw)
+    shapes = jax.eval_shape(lambda: jax_model.init(
+        {"params": jax.random.PRNGKey(0), "mask": jax.random.PRNGKey(1)},
+        jnp.zeros((1, CIN, 2 * RES, 2 * RES)), jnp.ones((1,)), jnp.zeros((1, K)),
+        mask_ratio=0.5, train=True))["params"]
+    rng = np.random.default_rng(94)
+    params = jax.tree.map(lambda x: rng.normal(0.0, 0.05, size=x.shape).astype(np.float32),
+                          shapes)
+    yield jax_model, params, kw
+    mp.undo()
+
+
+def test_finetune_flash_step_matches_jax(flash_pair, monkeypatch):
+    """One fp32 finetune step at mask 0 with ``use_flash`` (every attention
+    on the flash Function: the port's plain versions on the CPU, the JAX
+    ``flash_mha`` on its Pallas kernels in the interpreter,
+    ``MASKDIT_PALLAS_INTERPRET=1``) against the JAX step, within the bounds
+    of ``test_finetune_step_matches_jax``."""
+    monkeypatch.setenv("MASKDIT_PALLAS_INTERPRET", "1")
+    calls = {"fwd": 0, "jax": 0}
+
+    def counting(fn, key):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(flash, "flash_fwd_reference", counting(flash.flash_fwd_reference, "fwd"))
+    monkeypatch.setattr(jax_flash, "flash_mha", counting(jax_flash.flash_mha, "jax"))
+    jax_model, params, kw = flash_pair
+    assert layers.attention_route(4, 4 * RES * RES, 16, True, True) == "flash"
+    assert_step_matches_jax(jax_model, params, kw, 0.0, 2 * RES)
+    # 2 encoder + 2 decoder blocks: the port's forward twice each (the
+    # checkpoint's recompute), the JAX flash_mha traced once each
+    assert calls == {"fwd": 2 * 4, "jax": 4}

@@ -16,7 +16,7 @@ import torch
 
 import chip_smoke
 from maskdit_tpu.ops import flash as jax_flash
-from maskdit_tpu_torch.ops import flash, flash_batched
+from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
 
 # relative to max|ref|: fp32 differs by summation order (~6e-7 measured);
 # bf16 by one rounding of p / l, of o or of a gradient, one bf16 ulp (at most
@@ -186,33 +186,43 @@ def test_wrappers_raise_without_a_kernel_for_the_tensor():
 
 def test_shared_memory_covers_the_whole_window():
     """What csrc/flash_fwd.cu and flash_bwd.cu lay out, as the module
-    computes it: 32 query rows per forward block up to L 1408 at hd 72, 16
-    above (L 2048 alone would take 256 KB of logits at 32 rows); the
-    backward's shared memory does not grow with L. Every L of the window
-    launches at every model head dim and at 128."""
-    assert flash.fwd_smem_bytes(512, 72, 32) == 114176
-    assert flash.fwd_smem_bytes(1024, 32, 32) == 154112
-    assert flash.fwd_smem_bytes(2048, 72, 16) == 175104
-    assert flash.bwd_smem_bytes(72) == 109568
-    assert flash.bwd_smem_bytes(32) == 58368
-    assert flash.fwd_block_rows(1408, 72) == 32 and flash.fwd_block_rows(1536, 72) == 16
-    for l in range(128, 2049, 128):
-        for hd in (32, 64, 72, 128):
-            rows = flash.fwd_block_rows(l, hd)
-            assert rows in flash.BLOCK_ROWS and flash.fwd_smem_bytes(l, hd, rows) <= 232448
-    assert flash.bwd_smem_bytes(128) <= 232448
-    # bf16 runs the tensor-core forward (csrc/attention_fwd_mma.cuh): 64
-    # query rows per block at every L, in shared memory that does not grow
-    # with L; no 16-row fallback
-    assert flash.fwd_smem_bytes(512, 72, 64, 2) == 45056
-    assert flash.fwd_smem_bytes(2048, 72, 64, 2) == 45056
-    assert flash.fwd_smem_bytes(1024, 32, 64, 2) == 20480
-    assert flash.fwd_smem_bytes(384, 40, 64, 2) == 28672
-    for l in range(128, 2049, 128):
-        for hd in range(8, 129, 8):
-            assert flash.fwd_block_rows(l, hd, 2) == flash.MMA_ROWS == 64
-            assert flash.fwd_smem_bytes(l, hd, 64, 2) == flash.fwd_smem_bytes(128, hd, 64, 2)
-            assert flash.fwd_smem_bytes(l, hd, 64, 2) <= 69632
+    computes it: in both types tensor-core kernels whose shared memory does
+    not depend on L, so every L of the window launches at every head dim
+    the wrapper takes. fp32: the kernels of csrc/attention_fp32_mma.cuh
+    (the forward's Q tile and K and V rings; the backward's larger kernel),
+    no longer 32 or 16 rows of fp32 logits per block; bf16: the tensor-core
+    forward (csrc/attention_fwd_mma.cuh), 64 query rows per block."""
+    assert flash.fwd_smem_bytes(72) == 96256 and flash.fwd_smem_bytes(32) == 47104
+    assert flash.bwd_smem_bytes(72) == 114688 and flash.bwd_smem_bytes(32) == 94208
+    assert flash.fwd_smem_bytes(72, 2) == 45056
+    assert flash.fwd_smem_bytes(32, 2) == 20480
+    assert flash.fwd_smem_bytes(40, 2) == 28672
+    for hd in range(8, 129, 8):
+        for esize in (2, 4):
+            assert flash.fwd_smem_bytes(hd, esize) <= flash_batched.SMEM_LIMIT, (hd, esize)
+            assert flash.bwd_smem_bytes(hd, esize) <= flash_batched.SMEM_LIMIT, (hd, esize)
+        assert flash.fwd_smem_bytes(hd, 2) <= 69632
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_fp32_kernels_are_the_tensor_core_ones(hd):
+    """fp32 at every head dim the wrapper takes runs the tensor-core kernels
+    ('mma6') that the packed wrappers run in fp32, in the separate-heads
+    layout: the same tiles, so the same shared memory, at every L of the
+    window; within a block's limit, and two blocks share an SM at the model
+    head dims."""
+    fp32 = torch.float32
+    assert flash.fwd_kernel(fp32) == flash.bwd_kernel(fp32) == "mma6"
+    assert flash.fwd_kernel(torch.bfloat16) == flash.bwd_kernel(torch.bfloat16) == "mma"
+    fwd, bwd = flash.fwd_smem_bytes(hd), flash.bwd_smem_bytes(hd)
+    assert fwd == flash.fwd_smem_bytes(hd, 4) == flash_batched.fp32_fwd_smem_bytes(hd)
+    assert bwd == flash.bwd_smem_bytes(hd, 4) == flash_batched.fp32_bwd_smem_bytes(hd)
+    for l in range(flash.LANE, flash.MAX_L + 1, flash.LANE):
+        assert fwd == flash_big.fwd_smem_bytes(l, hd, 4) == flash_batched.fwd_smem_bytes(l, hd, 4)
+        assert bwd == flash_big.bwd_smem_bytes(l, hd, 4) == flash_batched.bwd_smem_bytes(l, hd, 4)
+    assert max(fwd, bwd) <= flash_batched.SMEM_LIMIT
+    if hd in (32, 64, 72):
+        assert 2 * (max(fwd, bwd) + 1024) <= 233472
 
 
 @pytest.mark.parametrize("hd", range(8, 129, 8))
@@ -222,15 +232,15 @@ def test_bf16_backward_shared_memory(hd):
     K and V, the Q and dO rings; hd16 = hd padded to 16) and its fp32 p^T
     and ds^T tiles, [64][72] each; the query kernel's four tiles are fewer.
     The same at every L, within a block's limit; two blocks fit an SM at
-    the model head dims. fp32 keeps the FMA passes' layout."""
+    the model head dims. fp32 takes attention_fp32_mma.cuh's layout."""
     hd16 = -(-hd // 16) * 16
     want = 6 * 64 * (hd16 + 8) * 2 + 2 * 64 * 72 * 4
     assert flash.bwd_smem_bytes(hd, 2) == want > 4 * 64 * (hd16 + 8) * 2
     assert want <= flash_batched.SMEM_LIMIT
     if hd in (32, 64, 72):
         assert 2 * (want + 1024) <= 233472
-    assert flash.bwd_smem_bytes(hd) == flash.bwd_smem_bytes(hd, 4)
-    assert flash.bwd_kernel(torch.bfloat16) == "mma" and flash.bwd_kernel(torch.float32) == "fma"
+    assert flash.bwd_smem_bytes(hd) == flash_batched.fp32_bwd_smem_bytes(hd)
+    assert flash.bwd_kernel(torch.bfloat16) == "mma" and flash.bwd_kernel(torch.float32) == "mma6"
     assert flash.bwd_smem_bytes(72, 2) == 104448 and flash.bwd_smem_bytes(32, 2) == 67584
 
 

@@ -1,7 +1,8 @@
 """The arithmetic of the fp32 attention on the tensor cores
-(csrc/attention_fp32_mma.cuh: the blocked kernels #3 and #4 and the
-whole-row kernels #1 and #2 for fp32), emulated in torch on the CPU and held
-to the plain versions and to the JAX Pallas kernels.
+(csrc/attention_fp32_mma.cuh: the blocked kernels #3 and #4, the whole-row
+kernels #1 and #2 and the flash kernels #5 and #6 for fp32), emulated in
+torch on the CPU and held to the plain versions and to the JAX Pallas
+kernels.
 
 The kernels split each fp32 operand of a product exactly into three bf16
 pieces and run the product as the six bf16 products a_i . b_j with
@@ -11,17 +12,28 @@ that hold bf16 values (each product exact, the sums fp32, in another order
 than the tensor cores'). The forward is one online-softmax pass over tiles
 of 64 keys; the backward's query kernel repeats that pass for m, l and o,
 then forms dq over key tiles, and its key kernel forms dk and dv over query
-tiles, p rebuilt from m and l.
+tiles, p rebuilt from m and l. The flash
+pair runs the same products in its separate-heads layout: the forward's
+pass also gives lse = m + log l; the backward takes p = exp(s - lse) and
+delta = sum(do * o) from the stored o, so its query kernel runs no forward
+pass.
+
+The emulations run many small fp32 matmuls; under ``pytest -n`` several
+workers each taking every core's worth of torch threads slowed this file's
+blocked cases several-fold, so its tests run on EMULATION_THREADS intra-op
+threads (the ``few_threads`` fixture).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from maskdit_tpu.ops import flash as jax_flash
 from maskdit_tpu.ops import flash_batched as jax_fb
 from maskdit_tpu.ops import flash_big as jax_big
-from maskdit_tpu_torch.ops import flash_batched, flash_big
+from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
 from tests.test_torch_flash import _split
 from tests.test_torch_flash_big import BWD_ATOL, FWD_ATOL
 
@@ -32,6 +44,20 @@ WHOLE_ROW_SHAPES = [(1, 128, 2, 72), (1, 128, 2, 32)]
 # the fp32 kernels against their plain versions and the Pallas kernels, as
 # chip_smoke.py holds them on the card: max error <= 1e-5 of max|ref|
 REL_BOUND = 1e-5
+# the flash kernels' cases, (N*H, L, hd): XL/2's encoder and decoder head
+# dims, and hd 40 (one m16n8k8 step) at an L of three 128-key blocks
+FLASH_SHAPES = [(2, 128, 72), (2, 256, 32), (1, 384, 40)]
+EMULATION_THREADS = 2
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    """EMULATION_THREADS torch intra-op threads for each test, restored
+    after it."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(min(was, EMULATION_THREADS))
+    yield
+    torch.set_num_threads(was)
 
 
 @pytest.fixture
@@ -243,3 +269,106 @@ def test_fp32_whole_row_kernels_are_the_tensor_core_ones(hd):
     if variant == "mma6":
         assert flash_batched.fwd_smem_bytes(128, hd, 4) <= flash_batched.SMEM_LIMIT
         assert flash_batched.bwd_smem_bytes(128, hd, 4) <= flash_batched.SMEM_LIMIT
+
+
+def _emulated_flash_forward(q, k, v, scale, **scheme):
+    """The fp32 flash forward (N*H, L, hd): the one online-softmax pass over
+    key tiles, o / l, and lse = m + log l from the final running m and l."""
+    o, m, lsum = _attend(q[None], k[None], v[None], scale,
+                         lambda a, b: _product(a, b, **scheme))
+    return o[0], (m + torch.log(lsum))[0].reshape(q.shape[0], 1, q.shape[1])
+
+
+def _emulated_flash_backward(q, k, v, o, lse, do, scale, **scheme):
+    """The fp32 flash backward: delta from the stored o; the query kernel's
+    dq over key tiles and the key kernel's dk and dv over query tiles, each
+    forming p = exp(s - lse) and ds alike."""
+    mm = lambda a, b: _product(a, b, **scheme)  # noqa: E731
+    n, l, _ = q.shape
+    lse = lse.reshape(n, l, 1)
+    delta = (do * o).sum(-1, keepdim=True)
+    every = slice(None)
+
+    def p_ds(rows, keys):
+        s = mm(q[:, rows], k[:, keys].transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, rows])
+        dp = mm(do[:, rows], v[:, keys].transpose(-1, -2))
+        return p, p * (dp - delta[:, rows]) * scale
+
+    tiles = [slice(t, t + TILE) for t in range(0, l, TILE)]
+    dq = torch.zeros_like(q)
+    for keys in tiles:
+        dq = dq + mm(p_ds(every, keys)[1], k[:, keys])
+    dk, dv = torch.zeros_like(q), torch.zeros_like(q)
+    for rows in tiles:
+        p, ds = p_ds(rows, every)
+        dv = dv + mm(p.transpose(-1, -2), do[:, rows])
+        dk = dk + mm(ds.transpose(-1, -2), q[:, rows])
+    return dq, dk, dv
+
+
+def _flash_case(shape):
+    """q, k, v, do (N*H, L, hd) from a seed, and the scale."""
+    rng = np.random.default_rng(101 + sum(shape))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   for _ in range(4))
+    return q, k, v, do, shape[-1] ** -0.5
+
+
+def _plain_flash(q, k, v, do, scale):
+    """(o, lse, (dq, dk, dv)) of the plain versions, the backward on the
+    forward's residuals."""
+    o, lse = flash.flash_fwd_reference(q, k, v, scale)
+    return o, lse, flash.flash_bwd_reference(q, k, v, o, lse, do, scale)
+
+
+def _pallas_flash(q, k, v, do, scale):
+    """The same from the JAX ``_flash_fwd`` / ``_flash_bwd`` on their Pallas
+    kernels (interpret mode)."""
+    jq, jk, jv, jg = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+    o, residuals = jax_flash._flash_fwd(jq, jk, jv, scale)
+    grads = jax_flash._flash_bwd(scale, residuals, jg)
+    return (torch.from_numpy(np.array(o)), torch.from_numpy(np.array(residuals[4])),
+            tuple(torch.from_numpy(np.array(g)) for g in grads))
+
+
+def _flash_errors(q, k, v, do, scale, ref, **scheme):
+    """The emulation's errors against one reference, each as a share of
+    REL_BOUND x max|ref|: o, lse, dq, dk, dv. The backward runs on the
+    reference's residuals, as the kernel runs on its forward's."""
+    ref_o, ref_lse, ref_grads = ref
+    o, lse = _emulated_flash_forward(q, k, v, scale, **scheme)
+    grads = _emulated_flash_backward(q, k, v, ref_o, ref_lse, do, scale, **scheme)
+    pairs = [(o, ref_o), (lse, ref_lse)] + list(zip(grads, ref_grads))
+    return [(a - b).abs().max().item() / (REL_BOUND * b.abs().max().item()) for a, b in pairs]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_emulated_flash_kernels_hold_the_fp32_bounds(interpret_mode, shape):
+    """In fp32 the flash wrapper (ops/flash.py, #5 / #6) launches the
+    tensor-core kernels of csrc/attention_fp32_mma.cuh ('mma6'); their
+    six-term arithmetic (the online forward with lse, the backward's p from
+    lse and delta from the stored o) is within 1e-5 of max|ref| of the
+    plain versions and of the JAX ``_flash_fwd`` / ``_flash_bwd`` on their
+    Pallas kernels, for o, lse, dq, dk and dv. One piece per operand misses
+    that bound by far."""
+    assert flash.fwd_kernel(torch.float32) == flash.bwd_kernel(torch.float32) == "mma6"
+    q, k, v, do, scale = _flash_case(shape)
+    refs = [_plain_flash(q, k, v, do, scale), _pallas_flash(q, k, v, do, scale)]
+    for ref in refs:
+        errors = _flash_errors(q, k, v, do, scale, ref)
+        assert max(errors) <= 1.0, errors
+    short = _flash_errors(q, k, v, do, scale, refs[0], pieces=1)
+    assert min(short[:1] + short[2:]) > 10, short
+
+
+def test_two_pieces_miss_the_flash_bound():
+    """The fault the bound catches in the flash pair: two bf16 pieces per
+    operand (16 of 24 significand bits) carry the products' error past 1e-5
+    of max|ref| in the backward's gradients (dq ~2x its bound here), where
+    six terms on three pieces stay under a tenth of it."""
+    q, k, v, do, scale = _flash_case(FLASH_SHAPES[0])
+    plain = _plain_flash(q, k, v, do, scale)
+    assert max(_flash_errors(q, k, v, do, scale, plain)) <= 1.0
+    two = _flash_errors(q, k, v, do, scale, plain, pieces=2)
+    assert max(two) > 1.0, two
