@@ -139,22 +139,47 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      ``use_flash`` at mask 0 (FLASH_DEPTH encoder blocks), kernels vs plain
      and against the blocked kernels' step; a profile of one step of each
      unmasked finetune and of the flash one. These runs write no checkpoint;
- 15. the model corners (after 14., at DiT-XL/2's full width and depth):
+ 15. the model corners (after 14., at DiT-XL/2's full width with FLASH_DEPTH
+     of its 28 encoder blocks, ``xl_depth``):
      the class-token lengths' kernel rows (with 3. and 14.: #1 at (16, 257,
      16, 72) and (128, 129, 16, 72), #2 at the latter, #3 / #4 at (64,
      257, 16, 72), in bf16 and fp32); [sample-cls] the generate CLI on
      configs/test/maskdit-256.yaml's model with ``pad_cls_token`` and
      ``self_cond`` (8 seeds, CFG 1.5, 40 steps; each evaluation runs the
-     encoder for the pooled feature, then the model: 28 + 28 whole-row
+     encoder for the pooled feature, then the model: 4 + 4 whole-row
      forwards at L 257 and 8 at L 256), and one CFG evaluation kernels vs
      plain in bf16 and fp32; [train-cls-feat] the train CLI on the released
      256-px config with a class token and FEATURE_DIM-wide features joined
      from a feature LMDB this script writes beside [extract]'s latents
-     (batch 128, mask 0.5, 4 steps): finite losses, 36 + 36 whole-row
+     (batch 128, mask 0.5, 4 steps): finite losses, 12 + 12 whole-row
      launches (the encoder at 129 tokens) and one update per step, the
      features reaching the model at every step; [parity-cls] one fp32 step
      of that model kernels vs plain at mask 0.5 (L 129, #1 / #2) and mask 0
-     (L 257, #3 / #4), each kernel step checked to the launch.
+     (L 257, #3 / #4), each kernel step checked to the launch;
+ 16. the staged update (``train.fused_adam: false``, plain PyTorch; after
+     12.): [train-staged] the train CLI on the released 256-px config with
+     that override at full depth, batch 128, 6 steps: finite losses, 36 + 36
+     whole-row launches and no launch of kernel #7 per step;
+     [train-staged-nu] the same with bf16 mu and nu (the stochastically
+     rounded nu of ``adam_sr_nu``), 4 steps, the moments stored in bf16;
+     [train-staged-profile] one fp32 staged update over all 730M
+     parameters, its device ms beside #7's; [parity-train-staged] one fp32 step
+     of the parity model, staged against the fused kernel's step (the same
+     gradients) within the fp32 training bounds, and the card's staged
+     update against the same on a CPU copy of its inputs;
+ 17. the sampler export (after 5.): [aot] sample256's sampler (full depth,
+     bf16, CFG 1.5, batch 8, S_churn AOT_CHURN) exported by the generate
+     CLI's ``--export_aot`` at AOT_STEPS, and [aot-512] / [aot-flash] the
+     512-px and ``use_flash`` ones at FLASH_DEPTH encoder blocks by
+     ``sampling/aot.export_sampler``; then a fresh process that imports
+     only torch and ``maskdit_tpu_torch.ops`` reloads each file with
+     ``ops/exported.load_sampler`` and samples with the live sampler's
+     weights, inputs and churn noise (``LoadedSampler.churn_noise`` from a
+     CUDA generator seeded alike): no model or sampling module in it,
+     one launch of the op's kernel (#1, #3, #5) per attention layer and
+     evaluation, counted there, the output within MODEL_REL_BOUND of the
+     live sampler's; export seconds, file MB, reload seconds and warm
+     images/s beside the live sampler's.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -476,7 +501,9 @@ EVAL_CONFIG_256 = {"model": {**SAMPLE_CONFIG_512["model"], "in_size": 32},
                    "eval": {"batchsize": 50, "ref_path": (
                        "assets/fid_stats/fid_stats_imagenet256_guided_diffusion.npz")}}
 EVAL_SEEDS = 16  # two batches of SEEDS
-# the model corners at DiT-XL/2's full width and depth (no released config
+# the model corners at DiT-XL/2's full width; since the staged-update and
+# export phases came, with FLASH_DEPTH of its 28 encoder blocks (the 8
+# decoder blocks kept) for the script's time (no released config
 # sets these keys). [sample-cls]: configs/test/maskdit-256.yaml's model with
 # a class token and self-conditioning (model.self_cond: each evaluation
 # first runs the encoder for its pooled feature), from [weights]' tensors
@@ -526,6 +553,30 @@ TRAIN_PARITY_BOUND = {
     torch.float32: dict(loss=1e-5, grad=1e-4, state=1e-5),
     torch.bfloat16: dict(loss=1e-2, grad=1e-1, state=1e-2),
 }
+# the staged update (train.fused_adam: false; plain PyTorch, kernel #7 never
+# launched): [train-staged] TRAIN_CONFIG with the override for
+# TRAIN_STEPS_STAGED steps; [train-staged-nu] with bf16 mu and nu (the SR
+# twin) for TRAIN_STEPS_STAGED_NU; [parity-train-staged] one fp32 step of
+# the parity model, staged vs the fused kernel's step and vs the staged
+# update on a CPU copy of the same tensors
+TRAIN_STEPS_STAGED, TRAIN_STEPS_STAGED_NU = 6, 4
+STAGED_CPU_ELEMENTS = 1 << 24  # 16.8M of the 730M: the layout's first parameters
+STAGED_OVERRIDES = ("train.fused_adam=false",)
+STAGED_NU_OVERRIDES = STAGED_OVERRIDES + ("train.nu_dtype=bfloat16",
+                                          "train.moment_dtype=bfloat16")
+# [aot]: sample256's sampler (DiT-XL/2 at full depth and width, bf16, CFG
+# 1.5, batch SEEDS) exported by sampling/aot.py and reloaded in a fresh
+# process that imports only torch and maskdit_tpu_torch.ops; the export
+# unrolls every evaluation (3 x 36 blocks at AOT_STEPS), so it is cut from
+# 40 steps to AOT_STEPS for the script's time. Then the 512-px sampler (#3)
+# and the use_flash one (#5), FLASH_DEPTH encoder blocks, at AOT_STEPS too
+# (one Heun step is not a schedule: 1 / (num_steps - 1)). Held to the live
+# sampler within MODEL_REL_BOUND. [aot] is exported through the generate
+# CLI with S_churn AOT_CHURN: the reloading process draws the churn noise
+# with LoadedSampler.churn_noise from a CUDA generator seeded as the live
+# sampler's
+AOT_STEPS = 2
+AOT_CHURN, AOT_CHURN_SEED = 1, 7  # the CLI takes --S_churn as an int, as the JAX CLI does
 
 
 def log(msg: str) -> None:
@@ -1744,6 +1795,170 @@ def phase_flash_parity(ckpt: str) -> dict:
     return out
 
 
+def phase_aot(ckpt: str) -> dict:
+    """sample256's sampler exported at AOT_STEPS with S_churn AOT_CHURN
+    through the generate CLI (``--export_aot``), DiT-XL/2 at full depth,
+    bf16, CFG 1.5, batch SEEDS; then the 512-px one (#3) and the use_flash
+    one (#5) at FLASH_DEPTH encoder blocks (``sampling/aot.export_sampler``).
+    Every file is exported and every live sampler timed first; then one
+    fresh process that imports only torch and maskdit_tpu_torch.ops
+    (``worker_aot_reload``) reloads each file with ``load_sampler`` and
+    samples with the same weights, latents and labels as the live sampler
+    (the churn noise drawn by ``LoadedSampler.churn_noise`` from a CUDA
+    generator seeded as the live sampler's). Each is held to the live output
+    within MODEL_REL_BOUND[bf16] and to its launches (one per attention
+    layer and evaluation, counted by the op's own counter in that process),
+    with export seconds, file MB, reload seconds and warm images/s beside
+    the live sampler's."""
+    from maskdit_tpu_torch import generate
+    from maskdit_tpu_torch.sampling.aot import export_sampler
+    from maskdit_tpu_torch.sampling.generate import SamplerConfig, make_sample_fn
+    from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
+
+    evals = 2 * AOT_STEPS - 1
+    state = load_reference_checkpoint(ckpt)
+    dropped = tuple(f"model.blocks.{i}." for i in range(FLASH_DEPTH, DEPTH))
+    shallow = {k: v for k, v in state.items() if not k.startswith(dropped)}
+    # tag: (resolution, use_flash, depth context, weights, S_churn, counter,
+    # launches per run)
+    plans = {
+        "aot": (32, None, contextlib.nullcontext(), state, AOT_CHURN, "packed_fwd",
+                evals * (DEPTH + DECODER_DEPTH)),
+        "aot-512": (64, None, xl_depth(FLASH_DEPTH), shallow, 0.0, "big_fwd",
+                    evals * FLASH_ATTN_PER_STEP),
+        "aot-flash": (32, True, xl_depth(FLASH_DEPTH), shallow, 0.0, "flash_fwd",
+                      evals * FLASH_ATTN_PER_STEP),
+    }
+    jobs, out = [], {}
+    for tag, (res, use_flash, depth, weights, churn, counter, launches) in plans.items():
+        free_device_memory()
+        cfg = SamplerConfig(num_steps=AOT_STEPS, cfg_scale=CFG, S_churn=churn)
+        path = os.path.join(SCRATCH, f"{tag}.pt2")
+        with depth:
+            model = parity_model(weights, torch.bfloat16, res, use_flash=use_flash)
+            if tag == "aot":  # as a user exports: the CLI builds its own model
+                export_s = generate.main([
+                    "--ckpt_path", ckpt, "--export_aot", path, "--max_batch_size", str(SEEDS),
+                    "--cfg_scale", str(CFG), "--num_steps", str(AOT_STEPS),
+                    "--S_churn", str(churn), "--model_type", "DiT-XL/2", "--image_size",
+                    str(res), "--image_channels", "4", "--num_classes", "1000",
+                    "--use_decoder", "True", "--mae_loss_coef", "0.1"])["seconds"]
+            else:
+                t0 = time.perf_counter()
+                export_sampler(model, cfg, SEEDS, path)
+                export_s = time.perf_counter() - t0
+            x, _, y = denoiser_inputs(SEEDS, res)
+            seed = AOT_CHURN_SEED if churn else None
+            generator = lambda: (torch.Generator("cuda").manual_seed(seed)
+                                 if seed is not None else None)
+            sample = make_sample_fn(model, cfg)
+            live = sample(x, y, generator())
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sample(x, y, generator())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        inputs = os.path.join(SCRATCH, f"{tag}-inputs.pt")
+        torch.save((x.cpu(), y.cpu()), inputs)
+        jobs.append(dict(tag=tag, path=path, inputs=inputs, counter=counter, launches=launches,
+                         churn_seed=seed, out=os.path.join(SCRATCH, f"{tag}-out.pt")))
+        out[tag] = dict(live=live.cpu(), export_s=export_s, mb=os.path.getsize(path) / 1e6,
+                        live_images_per_s=[SEEDS / t for t in times], res=res, churn=churn)
+        del model, sample, live
+    del state, shallow, weights
+    free_device_memory()
+    jobs_path, result = (os.path.join(SCRATCH, f"aot-{name}.json") for name in ("jobs", "result"))
+    with open(jobs_path, "w") as f:
+        json.dump(dict(jobs=jobs, weights=ckpt), f)
+    t_reload = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--worker", "aot-reload", jobs_path, result],
+        capture_output=True, text=True, cwd=ROOT, timeout=WORKER_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        log(f"[aot:out] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"aot: the reloading process failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    with open(result) as f:
+        reloaded = json.load(f)
+    log(f"[aot] the reloading process ran {time.perf_counter() - t_reload:.1f} s, alone; its "
+        f"modules of the port: {reloaded['modules']}")
+    bad = [m for m in reloaded["modules"]
+           if m.startswith(("maskdit_tpu_torch.models", "maskdit_tpu_torch.sampling", "jax",
+                            "maskdit_tpu."))]
+    if bad:
+        raise AssertionError(f"aot: the reloading process imported {bad}")
+    total = {name: 0 for name in kernel_counters()}
+    bnd = MODEL_REL_BOUND[torch.bfloat16]
+    for job in jobs:
+        tag, got = job["tag"], reloaded["jobs"][job["tag"]]
+        expect_launches(tag, got["launches"], **{job["counter"]: job["launches"]})
+        for name, count in got["launches"].items():
+            total[name] += count
+        live, exported = out[tag].pop("live"), torch.load(job["out"])
+        rel = ((exported.float() - live.float()).abs().max() / live.float().abs().max()).item()
+        exact = torch.equal(exported, live)
+        r = out[tag]
+        depth = "full depth" if tag == "aot" else f"{FLASH_DEPTH} encoder blocks"
+        how = "the generate CLI" if tag == "aot" else "export_sampler"
+        log(f"[{tag}] DiT-XL/2 @{r['res'] * 8} ({depth}), bf16, CFG {CFG}, S_churn {r['churn']}, "
+            f"batch {SEEDS}, {AOT_STEPS} steps ({evals} evaluations): export through {how} "
+            f"{r['export_s']:.1f} s, file {r['mb']:.1f} MB, reload {got['reload_s']:.1f} s; "
+            f"exported vs live max rel err {rel:.3e} (bound {bnd:.0e}), bit for bit {exact}, "
+            f"finite {bool(torch.isfinite(exported).all())}; warm images/s exported "
+            f"{[round(v, 3) for v in got['images_per_s']]}, live "
+            f"{[round(v, 3) for v in r['live_images_per_s']]}")
+        if not (torch.isfinite(exported).all() and rel <= bnd):
+            raise AssertionError(f"{tag}: exported vs live {rel}")
+        r.update(rel=rel, exact=exact, **got)
+    out["launches"] = total
+    return out
+
+
+def worker_aot_reload(jobs_path: str, result: str) -> None:
+    """[aot]'s reloading process: imports torch and maskdit_tpu_torch.ops
+    only; for each exported file in turn: ``load_sampler`` (timed), one run
+    with the launch counts set to 0, two more timed, the churn noise (where
+    the file takes it) from ``LoadedSampler.churn_noise`` and a CUDA
+    generator seeded as the live sampler's; writes the outputs and a
+    report."""
+    from maskdit_tpu_torch.ops.exported import load_sampler
+
+    with open(jobs_path) as f:
+        spec = json.load(f)
+    weights = torch.load(spec["weights"])["ema"]  # [weights]' reference-layout file
+    report = {}
+    for job in spec["jobs"]:
+        t0 = time.perf_counter()
+        sample = load_sampler(job["path"])
+        reload_s = time.perf_counter() - t0
+        device = torch.device(sample.meta["device"])  # the program's, where it was exported
+        params = {k: weights[k].to(device) for k in sample.meta["param_names"]}
+        x, y = (t.to(device) for t in torch.load(job["inputs"]))
+        seed = job["churn_seed"]
+        noise = lambda: (sample.churn_noise(torch.Generator(device).manual_seed(seed))
+                         if seed is not None else None)
+        reset_launches()
+        z = sample(params, x, y, noise())
+        torch.cuda.synchronize()
+        launches = read_launches()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sample(params, x, y, noise())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        torch.save(z.cpu(), job["out"])
+        report[job["tag"]] = dict(reload_s=reload_s, launches=launches,
+                                  images_per_s=[x.shape[0] / t for t in times])
+        del params, sample
+    with open(result, "w") as f:
+        json.dump(dict(jobs=report, modules=sorted(
+            m for m in sys.modules if m.startswith(("maskdit", "jax")))), f)
+
+
 def time_sampling(model, seeds: int, res: int, turns) -> dict:
     """Warm images/s of the whole sampler at the batch of ``seeds``, with the
     kernels and with the plain attention, in the turns given."""
@@ -1765,9 +1980,10 @@ def time_sampling(model, seeds: int, res: int, turns) -> dict:
     return ips
 
 
-def profile_device(tag: str, fn, reps: int, what: str) -> None:
+def profile_device(tag: str, fn, reps: int, what: str) -> tuple[float, float]:
     """Wall time of ``fn`` unprofiled, then device time by kernel name
-    from torch.profiler, per call, over ``reps`` calls."""
+    from torch.profiler, per call, over ``reps`` calls; returns the wall and
+    the device busy ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1790,6 +2006,7 @@ def profile_device(tag: str, fn, reps: int, what: str) -> None:
     for e in events[:12]:
         log(f"[{tag}]   {e.self_device_time_total / reps / 1e3:8.3f} ms  x{e.count // reps:4d}  "
             f"{e.key[:100]}")
+    return wall_ms, busy_ms
 
 
 def profile_forward(model, x, sigma, y, tag: str) -> None:
@@ -1861,6 +2078,7 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), op
     steps, history = out["step"], out["history"]
     state = out.pop("state")
     digest = params_digest(state.params) if digest else None
+    moments = [dtype_name(t.dtype) for t in (state.opt_state.mu, state.opt_state.nu)]
     del state
     config = apply_overrides(json.loads(json.dumps(config)), overrides)
     t = config["train"]
@@ -1896,7 +2114,7 @@ def run_train(tag: str, config: dict, res: int, per_step: dict, overrides=(), op
         f"{[round(r['images_per_sec'], 2) for r in history]}")
     return dict(launches=launches, images_per_s=ips, ms_per_step=seconds / warm_steps * 1e3,
                 mfu=util, mfu_fp32=util_fp32, peak_gib=peak, results=results,
-                exp_dir=out["exp_dir"], losses=losses, digest=digest)
+                exp_dir=out["exp_dir"], losses=losses, digest=digest, moments=moments)
 
 
 def phase_train(vae_path: str, stats: str) -> dict:
@@ -2158,6 +2376,120 @@ def phase_train_options(train: dict) -> dict:
     return out
 
 
+def phase_train_staged(train: dict, adam: dict) -> dict:
+    """The train CLI on TRAIN_CONFIG with ``train.fused_adam=false``: finite
+    losses, 36 + 36 whole-row launches and no launch of kernel #7 per step,
+    ms/step and peak memory beside [train]'s; then the same with bf16 mu and
+    nu (the staged update's SR twin), nu stored in bf16 (their ms/step holds
+    the update's cost); then one fp32 staged update over all of DiT-XL/2's
+    parameters, profiled, beside #7's ms."""
+    per_step = dict(packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP)
+    out = run_train("train-staged", TRAIN_CONFIG, 32, per_step, STAGED_OVERRIDES + (
+        f"train.max_num_steps={TRAIN_STEPS_STAGED}",), write_checkpoints=False)
+    nu = run_train("train-staged-nu", TRAIN_CONFIG, 32, per_step, STAGED_NU_OVERRIDES + (
+        f"train.max_num_steps={TRAIN_STEPS_STAGED_NU}",), write_checkpoints=False)
+    log(f"[train-staged-nu] moments stored as mu {nu['moments'][0]}, nu {nu['moments'][1]}")
+    if nu["moments"] != ["bfloat16", "bfloat16"]:
+        raise AssertionError(f"train-staged-nu: moments {nu['moments']}")
+    out["nu"] = nu
+    out["update"] = profile_staged_update(adam)
+    log(f"[train-staged] {out['ms_per_step']:.1f} ms/step, {out['images_per_s']:.2f} images/s, "
+        f"peak {out['peak_gib']:.2f} GiB; with bf16 mu and nu {nu['ms_per_step']:.1f} ms/step, "
+        f"peak {nu['peak_gib']:.2f} GiB; [train] (kernel #7): {train['ms_per_step']:.1f} ms/step, "
+        f"peak {train['peak_gib']:.2f} GiB")
+    return out
+
+
+def profile_staged_update(adam: dict) -> dict:
+    """The staged update over all of DiT-XL/2's parameters on random fp32
+    state: its device ms (CUDA events) and one profiled update's kernels,
+    beside kernel #7's fp32 ms ([kernel] fused adam)."""
+    from maskdit_tpu_torch.ops import fused_adam
+
+    free_device_memory()
+    n = xl2_numel()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rnd = lambda: torch.randn(n, generator=g, device="cuda")
+    grads, p, e = rnd(), rnd(), rnd()
+    m, v = rnd().mul_(0.1), rnd().abs_().mul_(1e-2)
+    free_device_memory()
+    kernel = adam[ADAM_VARIANTS[0]]["ms"]
+
+    def update():
+        fused_adam.staged_adam_ema(grads, p, m, v, e, lr=1e-4, count=6)
+
+    ms = cuda_ms(update, 3)
+    wall, busy = profile_device("train-staged-profile", update, 1,
+                                f"the staged update over {n} params, fp32")
+    log(f"[train-staged-profile] staged update: {ms:.3f} ms on the device (CUDA events, mean of "
+        f"3; profiled busy {busy:.3f} ms of a {wall:.3f} ms wall); kernel #7 "
+        f"({adam_variant_name(ADAM_VARIANTS[0])}) {kernel:.3f} ms: {ms / kernel:.2f}x; peak "
+        f"{torch.cuda.max_memory_allocated() / 1024 ** 3:.2f} GiB")
+    del grads, p, e, m, v
+    free_device_memory()
+    return dict(ms=ms, busy_ms=busy, wall_ms=wall, kernel_ms=kernel)
+
+
+def phase_parity_train_staged(res: int = 32, n: int = PARITY_BATCH) -> dict:
+    """One fp32 step of the parity model with the staged update against the
+    fused kernel's step from the same state and draws (so the same
+    gradients), within [parity-train]'s fp32 bounds, no #7 launch in the
+    staged step; and the card's staged update against the staged update of
+    a CPU copy of the state before it and of the step's own gradient, over
+    the flat buffers' first STAGED_CPU_ELEMENTS (the update is elementwise:
+    a slice's update is the update's slice)."""
+    from maskdit_tpu_torch.ops import fused_adam
+    from maskdit_tpu_torch.train.state import make_train_step
+
+    batch, draws = parity_batch(res, n)
+    attn = dict(packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP)
+    fused = train_step_result(torch.float32, res, batch, draws, tag="parity-train-staged",
+                              launches=dict(attn, adam=ADAM_PER_STEP))
+    free_device_memory()
+    state, opt = train_parity_state(torch.float32, 4, res, n, fused=False)
+    before = [t[:STAGED_CPU_ELEMENTS].cpu()
+              for t in (state.params, state.opt_state.mu, state.opt_state.nu, state.ema)]
+    count = state.opt_state.count
+    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
+    reset_launches()
+    metrics = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    expect_launches("parity-train-staged", read_launches(), **attn)
+    named = (("p", state.params), ("ema", state.ema), ("mu", state.opt_state.mu),
+             ("nu", state.opt_state.nu))
+    staged = dict(loss=float(metrics["loss"]),
+                  grads={k: v.clone() for k, v in state.named(state.grads).items()},
+                  state={f"{name}.{k}": v.clone() for name, flat in named
+                         for k, v in state.named(flat).items()})
+    out = {"vs_fused": compare_steps("parity-train-staged", "staged vs fused kernel #7",
+                                     torch.float32, res, n, staged, fused)}
+    del fused, staged
+    p, m, v, e = before
+    fused_adam.staged_adam_ema(state.grads[:STAGED_CPU_ELEMENTS].cpu(), p, m, v, e,
+                               lr=opt.lr_at(count), count=count, b1=opt.b1, b2=opt.b2,
+                               eps=opt.eps, ema_decay=0.9999)
+    worst, exact = 0.0, True
+    ends = [off + shape.numel() for _, shape, off in state.layout]
+    for (_, flat), cpu in zip(named, (p, e, m, v)):
+        card = flat[:STAGED_CPU_ELEMENTS].cpu()
+        exact = exact and torch.equal(card, cpu)
+        for lo, hi in zip([0] + ends, ends):  # each parameter the slice holds whole
+            if hi > STAGED_CPU_ELEMENTS:
+                break
+            a, b = card[lo:hi], cpu[lo:hi]
+            worst = max(worst, ((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+    bnd = TRAIN_PARITY_BOUND[torch.float32]["state"]
+    log(f"[parity-train-staged] the card's staged update vs the same on a CPU copy of the state "
+        f"and the step's gradient: max per-tensor p/ema/mu/nu rel-norm err {worst:.3e} (bound "
+        f"{bnd:.0e}), bit for bit {exact}")
+    if worst > bnd:
+        raise AssertionError(f"parity-train-staged: card vs CPU staged update {worst}")
+    out["vs_cpu"] = dict(err=worst, exact=exact)
+    del state, opt, step, metrics, before
+    free_device_memory()
+    return out
+
+
 @contextlib.contextmanager
 def recorded_import():
     """What the trainer's import of a reference .pt did: the entries it
@@ -2336,13 +2668,14 @@ def phase_parity_train_finetune_flash() -> dict:
 
 
 def write_cls_checkpoint(ckpt: str) -> None:
-    """CLS_CKPT: [weights]' tensors and, for the class token and the two
-    embedders a class token and self-conditioning add (cls_token_embedder,
-    enc_feat_embedder), N(0, 0.02^2) ones from seed 1, in the reference
-    ``{"ema": ...}`` layout."""
+    """CLS_CKPT: [weights]' tensors (of the encoder blocks the model is
+    built with) and, for the class token and the two embedders a class
+    token and self-conditioning add (cls_token_embedder, enc_feat_embedder),
+    N(0, 0.02^2) ones from seed 1, in the reference ``{"ema": ...}``
+    layout."""
     from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
 
-    state = load_reference_checkpoint(ckpt)
+    state = xl_state(load_reference_checkpoint(ckpt))
     g = torch.Generator().manual_seed(1)
     d = 1152
     for key, shape in (("cls_token", (1, 1, d)), ("cls_token_embedder.weight", (d, d)),
@@ -2356,9 +2689,10 @@ def phase_sample_cls(ckpt: str) -> dict:
     """[sample-cls]: the generate CLI on configs/test/maskdit-256.yaml's model
     with ``pad_cls_token`` and ``self_cond`` (SAMPLE_CLS_CONFIG, as JSON)
     from CLS_CKPT, 8 seeds, CFG 1.5, 40 steps. Each of the 79 evaluations
-    runs the encoder for the pooled feature (28 whole-row forwards at the
-    CFG batch of 16, L 257) and then the model (28 more at L 257 and 8 in
-    the decoder at L 256, hd 32): checked to the launch. Then one CFG
+    runs the encoder for the pooled feature (one whole-row forward per
+    encoder block at the CFG batch of 16, L 257: 28 at full depth) and then
+    the model (as many more at L 257 and 8 in the decoder at L 256, hd 32):
+    checked to the launch. Then one CFG
     evaluation of that model, kernels vs plain, in bf16 and fp32, within
     MODEL_REL_BOUND."""
     from maskdit_tpu_torch.models.layers import attention_route
@@ -2377,7 +2711,7 @@ def phase_sample_cls(ckpt: str) -> dict:
         "--config", config, "--seeds", f"0-{SEEDS - 1}", "--max_batch_size", str(SEEDS),
         "--cfg_scale", str(CFG), "--num_steps", str(STEPS),
     ]
-    per_eval = 2 * DEPTH + DECODER_DEPTH
+    per_eval = 2 * xl_blocks() + DECODER_DEPTH
     out, launches = run_generate("sample-cls", argv, SEEDS, 32)
     expect_launches("sample-cls", launches, packed_fwd=(2 * STEPS - 1) * per_eval)
     state = load_reference_checkpoint(CLS_CKPT)
@@ -2434,10 +2768,11 @@ def phase_train_cls_feat() -> dict:
     """[train-cls-feat]: the train CLI on TRAIN_CLS_CONFIG: the released
     256-px config with a class token and FEATURE_DIM-wide features joined
     from the feature LMDB, batch 128, mask 0.5, TRAIN_STEPS_CLS steps.
-    Finite losses; per step 36 whole-row forwards and backwards (the
-    encoder at 128 kept tokens + the class token, the decoder at 256) and
-    one update, no other kernel; the encoder took 129 tokens and the
-    feature embedder a (128, FEATURE_DIM) batch at every step."""
+    Finite losses; per step one whole-row forward and backward per block
+    (36 at full depth: the encoder at 128 kept tokens + the class token,
+    the decoder at 256) and one update, no other kernel; the encoder took
+    129 tokens and the feature embedder a (128, FEATURE_DIM) batch at every
+    step."""
     from maskdit_tpu_torch.models.layers import attention_route
 
     t0 = time.perf_counter()
@@ -2447,8 +2782,9 @@ def phase_train_cls_feat() -> dict:
         f"{FEATURE_SEED}) in {time.perf_counter() - t0:.1f} s; routes with a backward: encoder "
         f"(16, 129, 72) '{routes[0]}', decoder (16, 256, 32) '{routes[1]}'")
     with corner_inputs() as seen:
+        blocks = xl_blocks() + DECODER_DEPTH
         out = run_train("train-cls-feat", TRAIN_CLS_CONFIG, 32, dict(
-            packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP),
+            packed_fwd=blocks, packed_bwd=blocks, adam=ADAM_PER_STEP),
             write_checkpoints=False)
     log(f"[train-cls-feat] encoder token counts {sorted(seen['encoder'])}; feature batches "
         f"{seen['feat']}")
@@ -2469,7 +2805,7 @@ def phase_parity_cls() -> dict:
     batch, draws = parity_batch(32, n)
     g = torch.Generator(device="cuda").manual_seed(5)
     batch["feat"] = torch.randn(n, FEATURE_DIM, device="cuda", generator=g)
-    enc, dec = DEPTH, DECODER_DEPTH
+    enc, dec = xl_blocks(), DECODER_DEPTH
     out = {}
     for ratio, d, launches in (
             (0.5, draws, dict(packed_fwd=enc + dec, packed_bwd=enc + dec, adam=1)),
@@ -2589,6 +2925,21 @@ def xl_depth(depth: int):
         yield
     finally:
         config["depth"] = was
+
+
+def xl_blocks() -> int:
+    """DiT-XL/2's encoder blocks as the model is built now (``xl_depth``
+    may cut them)."""
+    from maskdit_tpu_torch.models import dit
+
+    return dit.DIT_CONFIGS["DiT-XL/2"]["depth"]
+
+
+def xl_state(state: dict) -> dict:
+    """A full-depth state dict without the encoder blocks the model is built
+    without now."""
+    dropped = tuple(f"model.blocks.{i}." for i in range(xl_blocks(), DEPTH))
+    return {k: v for k, v in state.items() if not k.startswith(dropped)}
 
 
 def worker(tag: str, result: str, *args: str) -> None:
@@ -3239,6 +3590,8 @@ def main() -> None:
         main_512 = phase_main_512(ckpt)
         parity_512 = phase_model_parity(ckpt, "parity-512", 64, SEEDS_512, ("kernel",))
         mark("sampling")
+        aot = phase_aot(ckpt)
+        mark("aot")
         vae = phase_vae()
         mark("vae")
         extract = phase_extract(vae["path"])
@@ -3254,6 +3607,9 @@ def main() -> None:
         parity_options = phase_parity_train_options()
         train_options = phase_train_options(train)
         mark("train-options")
+        train_staged = phase_train_staged(train, adam)
+        parity_staged = phase_parity_train_staged()
+        mark("train-staged")
         parity_ddp = phase_parity_ddp()
         train_ddp = phase_train_ddp()
         train_ddp_nccl = phase_train_ddp_nccl()
@@ -3290,9 +3646,10 @@ def main() -> None:
         phase_train_profile("train-profile-finetune512-flash", 64, FINETUNE_BATCH_512, 1,
                             use_flash=True, fp32=True, mask_ratio=0.0)
         mark("finetune")
-        sample_cls = phase_sample_cls(ckpt)
-        train_cls = phase_train_cls_feat()
-        parity_cls = phase_parity_cls()
+        with xl_depth(FLASH_DEPTH):
+            sample_cls = phase_sample_cls(ckpt)
+            train_cls = phase_train_cls_feat()
+            parity_cls = phase_parity_cls()
         mark("model corners")
         gate = phase_overfit_gate()
         mark("overfit-gate")
@@ -3334,11 +3691,21 @@ def main() -> None:
         f"; model corners: sample-cls {sample_cls['images_per_s']:.3f} images/s (cold), rel err "
         f"bf16 {sample_cls['bfloat16']:.3e}, fp32 {sample_cls['float32']:.3e}; train-cls-feat "
         f"{train_cls['images_per_s']:.2f} images/s, {train_cls['ms_per_step']:.1f} ms/step; "
-        f"parity-cls {parity_cls}; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+        f"parity-cls {parity_cls}; train-staged {train_staged['ms_per_step']:.1f} ms/step, "
+        f"{train_staged['images_per_s']:.2f} images/s, peak {train_staged['peak_gib']:.2f} GiB, "
+        f"update {train_staged['update']}, with bf16 mu and nu "
+        f"{train_staged['nu']['ms_per_step']:.1f} ms/step; parity-train-staged {parity_staged}; "
+        f"aot " + "; ".join(
+            f"{k} export {v['export_s']:.1f} s, {v['mb']:.1f} MB, reload {v['reload_s']:.1f} s, "
+            f"rel err {v['rel']:.3e} (bit for bit {v['exact']}), images/s exported "
+            f"{[round(x, 3) for x in v['images_per_s']]} live "
+            f"{[round(x, 3) for x in v['live_images_per_s']]}"
+            for k, v in aot.items() if k != "launches") +
+        f"; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
     paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
              train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
-             *finetune.values(), sample_cls, train_cls)
+             *finetune.values(), sample_cls, train_cls, train_staged, train_staged["nu"], aot)
     count = lambda key: sum(p["launches"][key] for p in paths)
     fp32_err = lambda rows, route, d, sweep: max(
         [v["err"] for (_, dt), v in rows.items() if dt == "float32"]
@@ -3390,7 +3757,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--worker"]:
+    if sys.argv[1:3] == ["--worker", "aot-reload"]:
+        worker_aot_reload(*sys.argv[3:])
+    elif sys.argv[1:2] == ["--worker"]:
         worker(*sys.argv[2:])
     else:
         main()

@@ -26,6 +26,11 @@ The model corners as the JAX CLI reads them (root generate.py:115-167,
 ``model.self_cond``); with ``--feat_path`` (a feature LMDB) and
 ``--ext_feature_dim > 0`` each batch is conditioned on features drawn by
 ``--sample_mode``, with their own labels, so ``--class_idx`` is refused.
+
+``--export_aot FILE`` (root generate.py:208-220) samples nothing: it exports
+the whole sampler for a batch of ``--max_batch_size`` in the model's dtype
+(``sampling/aot.py``; no VAE is built, ``--outdir`` is not needed), prints
+the batch and the file's size, and returns.
 """
 
 from __future__ import annotations
@@ -117,6 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sample_mode", type=str, default="rand_full",
                         choices=list(SAMPLE_MODES))
     parser.add_argument("--use_strict_load", type=str2bool, default=True)
+    parser.add_argument("--export_aot", type=str, default="",
+                        help="instead of sampling, export the sampler (torch.export) for "
+                        "batch --max_batch_size to this path and exit; reload with "
+                        "maskdit_tpu_torch.ops.exported.load_sampler")
     parser.add_argument("--fp32", action="store_true",
                         help="run the denoiser in fp32 (parity mode)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -154,7 +163,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         args.outdir, class_name = resolve_class_outdir(
             args.label_dict, args.class_idx, args.results_dir)
         print(f"sampling class {args.class_idx} ({class_name}) into {args.outdir}")
-    elif args.outdir is None:
+    elif args.outdir is None and not args.export_aot:
         parser.error("one of --outdir or --label_dict is required")
     if args.feat_path and args.ext_feature_dim > 0 and args.class_idx is not None:
         parser.error("--class_idx cannot combine with --feat_path: retrieved feature rows "
@@ -162,10 +171,62 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     created = dist.init_distributed(device=args.device)
     try:
+        if args.export_aot:
+            return _export(args, dist.local_device(args.device))
         return _generate(args, dist.local_device(args.device))
     finally:
         if created:
             dist.shutdown()
+
+
+def _build_model(args: argparse.Namespace, device: torch.device):
+    model = create_model(
+        "edm",
+        img_resolution=args.image_size,
+        img_channels=args.image_channels,
+        num_classes=args.num_classes,
+        model_type=args.model_type,
+        use_decoder=args.use_decoder,
+        mae_loss_coef=args.mae_loss_coef,
+        pad_cls_token=args.pad_cls_token,
+        ext_feature_dim=args.ext_feature_dim,
+        use_encoder_feat=args.use_encoder_feat,
+        dtype=torch.float32 if args.fp32 else torch.bfloat16,
+    )
+    load_into(model, load_reference_checkpoint(args.ckpt_path), strict=args.use_strict_load)
+    model = model.to(device).eval()
+    dist.mprint(f"loaded weights from {args.ckpt_path}")
+    return model
+
+
+def _sampler_config(args: argparse.Namespace) -> SamplerConfig:
+    return SamplerConfig(
+        num_steps=args.num_steps,
+        cfg_scale=args.cfg_scale,
+        S_churn=args.S_churn,
+        solver=args.solver,
+        discretization=args.discretization,
+        schedule=args.schedule,
+        scaling=args.scaling,
+    )
+
+
+def _export(args: argparse.Namespace, device: torch.device) -> dict:
+    """``--export_aot``: the sampler for a batch of ``--max_batch_size``,
+    exported by the main process; no VAE. Returns {'path', 'bytes',
+    'seconds'} (the export and the write)."""
+    from maskdit_tpu_torch.sampling.aot import export_sampler
+
+    model = _build_model(args, device)
+    t0 = time.perf_counter()
+    if dist.is_main_process():
+        export_sampler(model, _sampler_config(args), args.max_batch_size, args.export_aot)
+    dist.barrier()
+    seconds = time.perf_counter() - t0
+    size = os.path.getsize(args.export_aot)
+    dist.mprint(f"exported the sampler (batch {args.max_batch_size}, {size / 1e6:.1f} MB, "
+                f"{seconds:.1f} s) to {args.export_aot}")
+    return {"path": args.export_aot, "bytes": size, "seconds": seconds}
 
 
 def _generate(args: argparse.Namespace, device: torch.device) -> dict:
@@ -173,37 +234,13 @@ def _generate(args: argparse.Namespace, device: torch.device) -> dict:
     os.makedirs(args.outdir, exist_ok=True)
     log_file = os.path.join(args.outdir, "log.txt") if rank == 0 else None
     with Logger(log_file, "a+"):
-        model = create_model(
-            "edm",
-            img_resolution=args.image_size,
-            img_channels=args.image_channels,
-            num_classes=args.num_classes,
-            model_type=args.model_type,
-            use_decoder=args.use_decoder,
-            mae_loss_coef=args.mae_loss_coef,
-            pad_cls_token=args.pad_cls_token,
-            ext_feature_dim=args.ext_feature_dim,
-            use_encoder_feat=args.use_encoder_feat,
-            dtype=torch.float32 if args.fp32 else torch.bfloat16,
-        )
-        load_into(model, load_reference_checkpoint(args.ckpt_path),
-                  strict=args.use_strict_load)
-        model = model.to(device).eval()
-        dist.mprint(f"loaded weights from {args.ckpt_path}")
+        model = _build_model(args, device)
         vae = None
         if not args.no_decode:
             vae = TimedVAE(load_vae(args.pretrained_path).to(device), device)
             dist.mprint(f"loaded the VAE from {args.pretrained_path}")
 
-        sampler_cfg = SamplerConfig(
-            num_steps=args.num_steps,
-            cfg_scale=args.cfg_scale,
-            S_churn=args.S_churn,
-            solver=args.solver,
-            discretization=args.discretization,
-            schedule=args.schedule,
-            scaling=args.scaling,
-        )
+        sampler_cfg = _sampler_config(args)
         feat_fn = None
         if args.feat_path and args.ext_feature_dim > 0:
             # each batch draws (feature, label) rows from the feature LMDB,

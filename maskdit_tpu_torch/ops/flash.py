@@ -32,7 +32,10 @@ rounding points, so it has kernels of its own:
 
 ``flash_fwd.launches`` and ``flash_bwd.launches`` count kernel launches
 and nothing else; ``flash_mha_plain`` applies the Function with the plain
-versions on any device, what the kernels are held to.
+versions on any device, what the kernels are held to. The forward is also
+the torch op ``maskdit_torch::flash_fwd`` (``flash_fwd_op``, as
+flash_batched registers its own), which ``flash_mha`` calls while
+``torch.export`` traces.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from maskdit_tpu_torch.ops.flash_batched import (
     MAX_HEAD_DIM,
     fp32_bwd_smem_bytes,
     fp32_fwd_smem_bytes,
+    register_forward_op,
 )
 from maskdit_tpu_torch.ops.flash_big import mma_fwd_smem_bytes
 
@@ -200,7 +204,10 @@ def _raise_on(name: str, lib, error: str, err: int, shape, dtype, smem: int) -> 
                            "per block)")
 
 
-def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's launch: the CUDA implementation of
+    ``flash_fwd_op``, and the live Function's forward."""
     n, l, hd = _check("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((n, 1, l), dtype=torch.float32, device=q.device)
@@ -270,7 +277,9 @@ class FlashFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _apply(q, k, v, fwd, bwd) -> torch.Tensor:
+def _apply(q, k, v, attend) -> torch.Tensor:
+    """``attend(q, k, v, scale) -> o`` on the (N*H, L, hd) layout of the
+    (N, H, L, hd) q, k, v; the plain ``mha_reference`` past the window."""
     n, h, l, hd = q.shape
     if not supports(l):
         return mha_reference(q, k, v)
@@ -278,21 +287,33 @@ def _apply(q, k, v, fwd, bwd) -> torch.Tensor:
     def prep(x):
         return x.reshape(n * h, l, hd).contiguous()
 
-    out = FlashFunction.apply(prep(q), prep(k), prep(v), hd ** -0.5, fwd, bwd)
+    out = attend(prep(q), prep(k), prep(v), hd ** -0.5)
     return out.reshape(n, h, l, hd)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(N, H, L, hd) attention through the kernels, differentiable; where
     ``supports(L)`` fails, the plain ``mha_reference``, as the JAX
-    ``flash_mha`` falls back (flash.py:144-148)."""
-    return _apply(q, k, v, flash_fwd, flash_bwd)
+    ``flash_mha`` falls back (flash.py:144-148). Under ``torch.export`` the
+    forward op, without a gradient."""
+    if torch.compiler.is_exporting():
+        return _apply(q, k, v, lambda *args: flash_fwd_op(*args)[0])
+    return _apply(q, k, v, lambda *args: FlashFunction.apply(*args, flash_fwd, flash_bwd))
 
 
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``flash_mha`` with the plain forward and backward on any device."""
-    return _apply(q, k, v, flash_fwd_reference, flash_bwd_reference)
+    return _apply(q, k, v, lambda *args: FlashFunction.apply(*args, flash_fwd_reference,
+                                                              flash_bwd_reference))
 
 
+def _flash_fwd_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    n, l, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((n, 1, l), dtype=torch.float32)
+
+
+flash_fwd_op = register_forward_op("flash_fwd", _launch_fwd, flash_fwd_reference,
+                                   _flash_fwd_fake)
 flash_fwd.launches = 0
 flash_bwd.launches = 0

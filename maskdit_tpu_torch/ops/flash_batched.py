@@ -27,6 +27,14 @@ ops/flash_big.py too.
 kernel launches and nothing else, so a run can show that it went through
 the kernels. ``packed_attention_plain`` applies the same Function with the
 plain versions on any device, for holding the kernels to them on the card.
+
+The forward is also the torch op ``maskdit_torch::packed_attention_fwd``
+(``packed_attention_fwd_op``): its CUDA implementation is ``_launch``, which
+counts, its CPU implementation the plain version, its fake the output's
+shape. ``packed_attention`` calls it while ``torch.export`` traces, so an
+exported program (sampling/aot.py) records the kernel's call and a program
+reloaded in any process that imports ``maskdit_tpu_torch.ops`` launches
+and counts it; a live call applies the Function as before.
 """
 
 from __future__ import annotations
@@ -373,6 +381,8 @@ def launch(name: str, library, entry: str, error: str, smem_bytes, qkv: torch.Te
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """The forward kernel's launch: the CUDA implementation of
+    ``packed_attention_fwd_op``, and the live Function's forward."""
     hd = qkv.shape[-1] // 3 // num_heads
     out = launch("packed_attention", _library, "packed_attention_fwd",
                  "packed_attention_error_string", fwd_smem_bytes, qkv, num_heads, scale,
@@ -424,7 +434,10 @@ class AttentionFunction(torch.autograd.Function):
 def packed_attention(
     qkv: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
-    """(N, L, 3D) packed qkv -> (N, L, D) attention output, differentiable."""
+    """(N, L, 3D) packed qkv -> (N, L, D) attention output, differentiable;
+    under ``torch.export`` the forward op, without a gradient."""
+    if torch.compiler.is_exporting():
+        return packed_attention_fwd_op(qkv, num_heads, scale)
     if qkv.device.type == "cpu":
         return packed_attention_plain(qkv, num_heads, scale)
     return AttentionFunction.apply(qkv, num_heads, scale, _launch, _launch_bwd)
@@ -439,5 +452,23 @@ def packed_attention_plain(
                                    packed_attention_bwd_reference)
 
 
+def register_forward_op(name: str, launch_fn, plain_fn, fake_fn):
+    """``launch_fn`` as the CUDA implementation of the torch op
+    ``maskdit_torch::<name>``, ``plain_fn`` as its CPU one, ``fake_fn`` as
+    its fake (the outputs' shapes and types, for tracing)."""
+    op = torch.library.custom_op(f"maskdit_torch::{name}", launch_fn, mutates_args=(),
+                                 device_types="cuda")
+    op.register_kernel("cpu")(plain_fn)
+    op.register_fake(fake_fn)
+    return op
+
+
+def _packed_fwd_fake(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    n, l, three_d = qkv.shape
+    return qkv.new_empty((n, l, three_d // 3))
+
+
+packed_attention_fwd_op = register_forward_op(
+    "packed_attention_fwd", _launch, packed_attention_reference, _packed_fwd_fake)
 packed_attention.launches = 0
 packed_attention_bwd.launches = 0

@@ -29,7 +29,10 @@ checks and launch are flash_batched's ``launch``. The TPU kernel's
 are not carried over: the kernels read the packed layout in place.
 ``packed_attention_big.launches`` and ``packed_attention_big_bwd.launches``
 count kernel launches and nothing else; ``packed_attention_big_plain``
-applies the Function with the plain versions on any device.
+applies the Function with the plain versions on any device. The forward is
+also the torch op ``maskdit_torch::packed_attention_big_fwd``
+(``packed_attention_big_fwd_op``, as flash_batched registers its own),
+which ``packed_attention_big`` calls while ``torch.export`` traces.
 """
 
 from __future__ import annotations
@@ -45,10 +48,12 @@ from maskdit_tpu_torch.ops.flash_batched import (
     SMEM_LIMIT,
     TILE,
     AttentionFunction,
+    _packed_fwd_fake,
     fp32_bwd_smem_bytes,
     fp32_fwd_smem_bytes,
     launch,
     mma_bwd_smem_bytes,
+    register_forward_op,
 )
 
 KERNEL = "packed_attention_big_fwd"
@@ -239,6 +244,8 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """The forward kernel's launch: the CUDA implementation of
+    ``packed_attention_big_fwd_op``, and the live Function's forward."""
     out = launch("packed_attention_big", _library, "packed_attention_big_fwd",
                  "packed_attention_big_error_string", fwd_smem_bytes, qkv, num_heads, scale,
                  aligned=True)
@@ -268,7 +275,10 @@ def packed_attention_big_bwd(
 def packed_attention_big(
     qkv: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
-    """(N, L, 3D) packed qkv -> (N, L, D) attention output, differentiable."""
+    """(N, L, 3D) packed qkv -> (N, L, D) attention output, differentiable;
+    under ``torch.export`` the forward op, without a gradient."""
+    if torch.compiler.is_exporting():
+        return packed_attention_big_fwd_op(qkv, num_heads, scale)
     if qkv.device.type == "cpu":
         return packed_attention_big_plain(qkv, num_heads, scale)
     return AttentionFunction.apply(qkv, num_heads, scale, _launch, _launch_bwd)
@@ -283,5 +293,7 @@ def packed_attention_big_plain(
                                    packed_attention_big_bwd_reference)
 
 
+packed_attention_big_fwd_op = register_forward_op(
+    "packed_attention_big_fwd", _launch, packed_attention_big_reference, _packed_fwd_fake)
 packed_attention_big.launches = 0
 packed_attention_big_bwd.launches = 0

@@ -41,6 +41,12 @@ int64 tensor arithmetic, so kernel and plain agree bit for bit.
 ``with_ema=False`` (the steps of ``ema_every > 1`` without the EMA)
 leaves ema untouched; JAX passes d = 1.0 there, which gives the same
 value whenever p is finite.
+
+``StagedAdamEma`` is the update without the kernel (``train.fused_adam:
+false``): ``staged_adam_ema`` runs optax's stages as plain PyTorch
+expressions over the flat buffers, with the roundings of ``optax.adam``
+(``optax.adamw`` with weight decay) or, with a bf16 nu, of this package's
+``adam_sr_nu``, whose stochastic rounding it shares with the kernel.
 """
 
 from __future__ import annotations
@@ -59,9 +65,10 @@ KERNEL = "fused_adam_ema"
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 SR_KEY = 0x6E75  # the JAX package's PRNGKey(0x6E75) for nu's rounding
 _M32 = 0xFFFFFFFF
-# elements per piece of the plain stochastic rounding (bounds its int64
-# temporaries, ~100 MB each)
-_SR_PIECE = 1 << 22
+# elements per piece of the plain stochastic rounding: bounds its int64
+# temporaries (128 MB each), while few pieces keep the ~300 small launches
+# each piece takes on a card from bounding the staged update's time
+_SR_PIECE = 1 << 24
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -272,6 +279,73 @@ class AdamState:
     nu: torch.Tensor
 
 
+def staged_adam_ema(
+    g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+    e: torch.Tensor, *, lr: float, count: int, b1: float = 0.9, b2: float = 0.999,
+    eps: float = 1e-8, weight_decay: float = 0.0, ema_decay: float = 0.9999,
+    with_ema: bool = True,
+) -> None:
+    """The staged update (JAX state.py:205-224) in place: Adam's
+    ``optimizer.update``, ``optax.apply_updates`` and, unless ``with_ema`` is
+    False, ``optax.incremental_update`` of the EMA at step size ``1 -
+    ema_decay``, each a pass of plain PyTorch over the flat buffers. ``count``
+    is Adam's pre-increment count, ``lr`` the schedule's value there.
+
+    The stages and their roundings, as the JAX package forms them:
+      * fp32 nu, ``optax.adam`` (``scale_by_adam`` then ``scale(-lr)``): m
+        = (1 - b1) * g + b1 * m and v = (1 - b2) * g**2 + b2 * v, each
+        constant in the dtype of the array it multiplies (a Python float
+        next to a bf16 array is bf16: b1 beside a bf16 mu, 1 - b1 and g**2
+        with a bf16 gradient), the products and sums in fp32; where g and
+        mu are both bf16, mu's two products, their sum and its bias
+        correction rounded to bf16, as XLA computes the jitted step; with
+        ``weight_decay`` (``optax.adamw``) the update gains wd * p;
+      * bf16 nu, ``adam_sr_nu`` (maskdit_tpu/ops/fused_adam.py:233-293): g
+        upcast first, m = b1 * m + (1 - b1) * g, v = b2 * v + (1 - b2) * g
+        * g, nu stored by ``stochastic_round_bf16`` with the bits of
+        ``count``, the kernel's;
+      * both: u = (m / bc1) / (sqrt(v / bc2) + eps), bc = 1 - b**(count +
+        1) in fp32, p = p + (-lr) * u, mu stored in its dtype (rounded to
+        nearest), ema = s * p + (1 - s) * ema with s = 1 - ema_decay.
+    Every scalar is a 0-d fp32 tensor on the data's device (PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal).
+    """
+    f32 = np.float32
+    const = lambda x, dtype=torch.float32: torch.tensor(x, dtype=dtype, device=p.device).float()
+    t = f32(count + 1)
+    bc1, bc2 = (const(f32(1.0) - f32(b) ** t) for b in (b1, b2))
+    if v.dtype == torch.bfloat16:
+        gf = g.float()
+        m_new = const(b1) * m.float() + const(1.0 - b1) * gf
+        v_new = const(b2) * v.float() + const(1.0 - b2) * gf * gf
+        del gf
+    else:
+        m_new = const(1.0 - b1, g.dtype) * g.float()
+        old = const(b1, m.dtype) * m.float()
+        if g.dtype == m.dtype == torch.bfloat16:  # optax's new mu is bf16 then
+            m_new = (m_new.bfloat16() + old.bfloat16()).float()
+            bc1 = bc1.bfloat16().float()
+        else:
+            m_new += old
+        del old
+        v_new = const(1.0 - b2, g.dtype) * (g * g).float() + const(b2) * v
+    u = (m_new / bc1).div_(torch.sqrt(v_new / bc2).add_(const(eps)))
+    if weight_decay != 0.0:
+        u.add_(const(weight_decay) * p)
+    p.add_(u.mul_(const(-lr)))
+    del u
+    m.copy_(m_new)
+    del m_new
+    if v.dtype == torch.bfloat16:
+        v.copy_(stochastic_round_bf16(v_new.reshape(-1), count).view(v.shape))
+    else:
+        v.copy_(v_new)
+    del v_new
+    if with_ema:
+        step_size = 1.0 - ema_decay
+        e.mul_(const(1.0 - step_size)).add_(const(step_size) * p)
+
+
 class FusedAdamEma:
     """Adam + EMA with optax's state (count, mu, nu) and one fused update.
 
@@ -294,8 +368,9 @@ class FusedAdamEma:
             raise ValueError(f"mu_dtype {mu_dtype}: float32 or bfloat16")
         if nu_dtype not in (None, torch.bfloat16):
             # FusedAdamEma's guard (fused_adam.py:335-339)
-            raise ValueError(f"nu_dtype={nu_dtype}: only bfloat16 narrow nu storage is "
-                             "implemented (stochastic rounding targets bf16)")
+            raise ValueError(f"nu_dtype={str(nu_dtype).replace('torch.', '')}: only bfloat16 "
+                             "narrow nu storage is implemented (stochastic rounding targets "
+                             "bf16)")
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = mu_dtype or torch.float32
@@ -320,5 +395,32 @@ class FusedAdamEma:
             grads, params, state.mu, state.nu, ema,
             lr=self.lr_at(state.count), count_inc=state.count + 1,
             b1=self.b1, b2=self.b2, eps=self.eps, ema_decay=ema_decay, with_ema=with_ema,
+        )
+        state.count += 1
+
+
+class StagedAdamEma(FusedAdamEma):
+    """``FusedAdamEma``'s state and interface with the staged update
+    (``staged_adam_ema``): the JAX package's optimizer where
+    ``train.fused_adam`` is false, ``optax.adam`` (``optax.adamw`` with
+    ``weight_decay``) or, with a bf16 ``nu_dtype``, ``adam_sr_nu``. Its
+    state is the same ``AdamState``, so checkpoints and
+    ``utils.port.optimizer_state_from_flax`` serve both."""
+
+    def __init__(self, learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None, nu_dtype: Optional[torch.dtype] = None):
+        super().__init__(learning_rate, b1, b2, eps, mu_dtype, nu_dtype)
+        self.weight_decay = weight_decay
+
+    def update_with_ema(
+        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor,
+        ema: torch.Tensor, ema_decay: float = 0.9999, with_ema: bool = True,
+    ) -> None:
+        """As ``FusedAdamEma.update_with_ema``, through the staged update."""
+        staged_adam_ema(
+            grads, params, state.mu, state.nu, ema, lr=self.lr_at(state.count),
+            count=state.count, b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay, ema_decay=ema_decay, with_ema=with_ema,
         )
         state.count += 1

@@ -53,6 +53,14 @@ def _churn_noise(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch
     return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
 
 
+def _step_noise(x: torch.Tensor, generator: Optional[torch.Generator],
+                churn_noise: Optional[torch.Tensor], i: int) -> torch.Tensor:
+    """Step ``i``'s churn noise: ``churn_noise[i]`` where the caller drew
+    them (an exported sampler takes no generator), else a draw from
+    ``generator``."""
+    return churn_noise[i] if churn_noise is not None else _churn_noise(x, generator)
+
+
 def edm_sampler(
     denoise_fn: DenoiseFn,
     latents: torch.Tensor,
@@ -68,6 +76,7 @@ def edm_sampler(
     net_sigma_min: float = 0.0,
     net_sigma_max: float = float("inf"),
     round_sigma: Optional[Callable] = None,
+    churn_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Heun 2nd-order EDM sampler (reference: sample.py:30-66).
 
@@ -75,7 +84,8 @@ def edm_sampler(
     ``net_sigma_min/max`` clamp the range to what the net supports and
     ``round_sigma`` snaps levels to its grid (reference sample.py:36-37,43);
     both are the identity for EDMPrecond. With S_churn > 0 the churn noise
-    comes from ``generator``.
+    comes from ``generator``, or from ``churn_noise`` (num_steps, *latents'
+    shape), where given.
     """
     sigma_min = max(sigma_min, net_sigma_min)
     sigma_max = min(sigma_max, net_sigma_max)
@@ -92,7 +102,7 @@ def edm_sampler(
             gamma = f32(gamma_max) if S_min <= t_cur <= S_max else f32(0.0)
             t_hat = t_cur + gamma * t_cur
             coef = np.sqrt(np.maximum(t_hat ** 2 - t_cur ** 2, f32(0.0))) * f32(S_noise)
-            x_hat = x_cur + float(coef) * _churn_noise(x_cur, generator)
+            x_hat = x_cur + float(coef) * _step_noise(x_cur, generator, churn_noise, i)
         else:
             t_hat = t_cur
             x_hat = x_cur
@@ -210,12 +220,13 @@ def ablation_sampler(
     net_sigma_min: float = 0.0,
     net_sigma_max: float = float("inf"),
     round_sigma: Optional[Callable] = None,
+    churn_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Generalized sampler superset (reference: sample.py:73-188).
 
     The schedule sigma(t), its derivative and inverse, and the scaling s(t)
     are evaluated on host float32 scalars; only the state update touches
-    the device.
+    the device. The churn noise as ``edm_sampler`` takes it.
     """
     if solver not in ("euler", "heun"):
         raise ValueError(f"unknown solver '{solver}'")
@@ -287,8 +298,8 @@ def ablation_sampler(
                 np.sqrt(np.maximum(sigma(t_hat) ** 2 - sigma(t_cur) ** 2, f32(0.0)))
                 * s_fn(t_hat) * f32(S_noise)
             )
-            x_hat = float(s_fn(t_hat) / s_fn(t_cur)) * x_cur + float(coef) * _churn_noise(
-                x_cur, generator
+            x_hat = float(s_fn(t_hat) / s_fn(t_cur)) * x_cur + float(coef) * _step_noise(
+                x_cur, generator, churn_noise, i
             )
         else:
             t_hat = t_cur

@@ -47,15 +47,9 @@ class SamplerConfig:
         )
 
 
-def make_sample_fn(
-    model: EDMPrecond, cfg: SamplerConfig,
-) -> Callable[..., torch.Tensor]:
-    """Build ``sample(latents, labels, generator=None, feat=None) -> latents``.
-
-    ``generator`` feeds the churn noise and is needed only with S_churn > 0;
-    ``feat`` (B, F), where given, conditions every evaluation (the
-    reference samplers pass ``feat=`` to the net, sample.py:56, 172).
-    """
+def sampler_of(model: EDMPrecond, cfg: SamplerConfig) -> tuple[Callable, dict]:
+    """The sampler function ``cfg`` names (EDM or ablation) and its keyword
+    arguments for ``model``."""
     kwargs: dict = {"num_steps": cfg.num_steps, "S_churn": cfg.S_churn}
     # noise levels the net supports (reference sample.py:36-37,104-106,157;
     # the identity for EDMPrecond)
@@ -65,16 +59,27 @@ def make_sample_fn(
         round_sigma=model.round_sigma,
     )
     kwargs.update(cfg.extra)
-    if cfg.use_ablation:
-        kwargs.update(
-            solver=cfg.solver or "heun",
-            discretization=cfg.discretization or "edm",
-            schedule=cfg.schedule or "linear",
-            scaling=cfg.scaling or "none",
-        )
-        sampler = ablation_sampler
-    else:
-        sampler = edm_sampler
+    if not cfg.use_ablation:
+        return edm_sampler, kwargs
+    kwargs.update(
+        solver=cfg.solver or "heun",
+        discretization=cfg.discretization or "edm",
+        schedule=cfg.schedule or "linear",
+        scaling=cfg.scaling or "none",
+    )
+    return ablation_sampler, kwargs
+
+
+def make_sample_fn(
+    model: EDMPrecond, cfg: SamplerConfig,
+) -> Callable[..., torch.Tensor]:
+    """Build ``sample(latents, labels, generator=None, feat=None) -> latents``.
+
+    ``generator`` feeds the churn noise and is needed only with S_churn > 0;
+    ``feat`` (B, F), where given, conditions every evaluation (the
+    reference samplers pass ``feat=`` to the net, sample.py:56, 172).
+    """
+    sampler, kwargs = sampler_of(model, cfg)
 
     @torch.no_grad()
     def sample(latents: torch.Tensor, labels: torch.Tensor,

@@ -23,7 +23,14 @@ streamed with ``data.streaming=true``) or ``synthetic``. ``--enable_eval`` runs
 the in-training FID after each checkpoint (``make_eval_hook``): the EMA
 weights sample ``--eval_seeds``, the SD-VAE of ``--pretrained_path``
 decodes them to PNGs, and their FID against ``eval.ref_path`` goes to
-``metrics.jsonl`` as ``eval/fid``.
+``metrics.jsonl`` as ``eval/fid``. ``--use_wandb`` also logs the metrics to
+wandb under the config's ``wandb.entity`` / ``project`` / ``group`` (where
+wandb is not importable, to ``metrics.jsonl`` only, with a warning).
+``--debug_nans`` raises ``FloatingPointError`` at the first step whose loss,
+gradient or updated parameters hold a NaN (the JAX CLI sets
+``jax_debug_nans``, which checks for NaNs, not infinities); without it such
+a run goes on. ``train.fused_adam=false``
+trains with the staged Adam (``train/state.make_optimizer``).
 """
 
 from __future__ import annotations
@@ -102,6 +109,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use_strict_load", type=str2bool, default=True)
     parser.add_argument("--global_seed", type=int, default=0)
     parser.add_argument("--num_workers", type=int, default=4)
+    parser.add_argument("--use_wandb", action="store_true",
+                        help="also log to wandb (the config's wandb.* keys)")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="raise FloatingPointError at the first step whose loss, "
+                        "gradient or updated parameters hold a NaN")
     parser.add_argument("--max_steps", type=int, default=None,
                         help="override config.train.max_num_steps")
     parser.add_argument("--device", type=str, default="cuda",
@@ -192,6 +204,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict[str, Any]:
             max_steps_override=args.max_steps,
             device=args.device,
             eval_hook=make_eval_hook(cfg, args) if args.enable_eval else None,
+            use_wandb=args.use_wandb,
+            debug_nans=args.debug_nans,
         )
         # rank 0 tees its output into log.txt
         log_file = os.path.join(trainer.exp_dir, "log.txt") if dist.is_main_process() else None

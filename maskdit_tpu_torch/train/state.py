@@ -4,7 +4,8 @@ Counterpart of maskdit_tpu/train/state.py. One step covers the hot loop of
 the reference train.py:198-287: moments -> z (utils.py:59-65), label
 dropout for CFG (train.py:208-209), gradient accumulation over micro-batches
 (train.py:211-227), the EDM loss, and Adam with the EMA update
-(helper.py:48-58) in one fused sweep.
+(helper.py:48-58) in one fused sweep or, with ``train.fused_adam: false``,
+in optax's stages (``make_optimizer``).
 
 Numerics as in the JAX package: parameters, Adam moments and EMA are fp32
 (the moments may be stored in bf16: ``moment_dtype``, ``nu_dtype``); each
@@ -51,7 +52,7 @@ from maskdit_tpu_torch.models.masking import (
     random_mask,
 )
 from maskdit_tpu_torch.models.precond import EDMPrecond
-from maskdit_tpu_torch.ops.fused_adam import AdamState, FusedAdamEma
+from maskdit_tpu_torch.ops.fused_adam import AdamState, FusedAdamEma, StagedAdamEma
 from maskdit_tpu_torch.train.loss import EDMLoss
 from maskdit_tpu_torch.train.schedules import lr_with_rampup
 from maskdit_tpu_torch.utils.ckpt import graft_params
@@ -89,31 +90,38 @@ def make_optimizer(
     nu_dtype: Optional[str] = None,
 ) -> FusedAdamEma:
     """Adam as apex FusedAdam(adam_w_mode=True, wd=0) with the kimg warmup
-    (reference: train.py:141, 223-226), as the fused Adam + EMA update.
+    (reference: train.py:141, 223-226), with the JAX ``make_optimizer``'s
+    choices (maskdit_tpu/train/state.py:54-136) and its errors.
 
-    ``moment_dtype='bfloat16'`` stores the first moment in bf16 (the math
-    stays fp32); ``nu_dtype='bfloat16'`` the second, with stochastic
-    rounding (ops/fused_adam.py). The staged optax path and weight decay
-    are not ported: the released configs train with the fused update at
-    wd 0.
+    ``fused`` (``train.fused_adam``, default true): the fused Adam + EMA
+    update, kernel #7. Else the staged update (``StagedAdamEma``): the JAX
+    package's ``optax.adam``, ``optax.adamw`` where ``weight_decay`` is not 0,
+    or ``adam_sr_nu`` with ``nu_dtype``. ``moment_dtype='bfloat16'`` stores
+    the first moment in bf16 (the math stays fp32); ``nu_dtype='bfloat16'``
+    the second, with stochastic rounding (ops/fused_adam.py).
     """
     if nu_dtype is not None and weight_decay != 0.0:
         # the JAX guard (state.py:93-97)
         raise NotImplementedError(
-            "nu_dtype with weight_decay: the reference trains at wd=0 (configs/train/*.yaml)"
+            "nu_dtype with weight_decay: the reference trains at wd=0 "
+            "(configs/train/*.yaml); chain add_decayed_weights if needed"
         )
-    if not fused:
-        raise NotImplementedError("the port's optimizer is the fused Adam + EMA update")
-    if weight_decay != 0.0:
-        raise NotImplementedError("fused Adam + EMA implements wd=0 (the reference setting)")
     if rampup_kimg > 0:
         schedule = lambda step: lr_with_rampup(step, base_lr, global_batch_size, rampup_kimg)
     else:
         schedule = base_lr
-    return FusedAdamEma(
-        learning_rate=schedule, b1=betas[0], b2=betas[1], eps=eps,
-        mu_dtype=dtype_of(moment_dtype), nu_dtype=dtype_of(nu_dtype),
-    )
+    kwargs = dict(learning_rate=schedule, b1=betas[0], b2=betas[1], eps=eps,
+                  mu_dtype=dtype_of(moment_dtype))
+    nu = dtype_of(nu_dtype)
+    if fused:
+        if weight_decay != 0.0:
+            raise NotImplementedError(
+                "fused Adam+EMA implements wd=0 (the reference setting, configs/train/*.yaml)"
+            )
+        return FusedAdamEma(nu_dtype=nu, **kwargs)  # raises on a nu other than bf16
+    if nu not in (None, torch.bfloat16):
+        raise ValueError(f"nu_dtype={nu_dtype}: only bfloat16 supported")
+    return StagedAdamEma(weight_decay=weight_decay, nu_dtype=nu, **kwargs)
 
 
 @dataclasses.dataclass
@@ -330,6 +338,7 @@ def make_train_step(
     sync: Optional[Any] = None,
     pad_to_max: bool = False,
     mask_len_max: Optional[int] = None,
+    debug_nans: bool = False,
 ):
     """Build ``train_step(state, batch, generator=None, draws=None) ->
     metrics``, which updates ``state`` in place.
@@ -354,6 +363,16 @@ def make_train_step(
     ``draw_step``'s over the whole global batch restricted to its rows, and
     the gradient and the metrics are averaged over the processes before the
     update.
+
+    ``debug_nans`` (the train CLI's ``--debug_nans``, where the JAX CLI sets
+    ``jax_debug_nans``): the loss and the gradient are checked before the
+    update and the parameters after it, and the first that holds a NaN
+    raises ``FloatingPointError`` naming the step (the steps done before
+    it) and the tensor, before the update where it can. As with
+    ``jax_debug_nans``, an infinity alone does not raise (JAX checks those
+    under ``jax_debug_infs``); Adam turns an infinite gradient into NaN
+    parameters, which do. Each check waits for the device; without the
+    flag there is none.
     """
     loss_fn = loss_fn or EDMLoss()
     grad_dtype = torch.bfloat16 if amp_grads else torch.float32
@@ -423,6 +442,9 @@ def make_train_step(
         if sync is not None:
             sync.mean_gradient_(state.grads)
         grads = state.grads
+        if debug_nans:
+            _raise_if_nan(state, "the loss", loss_sum)
+            _raise_if_nan(state, "the gradient", grads)
 
         with_ema = (state.step + 1) % ema_every == 0
         with torch.no_grad():
@@ -430,6 +452,8 @@ def make_train_step(
                 grads, state.opt_state, state.params, state.ema,
                 ema_decay=decay_k if with_ema else 1.0, with_ema=with_ema,
             )
+        if debug_nans:
+            _raise_if_nan(state, "the updated parameters", state.params)
         state.step += 1
         metrics = {"loss": loss_sum / grad_accum}
         metrics.update({k: v / grad_accum for k, v in aux_sum.items()})
@@ -440,3 +464,15 @@ def make_train_step(
         return metrics
 
     return train_step
+
+
+def _raise_if_nan(state: TrainState, what: str, value: torch.Tensor) -> None:
+    """``FloatingPointError`` if ``value`` (the loss, or a flat buffer of
+    ``state``'s layout) holds a NaN, naming the step and, for a flat
+    buffer, its first parameter that does."""
+    if not bool(torch.isnan(value).any()):
+        return
+    if value.dim() == 1 and value.numel() == state.params.numel():
+        name = next(k for k, v in state.named(value).items() if bool(torch.isnan(v).any()))
+        what = f"{what} ({name} first)"
+    raise FloatingPointError(f"debug_nans: {what} holds a NaN at train step {state.step}")

@@ -18,7 +18,9 @@ SIGTERM/SIGINT, the log line (loss, steps/s, images/s, MFU, peak device
 memory) and the eval hook (``eval_hook(step, ema)`` after each checkpoint,
 its metrics logged as ``eval/<name>``) and the train-step options
 ``amp_grads``, ``accum_dtype``, ``moment_dtype``, ``nu_dtype`` and
-``ema_every`` (``train/state.py``), and the model corners
+``ema_every``, ``fused_adam`` (false: the staged update) (``train/state.py``),
+the CLI's ``--debug_nans`` and ``--use_wandb`` (the JAX trainer's
+``MetricLogger`` with the config's ``wandb.*`` keys), and the model corners
 ``model.pad_cls_token`` and ``model.ext_feature_dim`` (with
 ``data.feat_path``, a feature LMDB joined to the latent LMDB; the batch's
 features are dropped when the model takes none, as in the JAX trainer).
@@ -141,10 +143,13 @@ class Trainer:
         max_steps_override: Optional[int] = None,
         device: str = "cuda",
         eval_hook: Optional[Callable[[int, dict], dict]] = None,
+        use_wandb: bool = False,
+        debug_nans: bool = False,
     ):
         # eval_hook(step, ema) -> metrics, with ema the EMA weights under the
         # state-dict keys; run after each checkpoint (reference train.py:273-287)
         self.eval_hook = eval_hook
+        self.debug_nans = debug_nans
         self.config = config
         self.seed = seed
         # cuda without an index is cuda:LOCAL_RANK; ranks that share a
@@ -242,7 +247,17 @@ class Trainer:
         if self.world > 1:
             source += f", {self.world} processes of {self.local_batch}"
         self.data_source = source
-        self.metrics = MetricLogger(self.exp_dir, config=config) if is_main_process() else None
+        self.metrics = None
+        if is_main_process():
+            # the JAX trainer's sink (maskdit_tpu/train/trainer.py:255-264):
+            # JSONL, and wandb where it is asked for and importable
+            wandb_cfg = config.get("wandb") or {}
+            self.metrics = MetricLogger(
+                self.exp_dir, use_wandb=use_wandb,
+                wandb_kwargs={k: wandb_cfg.get(k) for k in ("entity", "project", "group")}
+                if use_wandb else None,
+                config=config,
+            )
         self.peak_tflops = (
             peak_bf16_tflops(torch.cuda.get_device_name(self.device))
             if self.device.type == "cuda" else None
@@ -278,6 +293,7 @@ class Trainer:
                 sync=self.sync,
                 pad_to_max=self.pad_to_max,
                 mask_len_max=self._mask_len_max() if self.pad_to_max else None,
+                debug_nans=self.debug_nans,
             )
         return self._step_cache[key]
 

@@ -109,7 +109,9 @@ def test_optimizer_with_rampup_matches_jax_class():
 def test_narrow_nu_and_weight_decay_are_not_ported():
     """A bf16 nu is ported (with stochastic rounding); the JAX guards stay:
     nu_dtype with weight decay raises (state.py:93-97), and only bf16 is a
-    narrow nu (fused_adam.py:335-339). Weight decay is not ported."""
+    narrow nu (fused_adam.py:335-339). The fused update takes no weight
+    decay; ``fused=False`` is the staged update (tests/
+    test_torch_staged_adam.py holds it to the JAX staged optimizer)."""
     assert make_optimizer(1e-4, 8, nu_dtype="bfloat16").nu_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="nu_dtype with weight_decay"):
         make_optimizer(1e-4, 8, nu_dtype="bfloat16", weight_decay=0.01)
@@ -119,8 +121,7 @@ def test_narrow_nu_and_weight_decay_are_not_ported():
         fused_adam.FusedAdamEma(1e-4, nu_dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="wd=0"):
         make_optimizer(1e-4, 8, weight_decay=0.01)
-    with pytest.raises(NotImplementedError):
-        make_optimizer(1e-4, 8, fused=False)
+    assert isinstance(make_optimizer(1e-4, 8, fused=False), fused_adam.StagedAdamEma)
 
 
 def test_optimizer_state_from_flax_round_trip(tiny_dit_module):
