@@ -91,7 +91,9 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
  11. [overfit-gate] tools/torch_overfit_gate.py at its defaults (2000 fp32
      steps of a tiny DiT-S/2 on 8 latents through the port's Trainer, then
      sampled back): fails unless the verdict passes; its fp32 launches of
-     the whole-row attention and the update count in the kernels line;
+     the whole-row attention and the update count in the kernels line.
+     Since the tool twins came it runs in a process of its own
+     (``worker_alone``) beside 13. and [validate-port];
  12. the train-step options (after 6.): [kernel] fused adam in every
      variant of ADAM_VARIANTS (a bf16 gradient, bf16 mu and nu, the EMA
      off), the new ones bit for bit with the plain version (nu's
@@ -100,8 +102,11 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      with amp_grads, a bf16 accumulator over 2 micro-batches, bf16 mu and
      nu and ema_every 2, kernels vs plain (and kernel #7 bit for bit on the
      step's own gradient); [train-options] the train CLI with those
-     options at a global batch of 2 x 64, 8 steps, 72 + 72 attention
-     launches and one update per step, beside [train]'s times;
+     options at a global batch of 2 x 64, 8 steps, one update per step and
+     an attention launch per block and micro-batch each way (since the
+     tool twins came at FLASH_DEPTH encoder blocks: 24 + 24), beside
+     [train]'s times. Since the tool twins came the parity steps of 12.
+     and 16. run beside the background group of 18.;
  13. data parallelism on the one card, each phase a ``torch.distributed.run``
      of this script's workers (``--worker TAG``), on DiT-XL/2 at full width
      with 4 of its 28 encoder blocks (DDP_DEPTH): [parity-ddp] two gloo
@@ -158,8 +163,9 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      (L 257, #3 / #4), each kernel step checked to the launch;
  16. the staged update (``train.fused_adam: false``, plain PyTorch; after
      12.): [train-staged] the train CLI on the released 256-px config with
-     that override at full depth, batch 128, 6 steps: finite losses, 36 + 36
-     whole-row launches and no launch of kernel #7 per step;
+     that override, batch 128, 6 steps (since the tool twins came at
+     FLASH_DEPTH encoder blocks): finite losses, one whole-row launch per
+     block each way and no launch of kernel #7 per step;
      [train-staged-nu] the same with bf16 mu and nu (the stochastically
      rounded nu of ``adam_sr_nu``), 4 steps, the moments stored in bf16;
      [train-staged-profile] one fp32 staged update over all 730M
@@ -167,8 +173,8 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      of the parity model, staged against the fused kernel's step (the same
      gradients) within the fp32 training bounds, and the card's staged
      update against the same on a CPU copy of its inputs;
- 17. the sampler export (after 5.): [aot] sample256's sampler (full depth,
-     bf16, CFG 1.5, batch 8, S_churn AOT_CHURN) exported by the generate
+ 17. the sampler export (after 5.): [aot] sample256's sampler (bf16, CFG
+     1.5, batch 8, S_churn AOT_CHURN) exported by the generate
      CLI's ``--export_aot`` at AOT_STEPS, and [aot-512] / [aot-flash] the
      512-px and ``use_flash`` ones at FLASH_DEPTH encoder blocks by
      ``sampling/aot.export_sampler``; then a fresh process that imports
@@ -179,7 +185,32 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      one launch of the op's kernel (#1, #3, #5) per attention layer and
      evaluation, counted there, the output within MODEL_REL_BOUND of the
      live sampler's; export seconds, file MB, reload seconds and warm
-     images/s beside the live sampler's.
+     images/s beside the live sampler's. Since the tool twins came,
+     [aot] runs at FLASH_DEPTH encoder blocks too (a reference .pt of
+     [weights]' first blocks through the CLI), for the script's time;
+ 18. the tool and script twins: [validate-port] (after 13.)
+     tools/torch_validate_port.py on a reference-layout DiT-XL/2 file
+     whose model and ema differ, at 256 px with ``--sample`` and [vae]'s
+     file and at 512 px: every key consumed, nothing non-finite, an EMA
+     delta > 0, each sigma row finite and within MODEL_REL_BOUND[bf16] of
+     the same table on the plain attention, its #1 / #3 launches;
+     [fid-gate-dry] and [smoke-pipeline] scripts/torch_fid_parity_gate.sh
+     --dry-wire and scripts/torch_smoke_pipeline.sh with DEVICE=cuda, in
+     processes of their own beside the parity steps of 12. and 16., 13. and
+     [validate-port], whose results are checks (their launches
+     are their processes', uncounted here): exit 0, their closing lines, a
+     finite FID, 8 PNGs; [mu-curve] tools/torch_mu_dtype_curve.py's run
+     (four processes of their own beside the same, launches counted there)
+     and report for mu, nu and munu at 200 steps against one fp32 run: the
+     JAX tool's report keys, finite losses, one #7 launch per step, a
+     divergence guard; [trace] tools/torch_trace_capture.py in
+     train mode at [train-profile]'s batch and in sample mode, each trace
+     read by tools/torch_trace_report.py: the port's kernels among its
+     categories, the train step's device ms within 10% of
+     [train-profile]'s busy ms, ``device_memory_stats`` against the
+     allocator; [attn-bench] tools/torch_attn_bench.py with its three
+     implementations: every row timed or refused, only the JAX window's
+     refusals, the kernels' launches.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -191,11 +222,15 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -577,6 +612,30 @@ STAGED_NU_OVERRIDES = STAGED_OVERRIDES + ("train.nu_dtype=bfloat16",
 # sampler's
 AOT_STEPS = 2
 AOT_CHURN, AOT_CHURN_SEED = 1, 7  # the CLI takes --S_churn as an int, as the JAX CLI does
+AOT_CKPT = os.path.join(SCRATCH, "random-xl2-aot.pt")  # [weights]' first FLASH_DEPTH blocks
+# the tool and script twins. [validate-port]: a reference-layout file of
+# [weights]' tensors as ``ema`` and the same plus VALIDATE_DELTA as
+# ``model``; the sigma table's evaluations (one unmasked forward each, no
+# CFG) and the sample's (CFG, 40 steps) in whole-row (256 px) or blocked
+# (512 px) launches
+VALIDATE_CKPT = os.path.join(SCRATCH, "random-xl2-validate.pt")
+VALIDATE_DELTA = 1e-3
+VALIDATE_SIGMAS, VALIDATE_SAMPLES = 5, 8
+# [mu-curve]: the twin's default run (DiT-S/2: 12 encoder + 8 decoder
+# blocks, all on the whole-row kernels at its 32 kept and 64 tokens); the
+# divergence guard: the last 20 steps' mean losses within this share of the
+# fp32 run's (a guard against divergence, not a parity bound)
+MU_CURVE_STEPS, MU_CURVE_BLOCKS, MU_CURVE_GUARD = 200, 12 + 8, 0.05
+# [trace]: the capture twin's train mode at [train-profile]'s batch (its
+# 1 + 2 + 5 untraced and N_STEPS traced steps), its sample mode at
+# TRACE_SAMPLE_STEPS steps, batch SEEDS (3 sampler runs: first, steady,
+# traced); the train report's device ms per step against [train-profile]'s
+# busy ms
+TRACE_STEPS, TRACE_SAMPLE_STEPS, TRACE_BUSY_TOLERANCE = 3, 4, 0.10
+# [attn-bench]: the twin's calls per row (one warm-up + 30 timed, forward;
+# the same, forward + backward). A kernel may refuse only a row the JAX
+# package's window sends elsewhere (flash_batched.jax_window)
+ATTN_BENCH_CALLS = 31
 
 
 def log(msg: str) -> None:
@@ -1797,9 +1856,13 @@ def phase_flash_parity(ckpt: str) -> dict:
 
 def phase_aot(ckpt: str) -> dict:
     """sample256's sampler exported at AOT_STEPS with S_churn AOT_CHURN
-    through the generate CLI (``--export_aot``), DiT-XL/2 at full depth,
-    bf16, CFG 1.5, batch SEEDS; then the 512-px one (#3) and the use_flash
-    one (#5) at FLASH_DEPTH encoder blocks (``sampling/aot.export_sampler``).
+    through the generate CLI (``--export_aot``, from AOT_CKPT: [weights]'
+    first FLASH_DEPTH encoder blocks as a reference .pt), DiT-XL/2 at
+    FLASH_DEPTH encoder blocks, full width, bf16, CFG 1.5, batch SEEDS; then
+    the 512-px one (#3) and the use_flash one (#5) at FLASH_DEPTH encoder
+    blocks too (``sampling/aot.export_sampler``). Each checks the export
+    path, not the model's depth (the 256-px one ran at full depth before the
+    tool twins came).
     Every file is exported and every live sampler timed first; then one
     fresh process that imports only torch and maskdit_tpu_torch.ops
     (``worker_aot_reload``) reloads each file with ``load_sampler`` and
@@ -1819,11 +1882,12 @@ def phase_aot(ckpt: str) -> dict:
     state = load_reference_checkpoint(ckpt)
     dropped = tuple(f"model.blocks.{i}." for i in range(FLASH_DEPTH, DEPTH))
     shallow = {k: v for k, v in state.items() if not k.startswith(dropped)}
+    torch.save({"ema": shallow}, AOT_CKPT)
     # tag: (resolution, use_flash, depth context, weights, S_churn, counter,
     # launches per run)
     plans = {
-        "aot": (32, None, contextlib.nullcontext(), state, AOT_CHURN, "packed_fwd",
-                evals * (DEPTH + DECODER_DEPTH)),
+        "aot": (32, None, xl_depth(FLASH_DEPTH), shallow, AOT_CHURN, "packed_fwd",
+                evals * FLASH_ATTN_PER_STEP),
         "aot-512": (64, None, xl_depth(FLASH_DEPTH), shallow, 0.0, "big_fwd",
                     evals * FLASH_ATTN_PER_STEP),
         "aot-flash": (32, True, xl_depth(FLASH_DEPTH), shallow, 0.0, "flash_fwd",
@@ -1838,7 +1902,7 @@ def phase_aot(ckpt: str) -> dict:
             model = parity_model(weights, torch.bfloat16, res, use_flash=use_flash)
             if tag == "aot":  # as a user exports: the CLI builds its own model
                 export_s = generate.main([
-                    "--ckpt_path", ckpt, "--export_aot", path, "--max_batch_size", str(SEEDS),
+                    "--ckpt_path", AOT_CKPT, "--export_aot", path, "--max_batch_size", str(SEEDS),
                     "--cfg_scale", str(CFG), "--num_steps", str(AOT_STEPS),
                     "--S_churn", str(churn), "--model_type", "DiT-XL/2", "--image_size",
                     str(res), "--image_channels", "4", "--num_classes", "1000",
@@ -1871,7 +1935,7 @@ def phase_aot(ckpt: str) -> dict:
     free_device_memory()
     jobs_path, result = (os.path.join(SCRATCH, f"aot-{name}.json") for name in ("jobs", "result"))
     with open(jobs_path, "w") as f:
-        json.dump(dict(jobs=jobs, weights=ckpt), f)
+        json.dump(dict(jobs=jobs, weights=AOT_CKPT), f)
     t_reload = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--worker", "aot-reload", jobs_path, result],
@@ -1901,7 +1965,7 @@ def phase_aot(ckpt: str) -> dict:
         rel = ((exported.float() - live.float()).abs().max() / live.float().abs().max()).item()
         exact = torch.equal(exported, live)
         r = out[tag]
-        depth = "full depth" if tag == "aot" else f"{FLASH_DEPTH} encoder blocks"
+        depth = f"{FLASH_DEPTH} encoder blocks"
         how = "the generate CLI" if tag == "aot" else "export_sampler"
         log(f"[{tag}] DiT-XL/2 @{r['res'] * 8} ({depth}), bf16, CFG {CFG}, S_churn {r['churn']}, "
             f"batch {SEEDS}, {AOT_STEPS} steps ({evals} evaluations): export through {how} "
@@ -1928,7 +1992,7 @@ def worker_aot_reload(jobs_path: str, result: str) -> None:
 
     with open(jobs_path) as f:
         spec = json.load(f)
-    weights = torch.load(spec["weights"])["ema"]  # [weights]' reference-layout file
+    weights = torch.load(spec["weights"])["ema"]  # a reference-layout file (AOT_CKPT)
     report = {}
     for job in spec["jobs"]:
         t0 = time.perf_counter()
@@ -1986,6 +2050,8 @@ def profile_device(tag: str, fn, reps: int, what: str) -> tuple[float, float]:
     the device busy ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
+    from maskdit_tpu_torch.ops.build import RANGE_PREFIX
+
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1997,7 +2063,10 @@ def profile_device(tag: str, fn, reps: int, what: str) -> tuple[float, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # the device time of the kernels, memory copies and sets: the kernels'
+    # launch ranges (ops/build.launch_range) span kernels counted already
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not e.key.startswith(RANGE_PREFIX)]
     busy_ms = sum(e.self_device_time_total for e in events) / reps / 1e3
     launches = sum(e.count for e in events) // reps
     log(f"[{tag}] {what}: wall {wall_ms:.3f} ms (unprofiled), device busy {busy_ms:.3f} ms "
@@ -2361,29 +2430,35 @@ def phase_parity_train_options(res: int = 32, n: int = PARITY_BATCH) -> dict:
 
 
 def phase_train_options(train: dict) -> dict:
-    """The train CLI on TRAIN_CONFIG with TRAIN_OPTIONS: finite losses, 36 +
-    36 attention launches per micro-batch and one update per step; its
-    ms/step, images/s and peak memory beside [train]'s."""
+    """The train CLI on TRAIN_CONFIG with TRAIN_OPTIONS: finite losses, one
+    attention launch per block and micro-batch each way and one update per
+    step; its ms/step, images/s and peak memory beside [train]'s. Since the
+    tool twins came it runs under ``xl_depth(FLASH_DEPTH)``: it checks the
+    options, not the depth."""
+    layers = xl_blocks() + DECODER_DEPTH
     out = run_train("train-options", TRAIN_CONFIG, 32, dict(
-        packed_fwd=TRAIN_OPTIONS_ACCUM * ATTN_PER_STEP,
-        packed_bwd=TRAIN_OPTIONS_ACCUM * ATTN_PER_STEP, adam=ADAM_PER_STEP),
+        packed_fwd=TRAIN_OPTIONS_ACCUM * layers,
+        packed_bwd=TRAIN_OPTIONS_ACCUM * layers, adam=ADAM_PER_STEP),
         TRAIN_OPTIONS, write_checkpoints=False)
-    log(f"[train-options] global batch {TRAIN_OPTIONS_MICRO * TRAIN_OPTIONS_ACCUM} "
+    log(f"[train-options] {xl_blocks()} encoder blocks, global batch "
+        f"{TRAIN_OPTIONS_MICRO * TRAIN_OPTIONS_ACCUM} "
         f"({TRAIN_OPTIONS_ACCUM} x {TRAIN_OPTIONS_MICRO}): {out['ms_per_step']:.1f} ms/step, "
         f"{out['images_per_s']:.2f} images/s, peak {out['peak_gib']:.2f} GiB; [train] "
-        f"(batch {TRAIN_BATCH}, no options): {train['ms_per_step']:.1f} ms/step, "
+        f"(full depth, batch {TRAIN_BATCH}, no options): {train['ms_per_step']:.1f} ms/step, "
         f"{train['images_per_s']:.2f} images/s, peak {train['peak_gib']:.2f} GiB")
     return out
 
 
-def phase_train_staged(train: dict, adam: dict) -> dict:
+def phase_train_staged(train: dict) -> dict:
     """The train CLI on TRAIN_CONFIG with ``train.fused_adam=false``: finite
-    losses, 36 + 36 whole-row launches and no launch of kernel #7 per step,
-    ms/step and peak memory beside [train]'s; then the same with bf16 mu and
-    nu (the staged update's SR twin), nu stored in bf16 (their ms/step holds
-    the update's cost); then one fp32 staged update over all of DiT-XL/2's
-    parameters, profiled, beside #7's ms."""
-    per_step = dict(packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP)
+    losses, one whole-row launch per block each way and no launch of kernel
+    #7 per step, ms/step and peak memory beside [train]'s; then the same
+    with bf16 mu and nu (the staged update's SR twin), nu stored in bf16.
+    Since the tool twins came it runs under ``xl_depth(FLASH_DEPTH)``: it
+    checks the option; ``profile_staged_update`` times the update over all
+    of DiT-XL/2's parameters."""
+    layers = xl_blocks() + DECODER_DEPTH
+    per_step = dict(packed_fwd=layers, packed_bwd=layers)
     out = run_train("train-staged", TRAIN_CONFIG, 32, per_step, STAGED_OVERRIDES + (
         f"train.max_num_steps={TRAIN_STEPS_STAGED}",), write_checkpoints=False)
     nu = run_train("train-staged-nu", TRAIN_CONFIG, 32, per_step, STAGED_NU_OVERRIDES + (
@@ -2392,11 +2467,10 @@ def phase_train_staged(train: dict, adam: dict) -> dict:
     if nu["moments"] != ["bfloat16", "bfloat16"]:
         raise AssertionError(f"train-staged-nu: moments {nu['moments']}")
     out["nu"] = nu
-    out["update"] = profile_staged_update(adam)
-    log(f"[train-staged] {out['ms_per_step']:.1f} ms/step, {out['images_per_s']:.2f} images/s, "
-        f"peak {out['peak_gib']:.2f} GiB; with bf16 mu and nu {nu['ms_per_step']:.1f} ms/step, "
-        f"peak {nu['peak_gib']:.2f} GiB; [train] (kernel #7): {train['ms_per_step']:.1f} ms/step, "
-        f"peak {train['peak_gib']:.2f} GiB")
+    log(f"[train-staged] {xl_blocks()} encoder blocks: {out['ms_per_step']:.1f} ms/step, "
+        f"{out['images_per_s']:.2f} images/s, peak {out['peak_gib']:.2f} GiB; with bf16 mu and "
+        f"nu {nu['ms_per_step']:.1f} ms/step, peak {nu['peak_gib']:.2f} GiB; [train] (full "
+        f"depth, kernel #7): {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB")
     return out
 
 
@@ -3060,9 +3134,10 @@ def worker_train(device: str, gloo: bool) -> dict:
 
 def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = TRAIN_BATCH,
                         reps: int = 3, use_flash=None, fp32: bool = False,
-                        mask_ratio: float = 0.5) -> None:
+                        mask_ratio: float = 0.5) -> float:
     """Device time by kernel over warm train steps at the main path's batch
-    (bf16, or ``fp32``; mask ``mask_ratio``), from torch.profiler."""
+    (bf16, or ``fp32``; mask ``mask_ratio``), from torch.profiler; returns
+    the device busy ms per step."""
     from maskdit_tpu_torch.data.datasets import SyntheticLatentDataset
     from maskdit_tpu_torch.data.loader import DataLoader
     from maskdit_tpu_torch.models import create_model
@@ -3084,12 +3159,13 @@ def phase_train_profile(tag: str = "train-profile", res: int = 32, batch: int = 
     gen = torch.Generator(device="cuda").manual_seed(0)
     step(state, batch_dev, gen)
     flag = "" if use_flash is None else f", use_flash={use_flash}"
-    profile_device(tag, lambda: step(state, batch_dev, gen), reps,
-                   f"one train step (DiT-XL/2 @{res * 8}, batch {batch}, mask {mask_ratio}, "
-                   f"{'fp32' if fp32 else 'bf16'}{flag})")
+    _, busy_ms = profile_device(tag, lambda: step(state, batch_dev, gen), reps,
+                                f"one train step (DiT-XL/2 @{res * 8}, batch {batch}, mask "
+                                f"{mask_ratio}, {'fp32' if fp32 else 'bf16'}{flag})")
     log(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1024 ** 3:.2f} GiB")
     del model, opt, state, step
     free_device_memory()
+    return busy_ms
 
 
 def conv_flops(module: torch.nn.Module, fn) -> float:
@@ -3535,20 +3611,15 @@ def phase_extract(vae_path: str) -> dict:
     return out
 
 
-def phase_overfit_gate() -> dict:
+def phase_overfit_gate(proc: subprocess.Popen) -> dict:
     """tools/torch_overfit_gate.py at its defaults on the card (2000 fp32
-    steps of the tiny DiT-S/2, 18-step sampler, 8 classes); fails unless
-    the verdict passes. Its launches: per step 4 encoder + 2 decoder
-    attention calls forward and backward and one update; per class 35
-    evaluations of 6 attention calls."""
-    from tools.torch_overfit_gate import run_gate
-
-    free_device_memory()
-    reset_launches()
-    t0 = time.perf_counter()
-    verdict = run_gate(out=os.path.join(SCRATCH, "overfit-gate"), device="cuda")
-    seconds = time.perf_counter() - t0
-    launches = read_launches()
+    steps of the tiny DiT-S/2, 18-step sampler, 8 classes), in the
+    ``start_worker`` process ``proc`` (beside the data-parallel phases and
+    [validate-port]); fails unless the verdict passes. Its launches: per step 4
+    encoder + 2 decoder attention calls forward and backward and one
+    update; per class 35 evaluations of 6 attention calls."""
+    got = finish_worker(proc)
+    verdict, seconds, launches = got["verdict"], got["seconds"], got["launches"]
     log(f"[overfit-gate] {json.dumps(verdict)}; {seconds:.1f} s")
     if not verdict["passed"]:
         raise AssertionError(f"overfit-gate: {verdict}")
@@ -3556,6 +3627,356 @@ def phase_overfit_gate() -> dict:
     expect_launches("overfit-gate", launches, packed_fwd=steps * blocks + classes * evals * blocks,
                     packed_bwd=steps * blocks, adam=steps)
     return dict(verdict=verdict, seconds=seconds, launches=launches)
+
+
+def write_validate_checkpoint(ckpt: str) -> None:
+    """[weights]' tensors as a reference .pt whose ``ema`` is those tensors
+    and whose ``model`` differs from them by VALIDATE_DELTA."""
+    from maskdit_tpu_torch.utils.ckpt import load_reference_checkpoint
+
+    ema = load_reference_checkpoint(ckpt)
+    raw = {k: v + VALIDATE_DELTA for k, v in ema.items()}
+    torch.save({"model": raw, "ema": ema, "args": {}}, VALIDATE_CKPT)
+
+
+def phase_validate_port(ckpt: str, vae_path: str) -> dict:
+    """tools/torch_validate_port.py (its ``main``) on VALIDATE_CKPT at 256 px
+    with ``--sample`` and [vae]'s file, then at 512 px: both state dicts
+    wholly consumed and filling every parameter, no tensor non-finite, the
+    EMA delta VALIDATE_DELTA (> 0), every sigma row finite and within
+    MODEL_REL_BOUND[bf16] of the same table on the plain attention, 8 PNGs
+    read back; #1 launched VALIDATE_SIGMAS x 36 times for the table and (2
+    x STEPS - 1) x 36 for the sample at 256 px, #3 VALIDATE_SIGMAS x 36 at
+    512 px, nothing else."""
+    from tools.torch_validate_port import main as validate, sigma_table
+
+    t0 = time.perf_counter()
+    write_validate_checkpoint(ckpt)
+    log(f"[validate-port] wrote a reference .pt of [weights]' tensors, model = ema + "
+        f"{VALIDATE_DELTA} ({os.path.getsize(VALIDATE_CKPT) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    layers = DEPTH + DECODER_DEPTH
+    out, launches = {}, {name: 0 for name in kernel_counters()}
+    bnd = MODEL_REL_BOUND[torch.bfloat16]
+    for res, counter in ((32, "packed_fwd"), (64, "big_fwd")):
+        outdir = os.path.join(SCRATCH, f"port-check-{res * 8}")
+        argv = ["--ckpt_path", VALIDATE_CKPT, "--image_size", str(res), "--outdir", outdir,
+                "--device", "cuda"]
+        if res == 32:
+            argv += ["--sample", "--vae_path", vae_path]
+        free_device_memory()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = validate(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        run = read_launches()
+        evals = VALIDATE_SIGMAS + (2 * STEPS - 1 if res == 32 else 0)
+        expect_launches(f"validate-port-{res * 8}", run, **{counter: evals * layers})
+        for name, count in run.items():
+            launches[name] += count
+        model, (x, y) = got.pop("model"), got.pop("inputs")
+        with plain_attention():
+            plain = sigma_table(model, x, y)
+        del model
+        table = np.array([(r["norm_ratio"], r["resid"]) for r in got["table"]])
+        ref = np.array([(r["norm_ratio"], r["resid"]) for r in plain])
+        rel = (np.abs(table - ref).max(axis=0) / np.abs(ref).max(axis=0)).tolist()
+        cover = got["coverage"]
+        rows = [(r["sigma"], round(r["norm_ratio"], 4), round(r["resid"], 2))
+                for r in got["table"]]
+        log(f"[validate-port] {res * 8} px: coverage "
+            f"{ {k: (c['n_src'], c['n_dst']) for k, c in cover.items()} }, EMA delta "
+            f"{got['ema_delta']:.3e}; sigma -> (||D||/||x||, ||D - c_skip x||) {rows}"
+            f"; kernel vs plain max rel err per column {[f'{v:.3e}' for v in rel]} (bound "
+            f"{bnd:.0e}); {seconds:.1f} s")
+        if any(c["non_finite"] or c["unused"] or c["unfilled"] or c["n_src"] != c["n_dst"]
+               for c in cover.values()):
+            raise AssertionError(f"validate-port {res * 8}: coverage {cover}")
+        if not (np.isfinite(table).all() and max(rel) <= bnd
+                and abs(got["ema_delta"] - VALIDATE_DELTA) < VALIDATE_DELTA / 2):
+            raise AssertionError(f"validate-port {res * 8}: table {got['table']}, plain "
+                                 f"{plain}, delta {got['ema_delta']}")
+        if res == 32:
+            read_pngs(outdir, VALIDATE_SAMPLES, 256)
+        out[res * 8] = dict(table=got["table"], rel=rel, seconds=seconds,
+                            ema_delta=got["ema_delta"])
+    os.remove(VALIDATE_CKPT)
+    out["launches"] = launches
+    return out
+
+
+BACKGROUND: list = []  # start_process's processes, stopped by stop_background
+
+
+def start_process(tag: str, argv: list, **env) -> subprocess.Popen:
+    """``argv`` in a process group of its own, from the repository's root,
+    beside whatever runs here; its output goes to a log for
+    ``finish_process``. Scripts see DEVICE=cuda and this interpreter as
+    PYTHON."""
+    log_path = os.path.join(SCRATCH, f"{tag}.log")
+    os.makedirs(SCRATCH, exist_ok=True)
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            argv, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+            env={**os.environ, "DEVICE": "cuda", "PYTHON": sys.executable, **env})
+    proc.tag, proc.log_path, proc.t0 = tag, log_path, time.perf_counter()
+
+    def ended() -> None:  # the process's own end, whenever it is collected
+        proc.wait()
+        proc.t1 = time.perf_counter()
+
+    proc.watch = threading.Thread(target=ended, daemon=True)
+    proc.watch.start()
+    BACKGROUND.append(proc)
+    return proc
+
+
+def stop_background() -> None:
+    """Kill the process group of every ``start_process`` process still
+    running (a phase failed before waiting for it)."""
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def finish_process(proc: subprocess.Popen) -> tuple[int, str, float]:
+    """Wait for a ``start_process`` process (killed past WORKER_TIMEOUT);
+    logs its output; returns its exit code, output and seconds from its
+    start to its end."""
+    try:
+        rc = proc.wait(timeout=WORKER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        raise
+    proc.watch.join()
+    seconds = proc.t1 - proc.t0
+    with open(proc.log_path) as f:
+        text = f.read()
+    for line in text.splitlines():
+        log(f"[{proc.tag}:out] {line}")
+    return rc, text, seconds
+
+
+def start_worker(tag: str, *args: str) -> subprocess.Popen:
+    """This script's ``worker_alone`` ``tag`` in a process of its own."""
+    result = os.path.join(SCRATCH, f"{tag}{''.join('-' + a for a in args)}.json")
+    if os.path.exists(result):
+        os.remove(result)
+    proc = start_process(os.path.basename(result)[:-5],
+                         [sys.executable, os.path.abspath(__file__), "--worker-alone", tag,
+                          result, *args])
+    proc.result = result
+    return proc
+
+
+def finish_worker(proc: subprocess.Popen) -> dict:
+    """A ``start_worker`` process's result: exit 0, then its JSON."""
+    rc, text, _ = finish_process(proc)
+    if rc != 0:
+        raise AssertionError(f"{proc.tag}: the worker failed ({rc}):\n{text[-3000:]}")
+    with open(proc.result) as f:
+        return json.load(f)
+
+
+def worker_alone(tag: str, result: str, *args: str) -> None:
+    """A phase run beside others in a process of its own (no process
+    group), with the launch counts read there and written with its result:
+    ``mu-curve VARIANT`` (tools/torch_mu_dtype_curve.py's ``run`` at
+    MU_CURVE_STEPS steps; ``fp32`` for the fp32 run) or ``overfit-gate``
+    (tools/torch_overfit_gate.py's ``run_gate`` at its defaults). TF32 is
+    off, as in the main process."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launches()
+    t0 = time.perf_counter()
+    if tag == "mu-curve":
+        from tools.torch_mu_dtype_curve import VARIANTS, run
+
+        out = dict(losses=run(MU_CURVE_STEPS, device="cuda", **VARIANTS.get(args[0], {})))
+    elif tag == "overfit-gate":
+        from tools.torch_overfit_gate import run_gate
+
+        out = dict(verdict=run_gate(out=os.path.join(SCRATCH, "overfit-gate"), device="cuda"))
+    else:
+        raise SystemExit(f"unknown worker {tag}")
+    torch.cuda.synchronize()
+    out.update(launches=read_launches(), seconds=time.perf_counter() - t0)
+    with open(result, "w") as f:
+        json.dump(out, f)
+
+
+def start_scripts() -> dict:
+    """[fid-gate-dry] scripts/torch_fid_parity_gate.sh --dry-wire and
+    [smoke-pipeline] scripts/torch_smoke_pipeline.sh, started on the card in
+    processes of their own (mostly their stages' start-up), to run beside
+    the phases that follow until ``finish_scripts``."""
+    pipe_root = os.path.join(SCRATCH, "pipe")
+    shutil.rmtree(pipe_root, ignore_errors=True)
+    return {
+        "fid-gate-dry": start_process(
+            "fid-gate-dry", ["bash", "scripts/torch_fid_parity_gate.sh", "--dry-wire"],
+            FID_GATE_TMP=os.path.join(SCRATCH, "fid-gate")),
+        "smoke-pipeline": start_process(
+            "smoke-pipeline", ["bash", "scripts/torch_smoke_pipeline.sh"], PIPE_ROOT=pipe_root),
+    }
+
+
+def finish_scripts(procs: dict) -> dict:
+    """Each script exited 0 with its closing line (``DRY WIRING OK``,
+    ``PIPELINE COMPLETE``) and a finite FID; the pipeline's 8 PNGs (64 px)
+    read back."""
+    out = {}
+    for tag, closing in (("fid-gate-dry", "DRY WIRING OK"),
+                         ("smoke-pipeline", "=== PIPELINE COMPLETE ===")):
+        rc, text, seconds = finish_process(procs[tag])
+        fids = [float(v) for v in re.findall(r"FID: ([-+0-9.eEnaif]+)", text)]
+        log(f"[{tag}] exit {rc} in {seconds:.1f} s; FID {fids}")
+        if rc != 0 or closing not in text or not fids or not np.isfinite(fids[-1]):
+            raise AssertionError(f"{tag}: exit {rc}, FID {fids}:\n{text[-3000:]}")
+        out[tag] = dict(seconds=seconds, fid=fids[-1])
+    read_pngs(os.path.join(SCRATCH, "pipe", "samples"), 8, 64)
+    return out
+
+
+def phase_mu_curve(procs: dict) -> dict:
+    """tools/torch_mu_dtype_curve.py's ``run`` (in ``start_worker``
+    processes, one per curve, beside the data-parallel phases and
+    [validate-port]) and ``report_of`` (what
+    its ``main`` prints for one variant) for mu, nu and munu at
+    MU_CURVE_STEPS steps against one fp32 run (``main`` would repeat it per
+    variant): the JAX tool's report keys; every loss finite; #7 once per step
+    and the whole-row kernels once per block and step in each run. The guard
+    tail20_gap <= MU_CURVE_GUARD x tail20_mean_fp32 catches a divergence
+    only; it is not a parity bound."""
+    from tools.torch_mu_dtype_curve import report_of
+
+    out, launches, curves = {}, {name: 0 for name in kernel_counters()}, {}
+    for variant in ("fp32", "mu", "nu", "munu"):
+        got = finish_worker(procs[variant])
+        expect_launches(f"mu-curve-{variant}", got["launches"],
+                        packed_fwd=MU_CURVE_STEPS * MU_CURVE_BLOCKS,
+                        packed_bwd=MU_CURVE_STEPS * MU_CURVE_BLOCKS, adam=MU_CURVE_STEPS)
+        for name, count in got["launches"].items():
+            launches[name] += count
+        curves[variant] = got["losses"]
+        if len(curves[variant]) != MU_CURVE_STEPS or not np.isfinite(curves[variant]).all():
+            raise AssertionError(f"mu-curve {variant}: losses {curves[variant]}")
+        if variant == "fp32":
+            log(f"[mu-curve] fp32: {MU_CURVE_STEPS} steps in {got['seconds']:.1f} s")
+            continue
+        report = report_of(variant, MU_CURVE_STEPS, curves["fp32"], curves[variant])
+        keys = ["variant", "steps", "final_loss_fp32", f"final_loss_{variant}",
+                "tail20_mean_fp32", f"tail20_mean_{variant}", "tail20_gap", "max_step_gap",
+                "mean_step_gap"]
+        log(f"[mu-curve] {variant}: {json.dumps(report)}; {got['seconds']:.1f} s")
+        if (list(report) != keys
+                or report["tail20_gap"] > MU_CURVE_GUARD * report["tail20_mean_fp32"]):
+            raise AssertionError(f"mu-curve {variant}: {report}")
+        out[variant] = dict(max_step_gap=report["max_step_gap"],
+                            tail20_gap=report["tail20_gap"], seconds=got["seconds"])
+    out["launches"] = launches
+    return out
+
+
+def phase_trace(profile_busy_ms: float) -> dict:
+    """tools/torch_trace_capture.py (its ``main``) in train mode at
+    [train-profile]'s batch and in sample mode (TRACE_SAMPLE_STEPS steps,
+    batch SEEDS), each trace read by tools/torch_trace_report.py: the train
+    report names #1, #2 and #7 among its categories and the sample report
+    #1; the train step's device ms within TRACE_BUSY_TOLERANCE of
+    [train-profile]'s busy ms; ``device_memory_stats()['mem_peak_gib']`` the
+    allocator's peak in GiB. Launches: 1 + 2 + 5 + TRACE_STEPS train steps
+    (36 + 36 and one update each) and 3 sampler runs."""
+    from tools import torch_trace_capture as capture, torch_trace_report as report_tool
+    from maskdit_tpu_torch.utils.profiling import device_memory_stats
+
+    out, launches = {}, {name: 0 for name in kernel_counters()}
+    layers = DEPTH + DECODER_DEPTH
+    plans = {
+        "train": ({"PROBE_BATCH": str(TRAIN_BATCH), "N_STEPS": str(TRACE_STEPS)}, TRACE_STEPS,
+                  dict(packed_fwd=(8 + TRACE_STEPS) * layers,
+                       packed_bwd=(8 + TRACE_STEPS) * layers, adam=8 + TRACE_STEPS),
+                  ("#1 packed_attention_fwd", "#2 packed_attention_bwd", "#7 fused_adam_ema")),
+        "sample": ({"PROBE_MODE": "sample", "PROBE_STEPS": str(TRACE_SAMPLE_STEPS),
+                    "PROBE_BATCH": str(SEEDS), "N_STEPS": str(TRACE_STEPS)}, 1,
+                   dict(packed_fwd=3 * (2 * TRACE_SAMPLE_STEPS - 1) * layers),
+                   ("#1 packed_attention_fwd",)),
+    }
+    for mode, (env, runs, expected, names) in plans.items():
+        trace_dir = os.path.join(SCRATCH, f"trace-{mode}")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        free_device_memory()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = capture.main([trace_dir, "--device", "cuda"], env=env)
+        seconds = time.perf_counter() - t0
+        run = read_launches()
+        expect_launches(f"trace-{mode}", run, **expected)
+        for name, count in run.items():
+            launches[name] += count
+        mem = device_memory_stats()
+        peak = torch.cuda.max_memory_allocated() / 1024 ** 3
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rep = report_tool.main([trace_dir, str(runs)])
+        for line in printed.getvalue().splitlines()[:40]:
+            log(f"[trace-{mode}:report] {line}")
+        cats = {k: round(v, 3) for k, v in sorted(rep["categories"].items(), key=lambda kv: -kv[1])}
+        log(f"[trace-{mode}] first {got['first_s']:.1f} s, steady {got['steady_ms']:.1f} ms; "
+            f"device {rep['ms_per_step']:.3f} ms per {'step' if mode == 'train' else 'run'} in "
+            f"{rep['events']} events; by category {cats}; memory {mem}, allocator peak "
+            f"{peak:.4f} GiB; {seconds:.1f} s")
+        missing = [n for n in names if n not in rep["categories"]]
+        if missing or abs(mem.get("mem_peak_gib", -1) - peak) > 1e-9:
+            raise AssertionError(f"trace-{mode}: categories {cats} lack {missing}; memory {mem} "
+                                 f"vs {peak}")
+        out[mode] = dict(ms=rep["ms_per_step"], categories=rep["categories"], seconds=seconds,
+                         steady_ms=got["steady_ms"], mem=mem)
+    gap = abs(out["train"]["ms"] - profile_busy_ms) / profile_busy_ms
+    log(f"[trace] train step device {out['train']['ms']:.3f} ms against [train-profile]'s busy "
+        f"{profile_busy_ms:.3f} ms: {gap:.3f} apart (bound {TRACE_BUSY_TOLERANCE})")
+    if gap > TRACE_BUSY_TOLERANCE:
+        raise AssertionError(f"trace: {out['train']['ms']} vs {profile_busy_ms}")
+    out["launches"] = launches
+    return out
+
+
+def phase_attn_bench() -> dict:
+    """tools/torch_attn_bench.py (its ``bench``) with xla, batched and flash
+    at its SHAPES: every row timed (finite) or refused with the kernel's
+    message; a refusal only where the JAX window sends the shape elsewhere
+    (``flash_batched.jax_window`` false, batched rows only); the whole-row
+    (#1 / #2) and flash (#5 / #6) launches of the rows timed: per row
+    ATTN_BENCH_CALLS forward calls, and as many forward + backward."""
+    from tools.torch_attn_bench import IMPLS, SHAPES, bench
+    from maskdit_tpu_torch.ops.flash_batched import jax_window
+
+    free_device_memory()
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = bench(list(IMPLS), torch.device("cuda"))
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    shapes = dict(SHAPES)
+    counters = {"batched": ("packed_fwd", "packed_bwd"), "flash": ("flash_fwd", "flash_bwd")}
+    want = {}
+    for r in rows:
+        if "refused" in r:
+            n, h, l, hd = shapes[r["shape"]]
+            if r["impl"] != "batched" or jax_window(h, l, hd):
+                raise AssertionError(f"attn-bench: {r}")
+        elif not np.isfinite([r["fwd_ms"], r["fwd_bwd_ms"]]).all():
+            raise AssertionError(f"attn-bench: {r}")
+        elif r["impl"] in counters:
+            fwd, bwd = counters[r["impl"]]
+            want[fwd] = want.get(fwd, 0) + 2 * ATTN_BENCH_CALLS
+            want[bwd] = want.get(bwd, 0) + ATTN_BENCH_CALLS
+    expect_launches("attn-bench", launches, **want)
+    log(f"[attn-bench] {len(rows)} rows, refused "
+        f"{[(r['shape'], r['impl']) for r in rows if 'refused' in r]}; {seconds:.1f} s")
+    return dict(rows=rows, launches=launches, seconds=seconds)
 
 
 def kernel_line(name: str, source: str, replaces: str, launches: int, err: float,
@@ -3602,18 +4023,27 @@ def main() -> None:
         mark("eval")
         train = phase_train(vae["path"], evals["stats"])
         parity_train = phase_parity_train()
-        phase_train_profile()
+        profile_busy = phase_train_profile()
         mark("train (with train-eval)")
+        with xl_depth(FLASH_DEPTH):
+            train_options = phase_train_options(train)
+            train_staged = phase_train_staged(train)
+        train_staged["update"] = profile_staged_update(adam)
+        mark("train-options, train-staged")
+        # the script twins, the overfit gate and the mu-curve's four runs, in
+        # processes of their own, beside phases whose results are checks
+        scripts, gate = start_scripts(), start_worker("overfit-gate")
+        curves = {v: start_worker("mu-curve", v) for v in ("fp32", "mu", "nu", "munu")}
         parity_options = phase_parity_train_options()
-        train_options = phase_train_options(train)
-        mark("train-options")
-        train_staged = phase_train_staged(train, adam)
         parity_staged = phase_parity_train_staged()
-        mark("train-staged")
         parity_ddp = phase_parity_ddp()
         train_ddp = phase_train_ddp()
         train_ddp_nccl = phase_train_ddp_nccl()
-        mark("data parallel")
+        validate = phase_validate_port(ckpt, vae["path"])
+        mu_curve = phase_mu_curve(curves)
+        scripts, gate = finish_scripts(scripts), phase_overfit_gate(gate)
+        mark("parity of the options and the staged step, data parallel, validate-port (beside "
+             "them the script twins, the overfit gate, mu-curve)")
         train_512 = run_train("train-512", TRAIN_CONFIG_512, 64, dict(
             big_fwd=ATTN_PER_STEP, big_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
         parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
@@ -3651,9 +4081,11 @@ def main() -> None:
             train_cls = phase_train_cls_feat()
             parity_cls = phase_parity_cls()
         mark("model corners")
-        gate = phase_overfit_gate()
-        mark("overfit-gate")
+        traced = phase_trace(profile_busy)
+        attn_bench = phase_attn_bench()
+        mark("trace, attn-bench")
     finally:
+        stop_background()
         shutil.rmtree(SCRATCH, ignore_errors=True)
     log(f"[summary] {smi}: sampling 256 {main_path['images_per_s']:.3f} images/s (cold), "
         f"warm {parity['sampling']['kernel']}; sampling 512 {main_512['images_per_s']:.3f} "
@@ -3701,11 +4133,25 @@ def main() -> None:
             f"{[round(x, 3) for x in v['images_per_s']]} live "
             f"{[round(x, 3) for x in v['live_images_per_s']]}"
             for k, v in aot.items() if k != "launches") +
-        f"; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+        f"; tool twins: validate-port sigma rows kernel vs plain "
+        f"{ {k: [round(x, 6) for x in v['rel']] for k, v in validate.items() if k != 'launches'} }"
+        f", fid-gate-dry FID {scripts['fid-gate-dry']['fid']:.4f} in "
+        f"{scripts['fid-gate-dry']['seconds']:.1f} s, smoke-pipeline FID "
+        f"{scripts['smoke-pipeline']['fid']:.4f} in {scripts['smoke-pipeline']['seconds']:.1f} s, "
+        f"mu-curve " + ", ".join(
+            f"{k} max_step_gap {v['max_step_gap']:.3e} tail20_gap {v['tail20_gap']:.3e}"
+            for k, v in mu_curve.items() if k != "launches") +
+        f", trace train {traced['train']['ms']:.3f} ms/step (train-profile {profile_busy:.3f}), "
+        f"sample {traced['sample']['ms']:.3f} ms/run, attn-bench " + ", ".join(
+            f"{r['shape']} {r['impl']} "
+            + (f"{r['fwd_ms']:.3f} / {r['fwd_bwd_ms']:.3f}" if "fwd_ms" in r else "refused")
+            for r in attn_bench["rows"]) +
+        f" ms; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
     paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
              train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
-             *finetune.values(), sample_cls, train_cls, train_staged, train_staged["nu"], aot)
+             *finetune.values(), sample_cls, train_cls, train_staged, train_staged["nu"], aot,
+             validate, mu_curve, traced, attn_bench)
     count = lambda key: sum(p["launches"][key] for p in paths)
     fp32_err = lambda rows, route, d, sweep: max(
         [v["err"] for (_, dt), v in rows.items() if dt == "float32"]
@@ -3759,6 +4205,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:3] == ["--worker", "aot-reload"]:
         worker_aot_reload(*sys.argv[3:])
+    elif sys.argv[1:2] == ["--worker-alone"]:
+        worker_alone(*sys.argv[2:])
     elif sys.argv[1:2] == ["--worker"]:
         worker(*sys.argv[2:])
     else:

@@ -5,10 +5,18 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``<repo>/build/kernels/``, named by a hash of its source and flags so that
 an edited ``.cu`` rebuilds, and loaded with ``ctypes``. Building takes
 seconds; nothing is built when a module is imported.
+
+``launch_range(entry)`` marks a kernel's launch for torch.profiler: while it
+records, the launch runs inside a range named ``maskdit::<entry>`` (the C
+function's name), so that tools/torch_trace_report.py can tell the port's
+kernels apart where two libraries share a kernel's name (#2 and #4 launch
+the same tensor-core backward, #3 and #5 the same forward); otherwise it
+costs one flag check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -104,3 +112,16 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     lib, _ = build(name)
     return ctypes.CDLL(str(lib))
+
+
+RANGE_PREFIX = "maskdit::"
+
+
+def launch_range(entry: str):
+    """A profiler range ``maskdit::<entry>`` while torch.profiler records,
+    else a context that does nothing."""
+    import torch
+
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(RANGE_PREFIX + entry)
+    return contextlib.nullcontext()

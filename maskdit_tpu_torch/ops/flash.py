@@ -212,7 +212,7 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((n, 1, l), dtype=torch.float32, device=q.device)
     lib = _library()
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), build.launch_range("flash_fwd"):
         err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             lse.data_ptr(), n, l, hd, scale, DTYPE_CODES[q.dtype],
                             torch.cuda.current_stream().cuda_stream)
@@ -233,7 +233,7 @@ def _launch_bwd(q, k, v, o, lse, do, scale: float):
     # by the key and query passes
     delta = torch.empty((n, l), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), build.launch_range("flash_bwd"):
         err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                             dv.data_ptr(), delta.data_ptr(), n, l, hd, scale,

@@ -23,6 +23,9 @@ ops/flash_big.py too.
     bf16 products of exact bf16 pieces of its operands. Both are shared
     with ops/flash_big.py, whose kernels compute the same function.
 
+``flash_mha_batched`` takes (N, H, L, hd) q, k and v, as the JAX
+convenience wrapper does, and packs them for ``packed_attention``.
+
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
 kernel launches and nothing else, so a run can show that it went through
 the kernels. ``packed_attention_plain`` applies the same Function with the
@@ -368,7 +371,7 @@ def launch(name: str, library, entry: str, error: str, smem_bytes, qkv: torch.Te
         stats = torch.empty((3, n, num_heads, l), dtype=torch.float32, device=qkv.device)
         pointers = (qkv.data_ptr(), dout.data_ptr(), out.data_ptr(), stats.data_ptr())
     lib = library()
-    with torch.cuda.device(qkv.device):
+    with torch.cuda.device(qkv.device), build.launch_range(entry):
         err = getattr(lib, entry)(*pointers, n, l, num_heads, hd, scale,
                                   DTYPE_CODES[qkv.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -450,6 +453,24 @@ def packed_attention_plain(
     device: what the kernels are held to."""
     return AttentionFunction.apply(qkv, num_heads, scale, packed_attention_reference,
                                    packed_attention_bwd_reference)
+
+
+def flash_mha_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(N, H, L, hd) attention through the whole-row kernels, differentiable
+    (the JAX ``flash_mha_batched``, flash_batched.py:211-227): q, k and v are
+    packed into (N, L, 3D), ``packed_attention`` runs (#1 forward, #2
+    backward; the plain versions on a CPU tensor) and the output is unpacked.
+    A shape the kernels refuse raises; nothing runs the plain math in their
+    place. The model calls ``packed_attention`` on the qkv Dense's output,
+    which needs none of these copies."""
+    n, h, l, hd = q.shape
+
+    def pack(x: torch.Tensor) -> torch.Tensor:
+        return x.transpose(1, 2).reshape(n, l, h * hd)
+
+    qkv = torch.cat([pack(q), pack(k), pack(v)], dim=-1)
+    out = packed_attention(qkv, h, hd ** -0.5)
+    return out.reshape(n, l, h, hd).transpose(1, 2)
 
 
 def register_forward_op(name: str, launch_fn, plain_fn, fake_fn):

@@ -215,7 +215,7 @@ def launch(g, p, m, v, e, scalars: dict[str, float], sr_count: int = 0,
         if t.dtype not in want:
             raise TypeError(f"fused_adam_ema: {name} is {t.dtype} (takes {want})")
     lib = _library()
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(p.device), build.launch_range("fused_adam_ema"):
         err = lib.fused_adam_ema(
             g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), e.data_ptr(),
             p.numel(), _DTYPE_CODES[g.dtype], _DTYPE_CODES[m.dtype], _DTYPE_CODES[v.dtype],

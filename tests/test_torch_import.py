@@ -13,6 +13,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # named so that a module the walk below could miss is still imported
@@ -171,3 +173,22 @@ def test_multiprocess_test_worker_imports_no_jax():
     tests; it imports the port alone."""
     proc = _run(_script_imports("tests/test_torch_dist_worker.py", "maskdit_tpu_torch.models"))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+TOOL_TWINS = sorted(f for f in os.listdir(os.path.join(ROOT, "tools"))
+                    if f.startswith("torch_") and f.endswith(".py"))
+
+
+@pytest.mark.parametrize("tool", TOOL_TWINS)
+def test_torch_tool_imports_no_jax(tool):
+    """Each tools/torch_*.py runs on the card's machine, which has no jax:
+    importing it, and every module its import statements name, loads
+    neither jax nor the JAX package."""
+    proc = _run(_script_imports(f"tools/{tool}", "os"))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_every_tool_twin_is_checked():
+    assert {"torch_validate_port.py", "torch_mu_dtype_curve.py", "torch_trace_capture.py",
+            "torch_trace_report.py", "torch_attn_bench.py",
+            "torch_overfit_gate.py"} <= set(TOOL_TWINS)
