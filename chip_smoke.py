@@ -288,6 +288,10 @@ CLS_FWD_SHAPES = [("cls_sample_encoder", 2 * SEEDS, 257, 16, 72),
                   ("cls_train_encoder", TRAIN_BATCH, 129, 16, 72)]
 CLS_BWD_SHAPES = CLS_FWD_SHAPES[1:]
 CLS_BIG_SHAPES = [("cls_unmasked_encoder", 64, 257, 16, 72)]
+# the masked training path on the mesh's tensor axis of 2: each rank's
+# attention at 8 of the 16 heads (#1 forward, #2 backward; bf16)
+MESH_ATTN_SHAPES = [("mesh_train_encoder", TRAIN_BATCH, 128, 8, 72),
+                    ("mesh_train_decoder", TRAIN_BATCH, 256, 8, 32)]
 # kernel vs plain bound on max|kernel - plain| / max|plain| of the forward:
 # fp32 differs by summation order (the fp32 blocked kernels on the tensor
 # cores also by their dropped terms, ~2^-24 of each product, and the
@@ -588,6 +592,26 @@ TRAIN_PARITY_BOUND = {
     torch.float32: dict(loss=1e-5, grad=1e-4, state=1e-5),
     torch.bfloat16: dict(loss=1e-2, grad=1e-1, state=1e-2),
 }
+# the mesh (--mesh data=a,fsdp=b,tensor=c; parallel/mesh.py, sharded.py):
+# MESH_RANKS gloo ranks sharing the card (``--device cuda:0``), DiT-XL/2 at
+# full width and DDP_DEPTH encoder blocks, in one launch beside the
+# data-parallel group. [parity-mesh]: one fp32 step (TF32 off) from
+# train_parity_state's state and parity_batch's draws per MESH_PARITY case,
+# each against one process's step within TRAIN_PARITY_BOUND (a bf16 nu:
+# within one bf16 ulp, or the bf16 bounds with a bf16 model); [train-mesh]:
+# the train CLI with --mesh MESH_TRAIN for MESH_TRAIN_STEPS steps at a
+# global batch of MESH_TRAIN_BATCH x ranks, its checkpoint resumed in this
+# process without a group
+MESH_RANKS = 4
+MESH_PARITY = [  # (case, res, batch, mesh, model dtype, nu dtype)
+    ("fsdp2-tensor2", 32, PARITY_BATCH, {"fsdp": 2, "tensor": 2}, torch.float32, None),
+    ("data2-fsdp2", 32, PARITY_BATCH, {"data": 2, "fsdp": 2}, torch.float32, None),
+    ("fsdp2-tensor2-512", 64, PARITY_BATCH_512, {"fsdp": 2, "tensor": 2}, torch.float32, None),
+    ("fsdp2-tensor2-nu", 32, PARITY_BATCH, {"fsdp": 2, "tensor": 2}, torch.float32, "bfloat16"),
+    ("fsdp2-tensor2-bf16-nu", 32, PARITY_BATCH, {"fsdp": 2, "tensor": 2}, torch.bfloat16,
+     "bfloat16"),
+]
+MESH_TRAIN, MESH_TRAIN_STEPS, MESH_TRAIN_BATCH = "data=1,fsdp=2,tensor=2", 4, 16
 # the staged update (train.fused_adam: false; plain PyTorch, kernel #7 never
 # launched): [train-staged] TRAIN_CONFIG with the override for
 # TRAIN_STEPS_STAGED steps; [train-staged-nu] with bf16 mu and nu (the SR
@@ -1024,6 +1048,9 @@ def phase_kernels() -> dict:
     rows.update(attention_fwd_rows("kernel", CLS_FWD_SHAPES, flash_batched.packed_attention,
                                    flash_batched.packed_attention_reference, seed=2, iters=50,
                                    variant=flash_batched.fwd_kernel, dtypes=(torch.bfloat16,)))
+    rows.update(attention_fwd_rows("kernel", MESH_ATTN_SHAPES, flash_batched.packed_attention,
+                                   flash_batched.packed_attention_reference, seed=4, iters=50,
+                                   variant=flash_batched.fwd_kernel, dtypes=(torch.bfloat16,)))
     return rows
 
 
@@ -1034,6 +1061,9 @@ def phase_bwd_kernels() -> dict:
                               flash_batched.packed_attention_bwd_reference, seed=1, iters=20)
     rows.update(attention_bwd_rows("kernel", CLS_BWD_SHAPES, flash_batched.packed_attention_bwd,
                                    flash_batched.packed_attention_bwd_reference, seed=3, iters=20,
+                                   dtypes=(torch.bfloat16,)))
+    rows.update(attention_bwd_rows("kernel", MESH_ATTN_SHAPES, flash_batched.packed_attention_bwd,
+                                   flash_batched.packed_attention_bwd_reference, seed=5, iters=20,
                                    dtypes=(torch.bfloat16,)))
     return rows
 
@@ -1572,6 +1602,61 @@ def check_stochastic_rounding() -> dict:
     return out
 
 
+def xl2_shapes() -> list:
+    """(name, shape) of DiT-XL/2's parameters, in order (meta device)."""
+    with torch.device("meta"):
+        model = build_model(torch.bfloat16)
+    return [(k, tuple(v.shape)) for k, v in model.named_parameters()]
+
+
+def check_adam_shard(grads, p, m, v, e, scalars) -> dict:
+    """Kernel #7 on one rank's shards of DiT-XL/2 on a {fsdp 2, tensor 2}
+    mesh (the rank at fsdp 1, tensor 1: the layout of parallel/sharded.py),
+    nu in bf16, with the layout's segment table: bit for bit the unsharded
+    launch's p, m, v and EMA at those elements (the stochastic rounding
+    draws the unsharded indices' bits) and the plain version with the same
+    table; its time, the plain version's and the bytes bound."""
+    from maskdit_tpu_torch.ops import fused_adam
+    from maskdit_tpu_torch.parallel.sharded import ShardLayout
+
+    shape = {"data": 1, "fsdp": 2, "tensor": 2}
+    layout = ShardLayout(xl2_shapes(), shape, {"data": 0, "fsdp": 1, "tensor": 1})
+    index = layout.global_index("cuda")
+    full = (grads, p.clone(), m.clone(), v.to(torch.bfloat16), e.clone())
+    fused_adam.launch(*full, scalars, sr_count=6)
+    args = (grads[index], p[index], m[index], v.to(torch.bfloat16)[index], e[index])
+    segments = layout.segments.cuda()
+    got = [t.clone() for t in args[1:]]
+    before = fused_adam.fused_adam_ema.launches
+    fused_adam.launch(args[0], *got, scalars, sr_count=6, segments=segments)
+    torch.cuda.synchronize()
+    launches = fused_adam.fused_adam_ema.launches - before
+    plain = fused_adam.fused_adam_ema_reference(*args, **scalars, sr_count=6, segments=segments)
+    exact = all(torch.equal(a, b[index]) for a, b in zip(got, full[1:]))
+    same_plain = all(torch.equal(a, b) for a, b in zip(got, plain))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, plain))
+    del plain, full
+    n = index.numel()
+    ms = cuda_ms(lambda: fused_adam.launch(args[0], *got, scalars, sr_count=6,
+                                           segments=segments), 10)
+    plain_ms = cuda_ms(lambda: fused_adam.fused_adam_ema_reference(
+        *args, **scalars, sr_count=6, segments=segments), 2)
+    moved = n * (4 + 8 + 8 + 4 + 8) + segments.numel() * 8
+    bound_ms, bound_by = bound(ADAM_OPS * n, moved, torch.float32)
+    log(f"[kernel] fused adam on a shard: rank (fsdp 1, tensor 1) of a {shape} mesh of "
+        f"DiT-XL/2, {n} of {p.numel()} params, {layout.segments.shape[0]} segments, nu bf16: "
+        f"bit for bit with the unsharded launch at those elements {exact}, with the plain "
+        f"version and the table {same_plain} (max_abs_err {err:.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it; "
+        f"launches {launches}")
+    if not (exact and same_plain and launches == 1):
+        raise AssertionError(f"fused_adam_ema on a shard: unsharded {exact}, plain "
+                             f"{same_plain}, launches {launches}")
+    del args, got, index, segments
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                numel=n, segments=layout.segments.shape[0])
+
+
 def phase_adam_kernel() -> dict:
     """Kernel #7 over all of DiT-XL/2's parameters in each of ADAM_VARIANTS,
     against its plain version, with the kernel's, the plain version's and
@@ -1634,6 +1719,7 @@ def phase_adam_kernel() -> dict:
         out[variant] = dict(err=err, ms=ms, plain_ms=plain_ms, gbps=moved / ms / 1e6,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         del args, want, got
+    out["shard"] = check_adam_shard(grads, p, m, v, e, scalars)
     del grads, p, e, v, m
     free_device_memory()
     out["sr"] = check_stochastic_rounding()
@@ -3033,6 +3119,9 @@ def worker(tag: str, result: str, *args: str) -> None:
             device = "cuda:0" if gloo else "cuda"
             dist.init_distributed(backend="gloo" if gloo else "nccl", device=device)
             out = worker_train(device, gloo)
+        elif tag == "mesh":
+            dist.init_distributed(backend="gloo", device="cuda:0")
+            out = worker_mesh()
         else:
             raise SystemExit(f"unknown worker {tag}")
     if dist.is_main_process():
@@ -3087,6 +3176,220 @@ def worker_parity_ddp(sync) -> dict:
             f"loss rel err {out['loss']:.3e}, max per-tensor gradient rel-norm err "
             f"{out['grad']:.3e}, p/ema/mu/nu {out['state']:.3e} (worst {out['worst']})")
     tdist.barrier()
+    return out
+
+
+def gloo_on_cuda_tensors() -> dict:
+    """Which collectives the gloo backend of this torch takes on CUDA
+    tensors (``parallel/mesh.py`` calls all five on them): for each, "ok"
+    with its value checked, or the error it raised."""
+    import torch.distributed as tdist
+
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    total = float(sum(range(1, world + 1)))
+
+    def all_reduce():
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        tdist.all_reduce(x)
+        return bool(torch.all(x == total))
+
+    def broadcast():
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        tdist.broadcast(x, src=0)
+        return bool(torch.all(x == 1.0))
+
+    def all_gather_into_tensor():
+        out = torch.empty(world * 4, device="cuda")
+        tdist.all_gather_into_tensor(out, torch.full((4,), float(rank + 1), device="cuda"))
+        return bool(torch.equal(out.view(world, 4)[:, 0].cpu(), torch.arange(1.0, world + 1)))
+
+    def reduce_scatter_tensor():
+        out = torch.empty(4, device="cuda")
+        tdist.reduce_scatter_tensor(out, torch.full((world * 4,), float(rank + 1),
+                                                    device="cuda"))
+        return bool(torch.all(out == total))
+
+    def all_gather():
+        outs = [torch.empty(4, device="cuda") for _ in range(world)]
+        tdist.all_gather(outs, torch.full((4,), float(rank + 1), device="cuda"))
+        return all(float(o[0]) == i + 1 for i, o in enumerate(outs))
+
+    out = {}
+    for call in (all_reduce, broadcast, all_gather_into_tensor, reduce_scatter_tensor,
+                 all_gather):
+        try:
+            out[call.__name__] = "ok" if call() else "wrong values"
+        except Exception as err:  # recorded: what this torch's gloo refuses
+            out[call.__name__] = f"{type(err).__name__}: {str(err).splitlines()[0][:120]}"
+        tdist.barrier()
+    return out
+
+
+def mesh_reference(case: tuple) -> tuple:
+    """One process's step of a MESH_PARITY case: the start state (the state
+    dicts of train_parity_state), the step's gradient and p / ema / mu / nu
+    per parameter (views of its flat buffers) and its loss, on the card."""
+    from maskdit_tpu_torch.train.state import make_train_step
+
+    name, res, n, shape, dtype, nu = case
+    batch, draws = parity_batch(res, n)
+    state, opt = train_parity_state(dtype, 4, res, n, nu_dtype=nu)
+    copy = lambda flat: {k: v.detach().clone() for k, v in state.named(flat).items()}
+    start = {"model": copy(state.params), "ema": copy(state.ema),
+             "opt": {"count": state.opt_state.count, "mu": copy(state.opt_state.mu),
+                     "nu": copy(state.opt_state.nu)}}
+    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
+    metrics = step(state, batch, draws=draws)
+    ref = {"grad": state.named(state.grads), "p": state.named(state.params),
+           "ema": state.named(state.ema), "mu": state.named(state.opt_state.mu),
+           "nu": state.named(state.opt_state.nu)}
+    loss = float(metrics["loss"])
+    del state, opt, step, metrics, batch, draws
+    free_device_memory()
+    return start, ref, loss
+
+
+def mesh_case(case: tuple) -> dict:
+    """[parity-mesh] one case in one rank: this rank's sharded state from
+    the reference's start, one step on its rows with the reference's draws
+    (its launches counted), then per parameter the rel-norm error of the
+    gradient and of p / ema / mu / nu from every rank's shards (each leaf's
+    sums over its replicas in the fsdp x tensor group counted once); a bf16
+    nu of an fp32 model also per element within one bf16 ulp. And this
+    rank's state on the card (allocated) against the bytes of its shards
+    by the rules."""
+    import math
+
+    import torch.distributed as tdist
+
+    from maskdit_tpu_torch.parallel import mesh as mesh_lib
+    from maskdit_tpu_torch.parallel.sharded import (create_sharded_state,
+                                                    make_sharded_train_step, tensor_split_of)
+    from maskdit_tpu_torch.train.state import StepDraws, _rows, make_optimizer
+
+    name, res, n, shape, dtype, nu = case
+    t0 = time.perf_counter()
+    start, ref, ref_loss = mesh_reference(case)
+    mesh = mesh_lib.create_mesh(shape)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.device("cuda"):  # initialised on the card: the shards replace its values
+        model = build_model(dtype, res, tensor_split=tensor_split_of(mesh)).cuda()
+    opt = make_optimizer(1e-4, n, nu_dtype=nu)
+    state = create_sharded_state(model, start["model"], opt, mesh)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    per_element = 4 * 4 + (2 if nu else 4)  # params, grads, ema, mu in fp32; nu
+    reckoned = sum(math.prod(leaf.shard_shape) for leaf in state.shard_layout.leaves) * per_element
+    full_bytes = state.shard_layout.full_numel * per_element
+    state.load({"ema": start["ema"], "opt": start["opt"]})  # the parameters: ``full`` above
+    del start
+    step = make_sharded_train_step(opt, mesh, mask_ratio=0.5, mae_loss_coef=0.1,
+                                   ema_decay=0.9999)
+    batch, draws = parity_batch(res, n)
+    rows = slice(mesh.batch_index * n // mesh.batch_count,
+                 (mesh.batch_index + 1) * n // mesh.batch_count)
+    reset_launches()
+    metrics = step(state, {k: v[rows] for k, v in batch.items()},
+                   draws=StepDraws(*(_rows(d, rows) for d in draws)))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    loss = float(metrics["loss"])
+    layout = state.shard_layout
+    weights = torch.tensor([1.0 / leaf.replicas for leaf in layout.leaves], dtype=torch.float64,
+                           device="cuda")
+    errs, ulp_ok, nu_equal = {}, True, True
+    for what, flat in (("grad", state.grads), ("p", state.params), ("ema", state.ema),
+                       ("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+        mine = layout.named(flat)
+        want = layout.shard(ref.pop(what))
+        sums = torch.zeros(len(layout.leaves), 2, dtype=torch.float64, device="cuda")
+        for i, leaf in enumerate(layout.leaves):
+            a, b = mine[leaf.name], want[leaf.name]
+            sums[i, 0] = (a.double() - b.double()).square().sum()
+            sums[i, 1] = b.double().square().sum()
+            if what == "nu" and nu and dtype == torch.float32:
+                ulp = torch.finfo(torch.bfloat16).eps * b.float().abs()
+                ulp_ok = ulp_ok and bool(((a.float() - b.float()).abs() <= ulp).all())
+                nu_equal = nu_equal and torch.equal(a, b)
+        del want
+        sums = (sums * weights[:, None]).cpu()
+        if mesh_lib.group_size(mesh, "model") > 1:
+            tdist.all_reduce(sums, group=mesh.groups["model"])
+        rel = (sums[:, 0] / sums[:, 1].clamp_min(1e-60)).sqrt()
+        worst = int(rel.argmax())
+        errs[what] = (float(rel[worst]), layout.leaves[worst].name)
+    flags = torch.tensor([int(ulp_ok), int(nu_equal)])
+    tdist.all_reduce(flags, op=tdist.ReduceOp.MIN)
+    out = dict(
+        loss=abs(loss - ref_loss) / abs(ref_loss), grad=errs["grad"][0],
+        worst_grad=errs["grad"][1],
+        state=max(v[0] for k, v in errs.items() if k != "grad" and not (k == "nu" and nu)),
+        nu=errs["nu"][0], nu_within_ulp=bool(flags[0]), nu_equal=bool(flags[1]),
+        launches=launches, held_bytes=held, reckoned_bytes=reckoned, full_bytes=full_bytes,
+        segments=int(layout.segments.shape[0]), seconds=time.perf_counter() - t0,
+    )
+    del state, opt, step, model, metrics, ref
+    free_device_memory()
+    return out
+
+
+def worker_mesh() -> dict:
+    """[parity-mesh] then [train-mesh] in one rank (MESH_RANKS gloo ranks on
+    the card): the gloo probe, each MESH_PARITY case, then the train CLI
+    with --mesh MESH_TRAIN (its last checkpoint written): every rank's
+    launches and peak memory, and the digest of the gathered parameters."""
+    import io
+    import torch.distributed as tdist
+
+    from maskdit_tpu_torch.parallel import dist
+    from maskdit_tpu_torch.train import main as train_main
+
+    torch.cuda.set_device(0)
+    world = dist.process_count()
+    out = {"gloo_cuda": gloo_on_cuda_tensors(), "parity": {}}
+    for case in MESH_PARITY:
+        got = mesh_case(case)
+        everyone = [None] * world
+        tdist.all_gather_object(everyone, (got["launches"], got["held_bytes"],
+                                           got["reckoned_bytes"]))
+        got["launches"], got["held_bytes"], got["reckoned_bytes"] = (
+            [e[i] for e in everyone] for i in range(3))
+        out["parity"][case[0]] = got
+        dist.mprint(f"[parity-mesh] {case[0]}: {got}", flush=True)
+        tdist.barrier()
+    path = os.path.join(SCRATCH, "train-mesh-config.json")
+    if dist.is_main_process():
+        with open(path, "w") as f:
+            json.dump(TRAIN_CONFIG, f)
+    dist.barrier()
+    captured = io.StringIO()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_train = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        run = train_main(["--config", path, "--results_dir", os.path.join(SCRATCH, "train-mesh"),
+                          "--device", "cuda:0", "--dist_backend", "gloo", "--num_workers", "2",
+                          "--mesh", MESH_TRAIN, f"train.batchsize={MESH_TRAIN_BATCH}",
+                          f"train.max_num_steps={MESH_TRAIN_STEPS}"])
+    text = captured.getvalue()
+    print(text, end="", flush=True)
+    launches, peak = read_launches(), torch.cuda.max_memory_allocated() / 2**30
+    state = run["state"]
+    full = state.full_named(state.params)
+    digest = params_digest(torch.cat([v.reshape(-1) for v in full.values()]))
+    everyone = [None] * world
+    tdist.all_gather_object(everyone, (launches, peak))
+    history = run["history"]
+    warm = history[1:] or history
+    out["train_seconds"] = time.perf_counter() - t_train
+    out["train"] = dict(
+        exp_dir=run["exp_dir"], step=run["step"], digest=digest,
+        losses=[x for r in history for x in r["losses"]],
+        launches=[e[0] for e in everyone], peak_gib=[e[1] for e in everyone],
+        ms_per_step=sum(LOG_EVERY / r["steps_per_sec"] for r in warm)
+        / (LOG_EVERY * len(warm)) * 1e3,
+    )
     return out
 
 
@@ -3840,6 +4143,101 @@ def finish_scripts(procs: dict) -> dict:
     return out
 
 
+def start_mesh() -> subprocess.Popen:
+    """[parity-mesh] and [train-mesh]: MESH_RANKS ranks of this script's
+    ``--worker mesh`` under torch.distributed.run, in a process group of
+    their own beside the phases that follow, until ``phase_mesh``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    result = os.path.join(SCRATCH, "mesh.json")
+    if os.path.exists(result):
+        os.remove(result)
+    proc = start_process("mesh", [
+        sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(MESH_RANKS),
+        "--master_addr", "127.0.0.1", "--master_port", str(port), os.path.abspath(__file__),
+        "--worker", "mesh", result])
+    proc.result = result
+    return proc
+
+
+def phase_mesh(proc: subprocess.Popen) -> dict:
+    """The mesh launch's result: each [parity-mesh] case within its bounds
+    (TRAIN_PARITY_BOUND of its model dtype; a bf16 nu of an fp32 model
+    within one bf16 ulp per element) with #1 / #2 (or #3 / #4 at 512 px) at
+    8 heads once per block and #7 once on every rank, and every rank's
+    state within 2% of its shards' bytes by the rules; [train-mesh]'s finite
+    losses and launches on every rank, then its last checkpoint resumed in
+    this process without a group: the parameters equal the run's, gathered
+    from the shards, bit for bit."""
+    from maskdit_tpu_torch.train.cli import apply_overrides
+    from maskdit_tpu_torch.train.trainer import Trainer
+
+    out = finish_worker(proc)
+    log(f"[parity-mesh] gloo on CUDA tensors (torch {torch.__version__}): {out['gloo_cuda']}")
+    for name, res, n, shape, dtype, nu in MESH_PARITY:
+        got = out["parity"][name]
+        bnd = TRAIN_PARITY_BOUND[dtype]
+        per_rank = dict(adam=ADAM_PER_STEP, **{
+            f"{'big' if res == 64 else 'packed'}_{d}": DDP_ATTN_PER_STEP for d in ("fwd", "bwd")})
+        for rank, launches in enumerate(got["launches"]):
+            expect_launches(f"parity-mesh {name} rank {rank}", launches, **per_rank)
+        held, reckoned = got["held_bytes"], got["reckoned_bytes"]
+        log(f"[parity-mesh] {name}: {MESH_RANKS} ranks on {shape}, DiT-XL/2 @{res * 8} at "
+            f"{DDP_DEPTH} encoder blocks, batch {n}, {dtype_name(dtype)}, nu "
+            f"{nu or 'float32'}, vs one process: loss rel err {got['loss']:.3e} (bound "
+            f"{bnd['loss']:.0e}), max per-tensor gradient rel-norm err {got['grad']:.3e} (bound "
+            f"{bnd['grad']:.0e}, worst {got['worst_grad']}), p/ema/mu"
+            f"{'' if nu else '/nu'} {got['state']:.3e} (bound {bnd['state']:.0e}), nu "
+            f"{got['nu']:.3e}" + (f", within one bf16 ulp {got['nu_within_ulp']}, equal "
+                                  f"{got['nu_equal']}" if nu and dtype == torch.float32 else "")
+            + f"; state on the card per rank {[round(b / 2**20, 1) for b in held]} MiB vs the "
+            f"rules' {[round(b / 2**20, 1) for b in reckoned]} MiB (unsharded "
+            f"{got['full_bytes'] / 2**20:.1f} MiB); {got['segments']} segments; "
+            f"{got['seconds']:.1f} s with its one-process step")
+        ok = (got["loss"] <= bnd["loss"] and got["grad"] <= bnd["grad"]
+              and got["state"] <= bnd["state"]
+              and all(abs(h - r) <= 0.02 * r for h, r in zip(held, reckoned)))
+        if nu and dtype == torch.float32:
+            ok = ok and got["nu_within_ulp"]
+        elif nu:
+            ok = ok and got["nu"] <= bnd["state"]
+        if not ok:
+            raise AssertionError(f"parity-mesh {name}: {got}")
+    train = out["train"]
+    expect_launches("train-mesh", {k: sum(c[k] for c in train["launches"])
+                                   for k in train["launches"][0]},
+                    packed_fwd=MESH_RANKS * DDP_ATTN_PER_STEP * MESH_TRAIN_STEPS,
+                    packed_bwd=MESH_RANKS * DDP_ATTN_PER_STEP * MESH_TRAIN_STEPS,
+                    adam=MESH_RANKS * MESH_TRAIN_STEPS)
+    if len(train["losses"]) != MESH_TRAIN_STEPS or not np.all(np.isfinite(train["losses"])):
+        raise AssertionError(f"train-mesh: {train}")
+    config = apply_overrides(json.loads(json.dumps(TRAIN_CONFIG)), [
+        f"train.batchsize={MESH_TRAIN_BATCH * MESH_RANKS}"])
+    with xl_depth(DDP_DEPTH):
+        trainer = Trainer(config, results_dir=os.path.join(SCRATCH, "train-mesh"),
+                          num_workers=1, device="cuda")
+    digest = params_digest(trainer.state.params)
+    same = trainer.start_step == MESH_TRAIN_STEPS and digest == train["digest"]
+    log(f"[train-mesh] --mesh {MESH_TRAIN}, {MESH_RANKS} gloo ranks on the card, DiT-XL/2 @256 at "
+        f"{DDP_DEPTH} encoder blocks, global batch {MESH_TRAIN_BATCH * MESH_RANKS}: losses "
+        f"{[round(x, 4) for x in train['losses']]}; {train['ms_per_step']:.1f} ms/step (gloo "
+        f"through the host; the CLI run with its checkpoint {out['train_seconds']:.1f} s); "
+        f"peak per rank {[round(x, 2) for x in train['peak_gib']]} GiB; "
+        f"resumed in one process without a group at step {trainer.start_step}: parameters "
+        f"{digest[:16]} vs the mesh's gathered {train['digest'][:16]}, bit for bit {same}")
+    del trainer
+    free_device_memory()
+    if not same:
+        raise AssertionError(f"train-mesh: the one-process resume differs: {digest} vs "
+                             f"{train['digest']}")
+    shutil.rmtree(os.path.join(SCRATCH, "train-mesh"), ignore_errors=True)
+    out["launches"] = {k: sum(c[k] for c in train["launches"]) for k in train["launches"][0]}
+    return out
+
+
 def phase_mu_curve(procs: dict) -> dict:
     """tools/torch_mu_dtype_curve.py's ``run`` (in ``start_worker``
     processes, one per curve, beside the data-parallel phases and
@@ -4034,6 +4432,7 @@ def main() -> None:
         # processes of their own, beside phases whose results are checks
         scripts, gate = start_scripts(), start_worker("overfit-gate")
         curves = {v: start_worker("mu-curve", v) for v in ("fp32", "mu", "nu", "munu")}
+        mesh_proc = start_mesh()
         parity_options = phase_parity_train_options()
         parity_staged = phase_parity_train_staged()
         parity_ddp = phase_parity_ddp()
@@ -4042,8 +4441,9 @@ def main() -> None:
         validate = phase_validate_port(ckpt, vae["path"])
         mu_curve = phase_mu_curve(curves)
         scripts, gate = finish_scripts(scripts), phase_overfit_gate(gate)
+        mesh = phase_mesh(mesh_proc)
         mark("parity of the options and the staged step, data parallel, validate-port (beside "
-             "them the script twins, the overfit gate, mu-curve)")
+             "them the script twins, the overfit gate, mu-curve, the mesh)")
         train_512 = run_train("train-512", TRAIN_CONFIG_512, 64, dict(
             big_fwd=ATTN_PER_STEP, big_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
         parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
@@ -4146,12 +4546,20 @@ def main() -> None:
             f"{r['shape']} {r['impl']} "
             + (f"{r['fwd_ms']:.3f} / {r['fwd_bwd_ms']:.3f}" if "fwd_ms" in r else "refused")
             for r in attn_bench["rows"]) +
-        f" ms; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+        f" ms; mesh: parity " + ", ".join(
+            f"{k} loss {v['loss']:.3e} grad {v['grad']:.3e} state {v['state']:.3e} nu "
+            f"{v['nu']:.3e}" for k, v in mesh["parity"].items()) +
+        f", gloo on CUDA tensors {mesh['gloo_cuda']}, train-mesh "
+        f"{mesh['train']['ms_per_step']:.1f} ms/step (gloo through the host), peak per rank "
+        f"{[round(x, 2) for x in mesh['train']['peak_gib']]} GiB; fused adam on a shard "
+        f"{adam['shard']['ms']:.4f} ms ({adam['shard']['numel']} params, bound "
+        f"{adam['shard']['bound_ms']:.4f}); chip_smoke.py took "
+        f"{time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
     paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
              train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
              *finetune.values(), sample_cls, train_cls, train_staged, train_staged["nu"], aot,
-             validate, mu_curve, traced, attn_bench)
+             validate, mu_curve, traced, attn_bench, mesh)
     count = lambda key: sum(p["launches"][key] for p in paths)
     fp32_err = lambda rows, route, d, sweep: max(
         [v["err"] for (_, dt), v in rows.items() if dt == "float32"]
@@ -4165,16 +4573,20 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {**kernel_line("packed_attention_fwd", "packed_attention_fwd.cu",
                        "flash_batched.py:162", count("packed_fwd"),
-                       bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES + CLS_FWD_SHAPES]),
+                       bf16(kernels, [s[0] for s in ATTN_FWD_SHAPES + CLS_FWD_SHAPES
+                                      + MESH_ATTN_SHAPES]),
                        kernels[("encoder", "bfloat16")]),
          "max_abs_err_fp32": packed_fp32[0]},
         {**kernel_line("packed_attention_bwd", "packed_attention_bwd.cu",
                        "flash_batched.py:177", count("packed_bwd"),
-                       bf16(bwd, ["train_encoder", "train_decoder", "cls_train_encoder"]),
+                       bf16(bwd, ["train_encoder", "train_decoder", "cls_train_encoder",
+                                  *(m[0] for m in MESH_ATTN_SHAPES)]),
                        bwd[("train_encoder", "bfloat16")]),
          "max_abs_err_fp32": packed_fp32[1]},
-        kernel_line("fused_adam_ema", "fused_adam_ema.cu", "fused_adam.py:109", count("adam"),
-                    adam[ADAM_VARIANTS[0]]["err"], adam[ADAM_VARIANTS[0]]),
+        {**kernel_line("fused_adam_ema", "fused_adam_ema.cu", "fused_adam.py:109",
+                       count("adam"), adam[ADAM_VARIANTS[0]]["err"], adam[ADAM_VARIANTS[0]]),
+         "shard_ms": adam["shard"]["ms"], "shard_plain_ms": adam["shard"]["plain_ms"],
+         "shard_bound_ms": adam["shard"]["bound_ms"]},
         {**kernel_line("packed_attention_big_fwd", "packed_attention_big_fwd.cu",
                        "flash_big.py:213", count("big_fwd"),
                        bf16(big["fwd"], [s[0] for s in BIG_FWD_SHAPES + CLS_BIG_SHAPES]),

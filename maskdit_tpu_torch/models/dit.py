@@ -32,6 +32,7 @@ from maskdit_tpu_torch.models.layers import (
     LabelEmbedder,
     Linear,
     PatchEmbed,
+    TensorSplit,
     TimestepEmbedder,
     get_2d_sincos_pos_embed,
     layer_norm_no_affine,
@@ -71,6 +72,10 @@ class MaskDiT(nn.Module):
     the decoder) conditions on the pooled encoder feature of ``encode``
     through ``enc_feat_embedder``, computed first at inference when no
     ``feat`` is given.
+
+    ``tensor_split`` (a ``layers.TensorSplit``) builds the model of one rank
+    of the mesh's tensor axis: every encoder and decoder block at its local
+    heads and MLP width (``parallel/mesh.py``); the other layers whole.
     """
 
     def __init__(
@@ -92,6 +97,7 @@ class MaskDiT(nn.Module):
         use_encoder_feat: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         use_flash: Optional[bool] = None,
+        tensor_split: Optional[TensorSplit] = None,
     ):
         super().__init__()
         self.input_size = input_size
@@ -127,7 +133,7 @@ class MaskDiT(nn.Module):
         )
         self.blocks = nn.ModuleList(
             DiTBlock(hidden_size, hidden_size, num_heads, mlp_ratio, dtype=dtype,
-                     use_flash=use_flash)
+                     use_flash=use_flash, split=tensor_split)
             for _ in range(depth)
         )
         final_hidden_size = hidden_size
@@ -142,7 +148,7 @@ class MaskDiT(nn.Module):
             )
             self.decoder_blocks = nn.ModuleList(
                 DiTBlock(DECODER_HIDDEN_SIZE, hidden_size, DECODER_NUM_HEADS,
-                         mlp_ratio, dtype=dtype, use_flash=use_flash)
+                         mlp_ratio, dtype=dtype, use_flash=use_flash, split=tensor_split)
                 for _ in range(DECODER_DEPTH)
             )
             if mae_loss_coef > 0:

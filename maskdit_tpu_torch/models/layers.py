@@ -16,16 +16,29 @@ Numerics, as in the JAX package: parameters are fp32; each Linear runs in
 the compute dtype (input, weight and bias cast to it, as flax
 ``Dense(dtype=...)`` does); LayerNorm statistics and softmax are fp32.
 Weights are initialised as the reference does; a checkpoint replaces them.
+
+Tensor parallelism (the mesh's tensor axis, ``parallel/mesh.py``): given a
+``TensorSplit`` of size T, a block's ``Attention`` holds H/T heads (qkv by
+whole heads: rank t's q, k and v of heads [t H/T, (t+1) H/T)) and its
+``Mlp`` 1/T of the hidden features; qkv and fc1 split by output features
+(their biases split with them), proj and fc2 by input features
+(``RowParallelLinear``), whose partial products are summed over the tensor
+group (``sum_over_tensor_group``) before their biases are added, once. The
+sum's conjugate, ``copy_to_tensor_group`` (identity forward, sum of the
+gradient backward), sits before qkv and fc1. ``attention_route`` is asked
+at the local head count, so the kernels run at H/T heads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -48,6 +61,92 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSplit:
+    """This rank's place on the mesh's tensor axis: its index, the axis
+    size and the process group of its tensor ranks (None: the default
+    group)."""
+
+    rank: int
+    size: int
+    group: Any = None
+
+
+def _all_reduce_fp32(x: torch.Tensor, split: TensorSplit) -> torch.Tensor:
+    """The fp32 sum of ``x`` over the tensor group (a new tensor)."""
+    total = x.float().clone()
+    dist.all_reduce(total, group=split.group)
+    return total
+
+
+class _SumOverTensorGroup(torch.autograd.Function):
+    """Forward: the fp32 sum of the partial products over the tensor group
+    (Megatron's g); backward: the gradient as it is, in the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.dtype = x.dtype
+        return _all_reduce_fp32(x, split)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+class _CopyToTensorGroup(torch.autograd.Function):
+    """Forward: the identity (every tensor rank holds the whole input);
+    backward: the sum of the gradient over the tensor group (Megatron's f),
+    formed in fp32 and returned in the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_fp32(grad, ctx.split).to(grad.dtype), None
+
+
+def sum_over_tensor_group(x: torch.Tensor, split: TensorSplit) -> torch.Tensor:
+    return _SumOverTensorGroup.apply(x, split)
+
+
+def copy_to_tensor_group(x: torch.Tensor, split: Optional[TensorSplit]) -> torch.Tensor:
+    if split is None or split.size == 1:
+        return x
+    return _CopyToTensorGroup.apply(x, split)
+
+
+class RowParallelLinear(Linear):
+    """A Linear whose input features are split over the tensor group: the
+    partial product of this rank's features in the compute dtype, summed in
+    fp32 over the group, then the bias (whole on every rank) added once and
+    the sum rounded to the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, split: TensorSplit,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, compute_dtype=compute_dtype)
+        self.split = split
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        partial = F.linear(x.to(dt), self.weight.to(dt))
+        total = sum_over_tensor_group(partial, self.split)
+        return (total + self.bias.to(dt).float()).to(dt)
+
+
+def _parallel_linear(in_features: int, out_features: int, split: Optional[TensorSplit],
+                     dtype: torch.dtype, rows: bool) -> Linear:
+    """A Linear of the block, local to this tensor rank: split by output
+    features (``rows``: qkv, fc1) or by input features (proj, fc2)."""
+    if split is None or split.size == 1:
+        return Linear(in_features, out_features, compute_dtype=dtype)
+    if rows:
+        return Linear(in_features, out_features // split.size, compute_dtype=dtype)
+    return RowParallelLinear(in_features // split.size, out_features, split, compute_dtype=dtype)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -274,22 +373,31 @@ class Attention(nn.Module):
     layer keeps only qkv, and the backward recomputes the forward first, so
     a 'flash' layer launches its forward kernel twice per train step and its
     backward kernel once. Given ``kv_valid`` (pad-to-max masking) the layer
-    runs the plain route with the key mask, as the JAX layer does."""
+    runs the plain route with the key mask, as the JAX layer does.
+
+    With a ``TensorSplit`` of size T the layer holds ``num_heads / T`` heads
+    (``num_heads`` is the model's count; ``self.num_heads`` the local one)
+    and its proj sums over the tensor group."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32, use_flash: Optional[bool] = None):
+                 dtype: torch.dtype = torch.float32, use_flash: Optional[bool] = None,
+                 split: Optional[TensorSplit] = None):
         super().__init__()
-        self.num_heads = num_heads
+        size = 1 if split is None else split.size
+        if num_heads % size:
+            raise ValueError(f"{num_heads} heads do not split over a tensor axis of {size}")
+        self.num_heads = num_heads // size
         self.use_flash = use_flash
-        self.qkv = Linear(hidden_size, 3 * hidden_size, compute_dtype=dtype)
-        self.proj = Linear(hidden_size, hidden_size, compute_dtype=dtype)
+        self.split = split
+        self.qkv = _parallel_linear(hidden_size, 3 * hidden_size, split, dtype, rows=True)
+        self.proj = _parallel_linear(hidden_size, hidden_size, split, dtype, rows=False)
         for lin in (self.qkv, self.proj):
             nn.init.xavier_uniform_(lin.weight)
             nn.init.zeros_(lin.bias)
 
     def forward(self, x: torch.Tensor, kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        hd = x.shape[-1] // self.num_heads
-        qkv = self.qkv(x)
+        qkv = self.qkv(copy_to_tensor_group(x, self.split))
+        hd = qkv.shape[-1] // (3 * self.num_heads)
         grad = torch.is_grad_enabled() and qkv.requires_grad
         route = attention_route(self.num_heads, x.shape[1], hd, grad, self.use_flash,
                                 kv_valid is not None)
@@ -308,19 +416,26 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU(tanh) -> fc2 (timm Mlp used at reference :182)."""
+    """fc1 -> GELU(tanh) -> fc2 (timm Mlp used at reference :182); with a
+    ``TensorSplit`` of size T, 1/T of the hidden features and a sum over
+    the tensor group after fc2."""
 
     def __init__(self, hidden_size: int, mlp_hidden: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, split: Optional[TensorSplit] = None):
         super().__init__()
-        self.fc1 = Linear(hidden_size, mlp_hidden, compute_dtype=dtype)
-        self.fc2 = Linear(mlp_hidden, hidden_size, compute_dtype=dtype)
+        size = 1 if split is None else split.size
+        if mlp_hidden % size:
+            raise ValueError(f"{mlp_hidden} MLP features do not split over a tensor axis of "
+                             f"{size}")
+        self.split = split
+        self.fc1 = _parallel_linear(hidden_size, mlp_hidden, split, dtype, rows=True)
+        self.fc2 = _parallel_linear(mlp_hidden, hidden_size, split, dtype, rows=False)
         for lin in (self.fc1, self.fc2):
             nn.init.xavier_uniform_(lin.weight)
             nn.init.zeros_(lin.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_tanh(self.fc1(x)))
+        return self.fc2(gelu_tanh(self.fc1(copy_to_tensor_group(x, self.split))))
 
 
 def _ada_ln(c_emb_size: int, out: int, dtype: torch.dtype) -> nn.Sequential:
@@ -337,10 +452,11 @@ class DiTBlock(nn.Module):
 
     def __init__(self, hidden_size: int, c_emb_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None, split: Optional[TensorSplit] = None):
         super().__init__()
-        self.attn = Attention(hidden_size, num_heads, dtype=dtype, use_flash=use_flash)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype)
+        self.attn = Attention(hidden_size, num_heads, dtype=dtype, use_flash=use_flash,
+                              split=split)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype, split=split)
         self.adaLN_modulation = _ada_ln(c_emb_size, 6 * hidden_size, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,

@@ -43,6 +43,7 @@ class EDMPrecond(nn.Module):
         learn_sigma: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         use_flash: Optional[bool] = None,
+        tensor_split=None,
     ):
         super().__init__()
         self.img_resolution = img_resolution
@@ -64,6 +65,7 @@ class EDMPrecond(nn.Module):
             learn_sigma=learn_sigma,
             dtype=dtype,
             use_flash=use_flash,
+            tensor_split=tensor_split,
         )
 
     def _coerce_labels(self, x: torch.Tensor, class_labels) -> Optional[torch.Tensor]:

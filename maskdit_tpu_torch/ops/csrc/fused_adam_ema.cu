@@ -21,7 +21,12 @@
 // pre-increment Adam step, as the JAX key folds it in) and the counter
 // (i / 4, 0, 0) of the element's index i in the flat buffer; element i
 // takes word i % 4 and uses its low 16 bits. So a resumed run rounds as a
-// straight run does. The EMA-off mode (a step of ema_every > 1 without the
+// straight run does. On a shard of the mesh (parallel/sharded.py) i is the
+// element's index in the UNSHARDED flat buffer, given by a table of
+// segments: entry (local start, global start, rows, cols, row stride) maps
+// local element local_start + r * cols + c to global_start + r * stride + c;
+// the entries are sorted by local start and cover the buffer (an empty
+// table: global = local). So a sharded run rounds as the unsharded one. The EMA-off mode (a step of ema_every > 1 without the
 // EMA) neither reads nor writes e: JAX multiplies e by 1 and adds 0 * p
 // there, the same value whenever p is finite.
 //
@@ -87,6 +92,46 @@ __device__ __forceinline__ uint4 sr_bits(size_t q, uint32_t count) {
 
 __device__ __forceinline__ uint32_t word(const uint4& w, int k) {
   return k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
+}
+
+// The unsharded index of local element i (binary search of the segments).
+__device__ __forceinline__ size_t global_index(const long long* __restrict__ seg, int n_seg,
+                                               size_t i) {
+  int lo = 0, hi = n_seg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (static_cast<size_t>(seg[5 * mid]) <= i) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const long long* e = seg + 5 * lo;
+  const size_t k = i - static_cast<size_t>(e[0]);
+  const size_t cols = static_cast<size_t>(e[3]);
+  return static_cast<size_t>(e[1]) + (k / cols) * static_cast<size_t>(e[4]) + k % cols;
+}
+
+// The random word of local element i.
+__device__ __forceinline__ uint32_t element_bits(const long long* __restrict__ seg, int n_seg,
+                                                 size_t i, uint32_t count) {
+  const size_t gi = n_seg > 0 ? global_index(seg, n_seg, i) : i;
+  return word(sr_bits(gi / 4, count), static_cast<int>(gi % 4));
+}
+
+// The words of local elements 4j .. 4j+3: one Philox call where they are
+// four aligned consecutive unsharded elements (always without segments).
+__device__ __forceinline__ uint4 group_bits(const long long* __restrict__ seg, int n_seg,
+                                            size_t j, uint32_t count) {
+  if (n_seg == 0) return sr_bits(j, count);
+  const size_t g0 = global_index(seg, n_seg, 4 * j);
+  if (g0 % 4 == 0 && global_index(seg, n_seg, 4 * j + 3) == g0 + 3) {
+    return sr_bits(g0 / 4, count);
+  }
+  return make_uint4(element_bits(seg, n_seg, 4 * j, count),
+                    element_bits(seg, n_seg, 4 * j + 1, count),
+                    element_bits(seg, n_seg, 4 * j + 2, count),
+                    element_bits(seg, n_seg, 4 * j + 3, count));
 }
 
 // stochastic_round_bf16: (bits(x) + (r & 0xFFFF)) & 0xFFFF0000, upper half
@@ -180,11 +225,13 @@ __device__ __forceinline__ void update(const Scalars& s, float g, float& p, floa
   }
 }
 
-template <typename G, typename M, typename V, bool kEma>
+// kSeg: a shard's segment table is given (a bf16 v only); without it the
+// kernels compile as they did before the table existed
+template <typename G, typename M, typename V, bool kEma, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_ema_vec4(const G* __restrict__ g, float* __restrict__ p, M* __restrict__ m,
                     V* __restrict__ v, float* __restrict__ e, size_t n4, Scalars s,
-                    uint32_t count) {
+                    uint32_t count, const long long* __restrict__ seg, int n_seg) {
   constexpr bool kSr = sizeof(V) == 2;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   for (size_t j = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; j < n4;
@@ -200,17 +247,22 @@ fused_adam_ema_vec4(const G* __restrict__ g, float* __restrict__ p, M* __restric
     store4(p, j, pj);
     store4(m, j, mj);
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-    if constexpr (kSr) bits = sr_bits(j, count);
+    if constexpr (kSr && kSeg) {
+      bits = group_bits(seg, n_seg, j, count);
+    } else if constexpr (kSr) {
+      bits = sr_bits(j, count);
+    }
     store_v4(v, j, vj, bits);
     if constexpr (kEma) store4(e, j, ej);
   }
 }
 
-template <typename G, typename M, typename V, bool kEma>
+template <typename G, typename M, typename V, bool kEma, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_ema_scalar(const G* __restrict__ g, float* __restrict__ p, M* __restrict__ m,
                       V* __restrict__ v, float* __restrict__ e, size_t begin, size_t n,
-                      Scalars s, uint32_t count) {
+                      Scalars s, uint32_t count, const long long* __restrict__ seg,
+                      int n_seg) {
   constexpr bool kSr = sizeof(V) == 2;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   for (size_t i = begin + static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
@@ -220,7 +272,11 @@ fused_adam_ema_scalar(const G* __restrict__ g, float* __restrict__ p, M* __restr
     p[i] = pi;
     store1(m, i, mi);
     uint32_t r = 0u;
-    if constexpr (kSr) r = word(sr_bits(i / 4, count), static_cast<int>(i % 4));
+    if constexpr (kSr && kSeg) {
+      r = element_bits(seg, n_seg, i, count);
+    } else if constexpr (kSr) {
+      r = word(sr_bits(i / 4, count), static_cast<int>(i % 4));
+    }
     store_v1(v, i, vi, r);
     if constexpr (kEma) e[i] = ei;
   }
@@ -239,9 +295,10 @@ bool aligned4(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % (4 * sizeof(T)) == 0;
 }
 
-template <typename G, typename M, typename V, bool kEma>
-cudaError_t launch(const void* g_, void* p_, void* m_, void* v_, void* e_, size_t n,
-                   const Scalars& s, uint32_t count, cudaStream_t stream) {
+template <typename G, typename M, typename V, bool kEma, bool kSeg>
+cudaError_t launch_with(const void* g_, void* p_, void* m_, void* v_, void* e_, size_t n,
+                        const Scalars& s, uint32_t count, const long long* seg, int n_seg,
+                        cudaStream_t stream) {
   const G* g = static_cast<const G*>(g_);
   float* p = static_cast<float*>(p_);
   M* m = static_cast<M*>(m_);
@@ -252,23 +309,35 @@ cudaError_t launch(const void* g_, void* p_, void* m_, void* v_, void* e_, size_
       (!kEma || aligned4<float>(e))) {
     const size_t n4 = n / 4;
     if (n4 > 0) {
-      fused_adam_ema_vec4<G, M, V, kEma><<<grid_for(n4), kThreads, 0, stream>>>(
-          g, p, m, v, e, n4, s, count);
+      fused_adam_ema_vec4<G, M, V, kEma, kSeg><<<grid_for(n4), kThreads, 0, stream>>>(
+          g, p, m, v, e, n4, s, count, seg, n_seg);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
     done = 4 * n4;
   }
   if (done < n) {
-    fused_adam_ema_scalar<G, M, V, kEma><<<grid_for(n - done), kThreads, 0, stream>>>(
-        g, p, m, v, e, done, n, s, count);
+    fused_adam_ema_scalar<G, M, V, kEma, kSeg><<<grid_for(n - done), kThreads, 0, stream>>>(
+        g, p, m, v, e, done, n, s, count, seg, n_seg);
   }
   return cudaGetLastError();
 }
 
+template <typename G, typename M, typename V, bool kEma>
+cudaError_t launch(const void* g, void* p, void* m, void* v, void* e, size_t n,
+                   const Scalars& s, uint32_t count, const long long* seg, int n_seg,
+                   cudaStream_t stream) {
+  if constexpr (sizeof(V) == 2) {
+    if (n_seg > 0) return launch_with<G, M, V, kEma, true>(g, p, m, v, e, n, s, count, seg,
+                                                           n_seg, stream);
+  }
+  return launch_with<G, M, V, kEma, false>(g, p, m, v, e, n, s, count, seg, n_seg, stream);
+}
+
 using Bf16 = __nv_bfloat16;
 using Launcher = cudaError_t (*)(const void*, void*, void*, void*, void*, size_t,
-                                 const Scalars&, uint32_t, cudaStream_t);
+                                 const Scalars&, uint32_t, const long long*, int,
+                                 cudaStream_t);
 
 template <typename G, typename M, typename V>
 Launcher pick_ema(int with_ema) {
@@ -292,13 +361,18 @@ extern "C" {
 // p, e: fp32; g, m, v: fp32 (dtype code 1) or bf16 (0); n contiguous
 // elements each, on the current device; p, m, v and e are updated in place
 // (e is not touched when with_ema is 0). sr_count keys the stochastic
-// rounding of a bf16 v (the pre-increment Adam count). Returns the
-// cudaError_t of the launch (0 on success).
+// rounding of a bf16 v (the pre-increment Adam count); seg (n_seg x 5
+// int64 on the device, or n_seg 0) maps each element to its unsharded
+// index for those bits. Returns the cudaError_t of the launch (0 on
+// success).
 int fused_adam_ema(const void* g, void* p, void* m, void* v, void* e, long long n,
                    int g_dtype, int m_dtype, int v_dtype, int with_ema, unsigned int sr_count,
                    float lr, float bc1, float bc2, float decay, float one_minus_decay, float b1,
-                   float one_minus_b1, float b2, float one_minus_b2, float eps, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+                   float one_minus_b1, float b2, float one_minus_b2, float eps,
+                   const void* seg, int n_seg, void* stream) {
+  if (n < 0 || n_seg < 0 || (n_seg > 0 && seg == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto valid = [](int code) { return code == 0 || code == 1; };
   if (!valid(g_dtype) || !valid(m_dtype) || !valid(v_dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -308,6 +382,7 @@ int fused_adam_ema(const void* g, void* p, void* m, void* v, void* e, long long 
   const Launcher run = g_dtype == 0 ? pick_m<Bf16>(m_dtype, v_dtype, with_ema)
                                     : pick_m<float>(m_dtype, v_dtype, with_ema);
   return static_cast<int>(run(g, p, m, v, e, static_cast<size_t>(n), s, sr_count,
+                              static_cast<const long long*>(seg), n_seg,
                               static_cast<cudaStream_t>(stream)));
 }
 

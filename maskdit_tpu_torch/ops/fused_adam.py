@@ -37,7 +37,12 @@ with the element's index in the flat buffer as the counter
 (``sr_bits``): deterministic across resume, as the JAX key folded from the
 count is, but not threefry's bits, so the two packages agree in
 distribution, not value. The plain version computes the same Philox in
-int64 tensor arithmetic, so kernel and plain agree bit for bit.
+int64 tensor arithmetic, so kernel and plain agree bit for bit. On a
+shard of the mesh (``parallel/sharded.py``) the index is the element's in
+the UNSHARDED flat buffer, from a table of ``segments`` (int64 rows of
+local start, global start, rows, cols, row stride: local element
+``local_start + r * cols + c`` is global ``global_start + r * stride +
+c``), so a sharded run draws the unsharded run's bits.
 ``with_ema=False`` (the steps of ``ema_every > 1`` without the EMA)
 leaves ema untouched; JAX passes d = 1.0 there, which gives the same
 value whenever p is finite.
@@ -131,19 +136,50 @@ def sr_bits(start: int, n: int, count: int, device) -> torch.Tensor:
     return words[start - 4 * q0:start - 4 * q0 + n]
 
 
-def stochastic_round_bf16(x: torch.Tensor, count: int, start: int = 0) -> torch.Tensor:
+def sr_bits_at(index: torch.Tensor, count: int) -> torch.Tensor:
+    """The random words of the elements of flat ``index`` (int64): element i
+    takes word i % 4 of Philox at counter (i // 4, 0, 0)."""
+    q = index // 4
+    zero = torch.zeros_like(q)
+    words = torch.stack(philox4x32_10((q & _M32, q >> 32, zero, zero), (SR_KEY, count & _M32)),
+                        dim=1)
+    return words.gather(1, (index % 4)[:, None])[:, 0]
+
+
+def segment_index(segments: torch.Tensor, start: int, n: int, device=None) -> torch.Tensor:
+    """The unsharded indices (int64) of a shard's elements ``start .. start
+    + n - 1``, by its table of segments (see the module docstring)."""
+    parts = []
+    for local, glob, rows, cols, stride in segments.tolist():
+        a, b = max(start, local), min(start + n, local + rows * cols)
+        if a < b:
+            k = torch.arange(a - local, b - local, dtype=torch.int64, device=device)
+            parts.append(glob + (k // cols) * stride + k % cols)
+    return torch.cat(parts)
+
+
+def _round_with_bits(piece: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    u = piece.float().view(torch.int32).to(torch.int64) & _M32
+    hi = ((u + (bits & 0xFFFF)) >> 16) & 0xFFFF
+    return (hi - ((hi & 0x8000) << 1)).to(torch.int16).view(torch.bfloat16)
+
+
+def stochastic_round_bf16(x: torch.Tensor, count: int, start: int = 0,
+                          segments: Optional[torch.Tensor] = None) -> torch.Tensor:
     """fp32 -> bf16 with stochastic rounding (``stochastic_round_bf16`` of
     the JAX package with the port's bits): the low 16 bits of each
     element's random word are added to its fp32 pattern, which is then
     truncated to its upper half. ``x`` is flat; its element k is the flat
-    buffer's element ``start + k``."""
+    buffer's element ``start + k``, or, given ``segments`` (a shard's
+    table, see the module docstring), the element the table maps k to."""
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     for lo in range(0, x.numel(), _SR_PIECE):
-        piece = x[lo:lo + _SR_PIECE].float()
-        u = piece.view(torch.int32).to(torch.int64) & _M32
-        bits = sr_bits(start + lo, piece.numel(), count, x.device)
-        hi = ((u + (bits & 0xFFFF)) >> 16) & 0xFFFF
-        out[lo:lo + _SR_PIECE] = (hi - ((hi & 0x8000) << 1)).to(torch.int16).view(torch.bfloat16)
+        piece = x[lo:lo + _SR_PIECE]
+        if segments is None:
+            bits = sr_bits(start + lo, piece.numel(), count, x.device)
+        else:
+            bits = sr_bits_at(segment_index(segments, lo, piece.numel(), x.device), count)
+        out[lo:lo + _SR_PIECE] = _round_with_bits(piece, bits)
     return out
 
 
@@ -152,14 +188,15 @@ def fused_adam_ema_reference(
     e: torch.Tensor, *, lr: float, bc1: float, bc2: float, decay: float,
     one_minus_decay: float, b1: float, one_minus_b1: float, b2: float,
     one_minus_b2: float, eps: float, sr_count: Optional[int] = None,
-    with_ema: bool = True,
+    with_ema: bool = True, segments: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: new (p, m, v, ema), out of place.
 
     The operation order of ``_leaf_update_jnp`` (fused_adam.py:128-152);
     m and v are returned in their own dtypes, p and ema in fp32. A bf16 v
     is stochastically rounded with the bits of ``sr_count`` (the tensors
-    are the flat buffers, or their first elements); ``with_ema=False``
+    are the flat buffers, or their first elements, or a shard whose
+    ``segments`` give each element's unsharded index); ``with_ema=False``
     returns ema itself.
     """
     g = g.float()
@@ -177,7 +214,8 @@ def fused_adam_ema_reference(
         raise ValueError("a bf16 second moment needs stochastic rounding (sr_count); "
                          "round-to-nearest freezes it at (1 - b2) increments")
     else:
-        v_store = stochastic_round_bf16(v_new.reshape(-1), sr_count).view(v.shape)
+        v_store = stochastic_round_bf16(v_new.reshape(-1), sr_count,
+                                        segments=segments).view(v.shape)
     return p_new, m_new.to(m.dtype), v_store, e_new
 
 
@@ -186,7 +224,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
     lib.fused_adam_ema.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_uint]
-        + [ctypes.c_float] * 10 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 10 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     )
     lib.fused_adam_ema.restype = ctypes.c_int
     lib.fused_adam_ema_error_string.argtypes = [ctypes.c_int]
@@ -200,9 +238,10 @@ _NARROW = ("g", "m", "v")  # may be bf16
 
 
 def launch(g, p, m, v, e, scalars: dict[str, float], sr_count: int = 0,
-           with_ema: bool = True) -> None:
+           with_ema: bool = True, segments: Optional[torch.Tensor] = None) -> None:
     """Launch the kernel with the given fp32 scalars (``adam_scalars``'s
-    keys) on CUDA tensors; counts one launch."""
+    keys) on CUDA tensors; counts one launch. ``segments``: a shard's
+    table (int64, n x 5), copied to the card where it is not there."""
     for name, t in (("g", g), ("p", p), ("m", m), ("v", v), ("ema", e)):
         if t.device != p.device or t.device.type != "cuda":
             raise ValueError(f"fused_adam_ema: {name} on {t.device}, p on {p.device}")
@@ -214,12 +253,18 @@ def launch(g, p, m, v, e, scalars: dict[str, float], sr_count: int = 0,
         want = tuple(_DTYPE_CODES) if name in _NARROW else (torch.float32,)
         if t.dtype not in want:
             raise TypeError(f"fused_adam_ema: {name} is {t.dtype} (takes {want})")
+    seg = None
+    if segments is not None:
+        seg = segments.to(device=p.device, dtype=torch.int64).contiguous()
+        if seg.dim() != 2 or seg.shape[1] != 5:
+            raise ValueError(f"fused_adam_ema: segments are {tuple(seg.shape)}, not (n, 5)")
     lib = _library()
     with torch.cuda.device(p.device), build.launch_range("fused_adam_ema"):
         err = lib.fused_adam_ema(
             g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), e.data_ptr(),
             p.numel(), _DTYPE_CODES[g.dtype], _DTYPE_CODES[m.dtype], _DTYPE_CODES[v.dtype],
             int(with_ema), sr_count & _M32, *(scalars[k] for k in _SCALAR_ORDER),
+            None if seg is None else seg.data_ptr(), 0 if seg is None else seg.shape[0],
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -234,33 +279,35 @@ def fused_adam_ema(
     g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     e: torch.Tensor, *, lr: float, count_inc: int, b1: float = 0.9,
     b2: float = 0.999, eps: float = 1e-8, ema_decay: float = 0.9999,
-    with_ema: bool = True,
+    with_ema: bool = True, segments: Optional[torch.Tensor] = None,
 ) -> None:
     """Update p, m, v and ema in place from the gradient g.
 
     ``count_inc`` is the post-increment step (optax's convention for the
     bias correction); ``lr`` is the schedule's value at the step before.
-    A bf16 v is stochastically rounded with the bits of ``count_inc - 1``.
+    A bf16 v is stochastically rounded with the bits of ``count_inc - 1``
+    (at the unsharded indices of ``segments`` on a shard).
     """
     if p.device.type == "cpu":
         fused_adam_ema_plain(g, p, m, v, e, lr=lr, count_inc=count_inc, b1=b1, b2=b2,
-                             eps=eps, ema_decay=ema_decay, with_ema=with_ema)
+                             eps=eps, ema_decay=ema_decay, with_ema=with_ema,
+                             segments=segments)
         return
     launch(g, p, m, v, e, adam_scalars(lr, count_inc, b1, b2, eps, ema_decay),
-           sr_count=count_inc - 1, with_ema=with_ema)
+           sr_count=count_inc - 1, with_ema=with_ema, segments=segments)
 
 
 def fused_adam_ema_plain(
     g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     e: torch.Tensor, *, lr: float, count_inc: int, b1: float = 0.9,
     b2: float = 0.999, eps: float = 1e-8, ema_decay: float = 0.9999,
-    with_ema: bool = True,
+    with_ema: bool = True, segments: Optional[torch.Tensor] = None,
 ) -> None:
     """``fused_adam_ema`` through the plain version on any device, in place:
     what the kernel is held to."""
     new = fused_adam_ema_reference(
         g, p, m, v, e, **adam_scalars(lr, count_inc, b1, b2, eps, ema_decay),
-        sr_count=count_inc - 1, with_ema=with_ema,
+        sr_count=count_inc - 1, with_ema=with_ema, segments=segments,
     )
     for dst, src in zip((p, m, v, e), new):
         if src is not dst:
@@ -283,7 +330,7 @@ def staged_adam_ema(
     g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     e: torch.Tensor, *, lr: float, count: int, b1: float = 0.9, b2: float = 0.999,
     eps: float = 1e-8, weight_decay: float = 0.0, ema_decay: float = 0.9999,
-    with_ema: bool = True,
+    with_ema: bool = True, segments: Optional[torch.Tensor] = None,
 ) -> None:
     """The staged update (JAX state.py:205-224) in place: Adam's
     ``optimizer.update``, ``optax.apply_updates`` and, unless ``with_ema`` is
@@ -303,7 +350,8 @@ def staged_adam_ema(
       * bf16 nu, ``adam_sr_nu`` (maskdit_tpu/ops/fused_adam.py:233-293): g
         upcast first, m = b1 * m + (1 - b1) * g, v = b2 * v + (1 - b2) * g
         * g, nu stored by ``stochastic_round_bf16`` with the bits of
-        ``count``, the kernel's;
+        ``count``, the kernel's (at the unsharded indices of ``segments``
+        on a shard);
       * both: u = (m / bc1) / (sqrt(v / bc2) + eps), bc = 1 - b**(count +
         1) in fp32, p = p + (-lr) * u, mu stored in its dtype (rounded to
         nearest), ema = s * p + (1 - s) * ema with s = 1 - ema_decay.
@@ -337,7 +385,8 @@ def staged_adam_ema(
     m.copy_(m_new)
     del m_new
     if v.dtype == torch.bfloat16:
-        v.copy_(stochastic_round_bf16(v_new.reshape(-1), count).view(v.shape))
+        v.copy_(stochastic_round_bf16(v_new.reshape(-1), count,
+                                      segments=segments).view(v.shape))
     else:
         v.copy_(v_new)
     del v_new
@@ -387,14 +436,16 @@ class FusedAdamEma:
     def update_with_ema(
         self, grads: torch.Tensor, state: AdamState, params: torch.Tensor,
         ema: torch.Tensor, ema_decay: float = 0.9999, with_ema: bool = True,
+        segments: Optional[torch.Tensor] = None,
     ) -> None:
         """One step: params, state.mu, state.nu and ema (unless
         ``with_ema`` is False) change in place and state.count goes up by
-        one."""
+        one. ``segments``: the shard's table of unsharded indices."""
         fused_adam_ema(
             grads, params, state.mu, state.nu, ema,
             lr=self.lr_at(state.count), count_inc=state.count + 1,
             b1=self.b1, b2=self.b2, eps=self.eps, ema_decay=ema_decay, with_ema=with_ema,
+            segments=segments,
         )
         state.count += 1
 
@@ -416,11 +467,13 @@ class StagedAdamEma(FusedAdamEma):
     def update_with_ema(
         self, grads: torch.Tensor, state: AdamState, params: torch.Tensor,
         ema: torch.Tensor, ema_decay: float = 0.9999, with_ema: bool = True,
+        segments: Optional[torch.Tensor] = None,
     ) -> None:
         """As ``FusedAdamEma.update_with_ema``, through the staged update."""
         staged_adam_ema(
             grads, params, state.mu, state.nu, ema, lr=self.lr_at(state.count),
             count=state.count, b1=self.b1, b2=self.b2, eps=self.eps,
             weight_decay=self.weight_decay, ema_decay=ema_decay, with_ema=with_ema,
+            segments=segments,
         )
         state.count += 1

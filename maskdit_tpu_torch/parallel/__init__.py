@@ -1,2 +1,3 @@
-"""Multi-process runtime of the port: the process group (``dist``) and
-data-parallel training over it (``data_parallel``)."""
+"""Multi-process runtime of the port: the process group (``dist``),
+data-parallel training over it (``data_parallel``) and the JAX mesh's
+FSDP and tensor axes (``mesh``, ``sharded``)."""

@@ -19,7 +19,12 @@ broadcast once at the start, and each step
     equal bit for bit;
   * averages its metrics.
 
-The FSDP and tensor axes of the JAX mesh are not ported (ROADMAP.md).
+Given the mesh (``parallel/mesh.py``), the data axis is the mesh's: a
+process's rows are those of its (data, fsdp) coordinate, the gradient is
+all-reduced over the data group (the fsdp sum is the sharded state's
+reduce-scatter, ``parallel/sharded.py``) and divided by data x fsdp, and the
+metrics are averaged over data x fsdp. A mesh of ``data = world`` runs the
+collectives of the default group, as without a mesh.
 """
 
 from __future__ import annotations
@@ -30,17 +35,27 @@ import torch
 import torch.distributed as dist
 
 from maskdit_tpu_torch.parallel.dist import process_count, process_index
+from maskdit_tpu_torch.parallel.mesh import Mesh, group_size
 
 
 class DataParallel:
-    """The collectives of data-parallel training on the default group."""
+    """The collectives of data-parallel training on the default group, or
+    on the data axis of ``mesh``. ``rank`` / ``world``: this process's
+    block of the global batch and the number of blocks."""
 
-    def __init__(self):
+    def __init__(self, mesh: Optional[Mesh] = None):
         if not dist.is_initialized():
             raise RuntimeError("DataParallel needs the process group (parallel.dist."
                                "init_distributed)")
-        self.rank = process_index()
-        self.world = process_count()
+        if mesh is None:
+            self.rank, self.world = process_index(), process_count()
+            self._grad_group = self._metric_group = None
+            self._reduce_grad = self._reduce_metrics = True
+        else:
+            self.rank, self.world = mesh.batch_index, mesh.batch_count
+            self._grad_group, self._metric_group = mesh.groups["data"], mesh.groups["batch"]
+            self._reduce_grad = group_size(mesh, "data") > 1
+            self._reduce_metrics = group_size(mesh, "batch") > 1
         # the stop flag travels on the CPU (gloo), so agreeing on it does
         # not wait for the card
         self._host_group = (dist.new_group(backend="gloo")
@@ -59,7 +74,8 @@ class DataParallel:
         gradient tree keeps the accumulator's dtype after the fp32
         reduction."""
         g = grads if grads.dtype == torch.float32 else grads.float()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM)
+        if self._reduce_grad:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self._grad_group)
         g.div_(self.world)
         if g is not grads:
             grads.copy_(g)
@@ -68,7 +84,8 @@ class DataParallel:
         """Each 0-d metric averaged over the processes (one all-reduce)."""
         keys = sorted(metrics)
         flat = torch.stack([metrics[k].detach().float() for k in keys])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        if self._reduce_metrics:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self._metric_group)
         flat.div_(self.world)
         return {k: flat[i] for i, k in enumerate(keys)}
 
@@ -79,8 +96,9 @@ class DataParallel:
         return bool(t.item())
 
 
-def data_parallel() -> Optional[DataParallel]:
-    """A ``DataParallel`` when there is a process group (of one process
-    too: its collectives are then the identity, which a run of one rank
-    shows), else None (one process trains alone)."""
-    return DataParallel() if dist.is_initialized() else None
+def data_parallel(mesh: Optional[Mesh] = None) -> Optional[DataParallel]:
+    """A ``DataParallel`` (on ``mesh``'s data axis, where given) when there
+    is a process group (of one process too: its collectives are then the
+    identity, which a run of one rank shows), else None (one process trains
+    alone)."""
+    return DataParallel(mesh) if dist.is_initialized() else None

@@ -14,8 +14,11 @@ train data-parallel (``parallel/data_parallel.py``): launched by
 host:port --num_processes N --process_id i`` as the JAX CLI takes them.
 Each process trains on ``cuda:LOCAL_RANK`` (``--device cuda``) or on the
 device named; ``--dist_backend`` defaults to nccl on a card and gloo on
-the CPU (gloo also lets processes share one card). The JAX CLI's
-``--mesh`` (FSDP and tensor axes) is not ported.
+the CPU (gloo also lets processes share one card). ``--mesh
+data=a,fsdp=b,tensor=c`` (as the JAX CLI parses it; the product must be
+the process count) trains on the JAX mesh's axes: the state sharded over
+fsdp and tensor, every DiT block split over tensor (``parallel/mesh.py``,
+``parallel/sharded.py``).
 ``data.category`` is ``lmdb`` (the latent LMDB that
 ``python -m maskdit_tpu_torch.extract_latent`` writes), ``webdataset`` /
 ``wds`` (the shards of ``python -m maskdit_tpu_torch.lmdb2wds``, indexed, or
@@ -125,6 +128,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                         help="default: nccl on a card, gloo on the CPU")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="mesh spec, e.g. data=1,fsdp=2,tensor=2 (product = processes)")
     # in-training FID (reference: train.py:273-287)
     parser.add_argument("--enable_eval", action="store_true")
     parser.add_argument("--eval_seeds", type=str, default="0-9999")
@@ -186,12 +191,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict[str, Any]:
     the log records (one per logged window), 'state': the final
     TrainState}."""
     from maskdit_tpu_torch.parallel import dist
+    from maskdit_tpu_torch.parallel.mesh import parse_mesh
     from maskdit_tpu_torch.utils.logging import Logger
     from maskdit_tpu_torch.train.trainer import Trainer
 
     args = build_parser().parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.overrides)
     validate(cfg)
+    mesh_shape = parse_mesh(args.mesh)
     created = dist.init_distributed(args.coordinator, args.num_processes, args.process_id,
                                     backend=args.dist_backend, device=args.device)
     try:
@@ -206,6 +213,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict[str, Any]:
             eval_hook=make_eval_hook(cfg, args) if args.enable_eval else None,
             use_wandb=args.use_wandb,
             debug_nans=args.debug_nans,
+            mesh_shape=mesh_shape,
         )
         # rank 0 tees its output into log.txt
         log_file = os.path.join(trainer.exp_dir, "log.txt") if dist.is_main_process() else None

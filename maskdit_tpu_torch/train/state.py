@@ -34,7 +34,9 @@ Every step takes its random values through ``draw_step``, over the whole
 batch. Data parallelism (``parallel/data_parallel.py``): each process runs
 the step on its rows of the global batch with ``draw_step``'s draws of the
 whole global batch, all-reduces the gradient once and updates its whole
-replica.
+replica. On the mesh's fsdp and tensor axes the state is a
+``parallel.sharded.ShardedTrainState``, which the step drives through the
+same methods (``begin_micro``, ``end_micro``, ``grad_norm``, ``any_rank``).
 """
 
 from __future__ import annotations
@@ -143,6 +145,10 @@ class TrainState:
     micro_grads: Optional[torch.Tensor] = None
     # the (gradient, accumulator) dtypes the parameters are bound for
     binding: tuple = (torch.float32, torch.float32)
+    # the update's table of unsharded indices (a shard of the mesh only)
+    segments: Optional[torch.Tensor] = None
+
+    collective = False  # checkpoint() and full_named() on one process
 
     def named(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """Per-parameter views of a flat buffer, under the state-dict keys."""
@@ -177,6 +183,30 @@ class TrainState:
             p.data = net[off:off + shape.numel()].view(shape)
             p.grad = grad[off:off + shape.numel()].view(shape)
         self.binding = (grad_dtype, accum_dtype)
+
+    def begin_micro(self) -> None:
+        """Before a micro-batch's backward: its own gradient buffer zeroed,
+        where it has one."""
+        if self.micro_grads is not None:
+            self.micro_grads.zero_()
+
+    def end_micro(self, acc_dtype: torch.dtype) -> None:
+        """After it: s + g_i.astype(s.dtype), where the micro-batch's
+        gradient has its own buffer (else autograd added it in place)."""
+        if self.micro_grads is not None:
+            with torch.no_grad():
+                self.grads.add_(self.micro_grads.to(acc_dtype))
+
+    def grad_norm(self, grads: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.vector_norm(grads)
+
+    def any_rank(self, flag: bool) -> bool:
+        return flag
+
+    def full_named(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The full state dict of a flat buffer (``named``; gathered from
+        the shards on the mesh)."""
+        return self.named(flat)
 
     def checkpoint(self) -> dict[str, Any]:
         """``{model, ema, opt, step}`` on the CPU, in the reference ``.pt``
@@ -359,10 +389,11 @@ def make_train_step(
     ``draw_step``, over the whole batch. ``sync`` (a
     ``parallel.data_parallel.DataParallel``) makes the step one process's
     share of a data-parallel step: ``batch`` holds this process's rows of
-    the global batch (rank r's rows follow rank r-1's), its draws are
-    ``draw_step``'s over the whole global batch restricted to its rows, and
-    the gradient and the metrics are averaged over the processes before the
-    update.
+    the global batch (rank r's rows follow rank r-1's; on the mesh, the
+    rows of its (data, fsdp) coordinate, ``sync.rank`` of ``sync.world``),
+    its draws are ``draw_step``'s over the whole global batch restricted to
+    its rows, and the gradient and the metrics are averaged over the
+    processes before the update.
 
     ``debug_nans`` (the train CLI's ``--debug_nans``, where the JAX CLI sets
     ``jax_debug_nans``): the loss and the gradient are checked before the
@@ -420,8 +451,7 @@ def make_train_step(
         loss_sum, aux_sum = 0.0, {}
         for i in range(grad_accum):
             rows = slice(i * micro, (i + 1) * micro)
-            if state.micro_grads is not None:
-                state.micro_grads.zero_()
+            state.begin_micro()
             loss_vec, aux = loss_fn(
                 model, x[rows], labels=_rows(y, rows), mask_ratio=ratio,
                 mae_loss_coef=mae_loss_coef, patch_size=patch,
@@ -431,9 +461,7 @@ def make_train_step(
             )
             loss = loss_vec.mean()
             loss.backward()  # adds into the parameters' .grad
-            if state.micro_grads is not None:
-                with torch.no_grad():  # s + g_i.astype(s.dtype)
-                    state.grads.add_(state.micro_grads.to(acc_dtype))
+            state.end_micro(acc_dtype)
             loss_sum = loss_sum + loss.detach()
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
@@ -451,6 +479,7 @@ def make_train_step(
             optimizer.update_with_ema(
                 grads, state.opt_state, state.params, state.ema,
                 ema_decay=decay_k if with_ema else 1.0, with_ema=with_ema,
+                segments=state.segments,
             )
         if debug_nans:
             _raise_if_nan(state, "the updated parameters", state.params)
@@ -460,7 +489,7 @@ def make_train_step(
         if sync is not None:
             metrics = sync.mean_metrics(metrics)
         if log_grad_norm:
-            metrics["grad_norm"] = torch.linalg.vector_norm(grads)
+            metrics["grad_norm"] = state.grad_norm(grads)
         return metrics
 
     return train_step
@@ -469,10 +498,14 @@ def make_train_step(
 def _raise_if_nan(state: TrainState, what: str, value: torch.Tensor) -> None:
     """``FloatingPointError`` if ``value`` (the loss, or a flat buffer of
     ``state``'s layout) holds a NaN, naming the step and, for a flat
-    buffer, its first parameter that does."""
-    if not bool(torch.isnan(value).any()):
+    buffer, its first parameter that does. On the mesh every rank checks its
+    shards, and every rank raises where any holds a NaN."""
+    local = bool(torch.isnan(value).any())
+    if not state.any_rank(local):
         return
-    if value.dim() == 1 and value.numel() == state.params.numel():
+    if not local:
+        what = f"{what} (on another rank)"
+    elif value.dim() == 1 and value.numel() == state.params.numel():
         name = next(k for k, v in state.named(value).items() if bool(torch.isnan(v).any()))
         what = f"{what} ({name} first)"
     raise FloatingPointError(f"debug_nans: {what} holds a NaN at train step {state.step}")

@@ -1,11 +1,20 @@
-"""Config-driven training loop, on one device or data-parallel.
+"""Config-driven training loop, on one device, data-parallel or on a mesh.
 
 Counterpart of maskdit_tpu/train/trainer.py (the reference train.py:35-291)
-without the FSDP and tensor axes of its mesh and orbax. Under a process group of several processes
+without orbax. Under a process group of several processes
 (``parallel/dist.py``) it trains data-parallel
 (``parallel/data_parallel.py``): the global batch is ``batchsize x
 grad_accum x processes``, each process reads its rank-strided rows,
-rank 0 logs and writes the checkpoints, and every process resumes. Kept: the data
+rank 0 logs and writes the checkpoints, and every process resumes. With
+``mesh_shape`` (the CLI's ``--mesh data=a,fsdp=b,tensor=c``, product = the
+process count) it trains on the JAX mesh's axes (``parallel/mesh.py``,
+``parallel/sharded.py``): the rows of a process are those of its (data,
+fsdp) coordinate (tensor ranks read the same rows, so each reads
+``batchsize x grad_accum x tensor``), and with an fsdp or tensor axis above
+1 the state is sharded; the full model is initialised from the seed on the
+CPU and sharded, checkpoints hold the full state gathered from the shards
+(so they resume on any mesh and on one process), and the eval hook gets the
+gathered EMA. Kept: the data
 categories (synthetic, the latent LMDB, WebDataset shards indexed or
 streamed), the experiment naming, mask-ratio bucketing with one train step per
 bucket or, with ``train.pad_to_max``, one step for every ratio (the encoder
@@ -47,6 +56,8 @@ from maskdit_tpu_torch.data.wds import StreamingWDSLoader, WebDatasetLatents
 from maskdit_tpu_torch.models.masking import len_keep_for
 from maskdit_tpu_torch.models.precond import create_model
 from maskdit_tpu_torch.parallel.data_parallel import data_parallel
+from maskdit_tpu_torch.parallel.mesh import create_mesh
+from maskdit_tpu_torch.parallel.sharded import create_sharded_state, tensor_split_of
 from maskdit_tpu_torch.parallel.dist import (
     barrier, is_main_process, local_device, mprint, process_count, process_index,
 )
@@ -145,6 +156,7 @@ class Trainer:
         eval_hook: Optional[Callable[[int, dict], dict]] = None,
         use_wandb: bool = False,
         debug_nans: bool = False,
+        mesh_shape: Optional[dict] = None,
     ):
         # eval_hook(step, ema) -> metrics, with ema the EMA weights under the
         # state-dict keys; run after each checkpoint (reference train.py:273-287)
@@ -167,10 +179,15 @@ class Trainer:
             # the JAX trainer's check (maskdit_tpu/train/trainer.py:225-233)
             raise ValueError("data.streaming requires data.category: wds")
 
+        # the mesh's groups are made collectively here, before any other
+        # collective (raises where the axes' product is not the world)
+        self.mesh = create_mesh(mesh_shape)
         self.grad_accum = t.get("grad_accum", 1)
         self.pad_to_max = bool(t.get("pad_to_max", False))
-        self.local_batch = t["batchsize"] * self.grad_accum
-        self.global_batch = self.local_batch * self.world
+        # the rows of this process's (data, fsdp) coordinate; tensor ranks
+        # read the same ones (the JAX trainer.py:129-133 global batch)
+        self.local_batch = t["batchsize"] * self.grad_accum * self.mesh.shape["tensor"]
+        self.global_batch = t["batchsize"] * self.grad_accum * self.world
         self.max_steps = max_steps_override or t["max_num_steps"]
         self.mask_ratio_fn = get_mask_ratio_fn(
             m.get("mask_ratio_fn", "constant"), m["mask_ratio"], m.get("mask_ratio_min", 0.0)
@@ -181,9 +198,7 @@ class Trainer:
         if is_main_process():
             os.makedirs(self.exp_dir, exist_ok=True)
 
-        torch.manual_seed(seed)  # the parameters' initialisation
-        self.model = create_model(
-            "edm",
+        model_kwargs = dict(
             img_resolution=m["in_size"],
             img_channels=m["in_channels"],
             num_classes=m["num_classes"],
@@ -196,7 +211,14 @@ class Trainer:
             # an explicit model.use_flash wins (null means auto); see
             # default_use_flash
             use_flash=m.get("use_flash", default_use_flash(self.grad_accum, self.seq_len)),
-        ).to(self.device)
+        )
+        torch.manual_seed(seed)  # the parameters' initialisation
+        full = None
+        if self.mesh.sharded:
+            # the one-process run's initialisation, on the CPU, then sharded
+            full = create_model("edm", **model_kwargs).state_dict()
+            model_kwargs["tensor_split"] = tensor_split_of(self.mesh)
+        self.model = create_model("edm", **model_kwargs).to(self.device)
         self.optimizer = make_optimizer(
             t["lr"],
             global_batch_size=self.global_batch,
@@ -205,8 +227,12 @@ class Trainer:
             moment_dtype=t.get("moment_dtype"),
             nu_dtype=t.get("nu_dtype"),
         )
-        self.state = create_train_state(self.model, self.optimizer)
-        self.sync = data_parallel()
+        if full is not None:
+            self.state = create_sharded_state(self.model, full, self.optimizer, self.mesh)
+            del full
+        else:
+            self.state = create_train_state(self.model, self.optimizer)
+        self.sync = data_parallel(self.mesh if mesh_shape is not None else None)
 
         self.ckpt_mgr = CheckpointManager(os.path.join(self.exp_dir, "checkpoints"))
         self.start_step = 0
@@ -220,8 +246,9 @@ class Trainer:
             self.state.load(self.ckpt_mgr.restore())  # every process resumes
             self.start_step = self.state.step
             mprint(f"resumed from step {self.start_step}")
-        if self.sync is not None:
-            # one replica: rank 0's parameters and EMA everywhere
+        if self.sync is not None and not self.mesh.sharded:
+            # one replica: rank 0's parameters and EMA everywhere (the
+            # shards of a sharded state come from the same full state)
             self.sync.broadcast_(self.state.params, self.state.ema)
 
         if data.get("streaming", False):
@@ -232,6 +259,7 @@ class Trainer:
                 data["root"], self.local_batch, label_dim=m["num_classes"], seed=seed,
                 shuffle_buffer=data.get("shuffle_buffer", 1000),
                 resample=data.get("resampled", False),
+                process_index=self.mesh.batch_index, process_count=self.mesh.batch_count,
             )
             source = f"{data['root']} (streamed shards)"
         else:
@@ -239,13 +267,15 @@ class Trainer:
             self.loader = DataLoader(
                 self.dataset, self.local_batch, shuffle=True, seed=seed,
                 num_workers=num_workers, resample=data.get("resampled", False),
-                process_index=self.rank, process_count=self.world,
+                process_index=self.mesh.batch_index, process_count=self.mesh.batch_count,
             )
             source = f"{len(self.dataset):,} samples"
             if isinstance(self.dataset, ImageNetLatentDataset):
                 source += f", {self.dataset.reader_kind} LMDB reader"
         if self.world > 1:
             source += f", {self.world} processes of {self.local_batch}"
+        if mesh_shape is not None:
+            source += f", mesh {self.mesh.shape}"
         self.data_source = source
         self.metrics = None
         if is_main_process():
@@ -329,9 +359,13 @@ class Trainer:
             )
 
     def _save(self, step: int) -> None:
-        """Rank 0 writes the checkpoint; every process waits for it."""
+        """Rank 0 writes the checkpoint (gathered from every process's
+        shards on a sharded mesh); every process waits for it."""
+        ckpt = None
+        if self.state.collective or is_main_process():
+            ckpt = self.state.checkpoint()
         if is_main_process():
-            self.ckpt_mgr.save(step, self.state.checkpoint())
+            self.ckpt_mgr.save(step, ckpt)
         barrier()
 
     def train(self, log_every: Optional[int] = None, ckpt_every: Optional[int] = None) -> int:
@@ -387,7 +421,7 @@ class Trainer:
                     mprint(f"checkpoint saved at step {step}", flush=True)
                     if self.eval_hook is not None:
                         # every process samples its share of the seeds
-                        eval_metrics = self.eval_hook(step, self.state.named(self.state.ema))
+                        eval_metrics = self.eval_hook(step, self.state.full_named(self.state.ema))
                         mprint(f"(step={step:07d}) eval: {eval_metrics}", flush=True)
                         if eval_metrics and self.metrics is not None:
                             self.metrics.log({f"eval/{k}": v for k, v in eval_metrics.items()},

@@ -23,7 +23,7 @@ layout); conv kernels go (kh, kw, I, O) -> (O, I, kh, kw). ``load_vae`` and
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -187,3 +187,81 @@ def load_inception(path: str) -> dict[str, torch.Tensor]:
     state = torch.load(path, map_location="cpu", weights_only=True)
     InceptionV3().load_state_dict(state, strict=True)
     return state
+
+
+# -- the mesh's shards of a state dict (parallel/mesh.py's rules) -------------------
+
+def leaf_split(name: str, shape, spec: tuple, mesh_shape: dict) -> tuple:
+    """How ``parallel.mesh``'s fitted ``spec`` splits a leaf of the full
+    ``shape``: (tensor dim or None, fsdp dim or None). Only 1-d and 2-d
+    leaves are split by the rules."""
+    from maskdit_tpu_torch.parallel.mesh import fit_spec
+
+    fitted = fit_spec(spec, tuple(shape), mesh_shape)
+    dim = lambda axis: fitted.index(axis) if axis in fitted else None
+    return dim("tensor"), dim("fsdp")
+
+
+def shard_leaf(name: str, full: torch.Tensor, spec: tuple, mesh_shape: dict,
+               coords: dict) -> torch.Tensor:
+    """The block of ``full`` that the rank at ``coords`` holds: its tensor
+    rank's rows or columns (``parallel.mesh.tensor_runs``: qkv by whole
+    heads), then its fsdp rank's contiguous chunk of the fsdp dim."""
+    from maskdit_tpu_torch.parallel.mesh import tensor_runs
+
+    dim_t, dim_f = leaf_split(name, full.shape, spec, mesh_shape)
+    out = full
+    if dim_t is not None:
+        runs = tensor_runs(name, full.shape[dim_t], coords["tensor"], mesh_shape["tensor"])
+        out = torch.cat([out.narrow(dim_t, a, b - a) for a, b in runs], dim_t)
+    if dim_f is not None:
+        n = out.shape[dim_f] // mesh_shape["fsdp"]
+        out = out.narrow(dim_f, coords["fsdp"] * n, n)
+    return out.contiguous()
+
+
+def shard_state_dict(full: Mapping[str, torch.Tensor], mesh_shape: dict, coords: dict,
+                     rules: Optional[list] = None) -> dict[str, torch.Tensor]:
+    """A full port state dict -> the shards of the rank at ``coords`` of a
+    mesh of ``mesh_shape`` ({data, fsdp, tensor}), by the mesh's rules."""
+    from maskdit_tpu_torch.parallel.mesh import param_specs
+
+    specs = param_specs(list(full), rules)
+    return {k: shard_leaf(k, v, specs[k], mesh_shape, coords) for k, v in full.items()}
+
+
+def gather_state_dict(shards: Sequence[Mapping[str, torch.Tensor]], mesh_shape: dict,
+                      shapes: Mapping[str, Any], rules: Optional[list] = None
+                      ) -> dict[str, torch.Tensor]:
+    """The inverse of ``shard_state_dict``: every rank's shards (in rank
+    order, ``parallel.mesh.coords_of``) and the full ``shapes`` -> the full
+    state dict, bit for bit."""
+    from maskdit_tpu_torch.parallel.mesh import coords_of, param_specs, tensor_runs
+
+    specs = param_specs(list(shapes), rules)
+    out = {}
+    for name, shape in shapes.items():
+        shape = tuple(shape)
+        dim_t, dim_f = leaf_split(name, shape, specs[name], mesh_shape)
+        first = shards[0][name]
+        full = torch.empty(shape, dtype=first.dtype, device=first.device)
+        for rank, piece in enumerate(shards):
+            c = coords_of(rank, mesh_shape)
+            if c["data"]:
+                continue  # data replicas hold the same values
+            view_pairs = [(full, piece[name])]
+            if dim_t is not None:
+                runs = tensor_runs(name, shape[dim_t], c["tensor"], mesh_shape["tensor"])
+                pairs, lo = [], 0
+                for a, b in runs:
+                    pairs.append((full.narrow(dim_t, a, b - a),
+                                  piece[name].narrow(dim_t, lo, b - a)))
+                    lo += b - a
+                view_pairs = pairs
+            for dst, src in view_pairs:
+                if dim_f is not None:
+                    n = src.shape[dim_f]
+                    dst = dst.narrow(dim_f, c["fsdp"] * n, n)
+                dst.copy_(src)
+        out[name] = full
+    return out

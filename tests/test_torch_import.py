@@ -37,6 +37,8 @@ MODULES = [
     "maskdit_tpu_torch.parallel",
     "maskdit_tpu_torch.parallel.data_parallel",
     "maskdit_tpu_torch.parallel.dist",
+    "maskdit_tpu_torch.parallel.mesh",
+    "maskdit_tpu_torch.parallel.sharded",
     "maskdit_tpu_torch.models.masking",
     "maskdit_tpu_torch.sampling.generate",
     "maskdit_tpu_torch.data",
@@ -172,6 +174,14 @@ def test_multiprocess_test_worker_imports_no_jax():
     """tests/test_torch_dist_worker.py runs each process of the multi-process
     tests; it imports the port alone."""
     proc = _run(_script_imports("tests/test_torch_dist_worker.py", "maskdit_tpu_torch.models"))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_mesh_test_worker_imports_no_jax():
+    """tests/test_torch_mesh_worker.py runs each process of the mesh tests;
+    it imports the port alone, the mesh's modules among them."""
+    proc = _run(_script_imports("tests/test_torch_mesh_worker.py",
+                                "maskdit_tpu_torch.parallel.sharded"))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
