@@ -41,11 +41,13 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      latent LMDB (native reader); checks finite losses, 36 + 36 attention launches and one
      fused-update launch per step, and that resuming from the checkpoint
      restores it exactly; train-step parity kernels vs plain in fp32 and
-     bf16; a profile of one train step;
+     bf16 (since [remat] came at FLASH_DEPTH encoder blocks); a profile of
+     one train step;
   7. training at 512 px: the same CLI on the released 512-px config at its
      batch of 32, cut to 8 steps, on [extract]'s WebDataset shards
      (indexed), 36 + 36 blocked-attention launches and
-     one fused-update launch per step; train-step parity; a profile;
+     one fused-update launch per step; train-step parity (at FLASH_DEPTH
+     encoder blocks since [remat] came); a profile;
   8. the ``use_flash`` path (ops/flash.py, kernels #5 and #6): both kernels
      against their plain versions at every L of their window (bf16 and
      fp32, head dims 32, 64, 72) and, in fp32 (the tensor-core kernels of
@@ -106,7 +108,8 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      an attention launch per block and micro-batch each way (since the
      tool twins came at FLASH_DEPTH encoder blocks: 24 + 24), beside
      [train]'s times. Since the tool twins came the parity steps of 12.
-     and 16. run beside the background group of 18.;
+     and 16. run beside the background group of 18., and since [remat]
+     came at FLASH_DEPTH encoder blocks (launches scaled);
  13. data parallelism on the one card, each phase a ``torch.distributed.run``
      of this script's workers (``--worker TAG``), on DiT-XL/2 at full width
      with 4 of its 28 encoder blocks (DDP_DEPTH): [parity-ddp] two gloo
@@ -210,7 +213,17 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      [train-profile]'s busy ms, ``device_memory_stats`` against the
      allocator; [attn-bench] tools/torch_attn_bench.py with its three
      implementations: every row timed or refused, only the JAX window's
-     refusals, the kernels' launches.
+     refusals, the kernels' launches;
+ 19. [remat] (after 6.) the JAX model's activation rematerialisation
+     (models/remat.py) on 6.'s model at full depth and width, bf16, mask
+     0.5, batch 128: one train step per policy (none, full, dots, names,
+     names_lite) from one state with the same draws, each against the step
+     without remat (bit for bit expected, else within the bf16 training
+     bounds), 36 + 36 whole-row launches without remat and 72 + 36 under
+     each policy (every block's attention forward reruns in the backward),
+     one update; peak memory and ms/step (CUDA events); then one step under
+     'full' at batch 512, 4x the released per-device batch: a finite loss,
+     its launches and peak.
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -224,6 +237,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -400,6 +414,15 @@ SR_VALUES = 1 << 20
 # bf16 on the tensor cores, fp32 outside them, and HBM3's rate. A bound is
 # the larger of operations over the peak of the inputs' type and bytes
 # (each input read once, each output written once) over the memory rate.
+# [remat]: train256's step (DiT-XL/2 at full depth and width, bf16, mask 0.5,
+# batch TRAIN_BATCH) under each of the JAX model's remat policies from one
+# state with the same draws, against the step without remat (bit for bit
+# expected, else TRAIN_PARITY_BOUND[bf16]); each policy reruns every block's
+# attention forward in the backward; then 'full' at
+# REMAT_BIG_BATCH, 4x the released per-device batch
+REMAT_POLICIES = ("none", "full", "dots", "names", "names_lite")
+REMAT_TIMED_STEPS = 1
+REMAT_BIG_BATCH = 4 * TRAIN_BATCH
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -2448,6 +2471,127 @@ def phase_parity_train(tag: str = "parity-train", res: int = 32, n: int = PARITY
     return out
 
 
+def reset_parity_state_(state, seed: int) -> None:
+    """train_parity_state's values again, in place: the weights of
+    random_weights_ (written through the parameters, views of the flat
+    buffer), the EMA equal to them, Adam's count 10 and its moments drawn
+    from ``seed``."""
+    random_weights_(state.model)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        state.ema.copy_(state.params)
+        state.opt_state.mu.normal_(0.0, 1e-4, generator=g)
+        state.opt_state.nu.normal_(0.0, 1e-7, generator=g).abs_()
+    state.opt_state.count, state.step = 10, 0
+
+
+def phase_remat(smi: str) -> dict:
+    """[remat]: one train step of train256's model per remat policy, from one
+    state (reset_parity_state_) with parity_batch's draws: loss, gradients and
+    p / ema / mu / nu against the step without remat, the launches of #1 /
+    #2 / #7, the peak memory and ms/step (CUDA events over REMAT_TIMED_STEPS
+    more steps); then one step under 'full' at REMAT_BIG_BATCH."""
+    from maskdit_tpu_torch.models.remat import policy_of
+    from maskdit_tpu_torch.train.state import make_train_step
+
+    free_device_memory()
+    state, opt = train_parity_state(torch.bfloat16, 4, 32, TRAIN_BATCH)
+    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
+    inner = state.model.model
+    blocks = list(inner.blocks) + list(inner.decoder_blocks)
+    total = {name: 0 for name in kernel_counters()}
+
+    def run(tag: str, policy: str, batch, draws) -> tuple[dict, dict, float, int]:
+        """One checked step under ``policy``: its metrics, launches, peak
+        bytes and the bytes allocated before it."""
+        for block in blocks:
+            block.remat = policy_of(policy)
+        reset_parity_state_(state, 4)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        metrics = step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        peak, launches = torch.cuda.max_memory_allocated(), read_launches()
+        for k, v in launches.items():
+            total[k] += v
+        extra = 0 if policy == "none" else ATTN_PER_STEP  # the recomputed forwards
+        expect_launches(tag, launches, packed_fwd=ATTN_PER_STEP + extra,
+                        packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP)
+        return metrics, launches, peak, before
+
+    def step_ms(batch, draws) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        reset_launches()
+        start.record()
+        for _ in range(REMAT_TIMED_STEPS):
+            step(state, batch, draws=draws)
+        end.record()
+        torch.cuda.synchronize()
+        for k, v in read_launches().items():
+            total[k] += v
+        return start.elapsed_time(end) / REMAT_TIMED_STEPS
+
+    def result(loss: float, flats: dict) -> dict:
+        return dict(loss=loss, grads=state.named(flats["grad"]), state={
+            f"{name}.{k}": v for name in ("p", "ema", "mu", "nu")
+            for k, v in state.named(flats[name]).items()})
+
+    batch, draws = parity_batch(32, TRAIN_BATCH)
+    ref, ref_bytes, out = None, 0, {}
+    for policy in REMAT_POLICIES:
+        tag = f"remat {policy}"
+        metrics, launches, peak, before = run(tag, policy, batch, draws)
+        loss = float(metrics["loss"])
+        flats = {"grad": state.grads, "p": state.params, "ema": state.ema,
+                 "mu": state.opt_state.mu, "nu": state.opt_state.nu}
+        if ref is None:  # the step without remat
+            ref = {"loss": loss, **{k: v.clone() for k, v in flats.items()}}
+            ref_bytes = sum(v.numel() * v.element_size() for k, v in ref.items() if k != "loss")
+            held, errs, exact = 0, dict(loss=0.0, grad=0.0, state=0.0), True
+        else:  # the reference copies sit on the card through this step
+            held = ref_bytes
+            exact = loss == ref["loss"] and all(torch.equal(v, ref[k]) for k, v in flats.items())
+            errs = dict(loss=0.0, grad=0.0, state=0.0) if exact else compare_steps(
+                f"remat {policy}", "vs no remat", torch.bfloat16, 32, TRAIN_BATCH,
+                result(loss, flats), result(ref["loss"], ref))
+        ms = step_ms(batch, draws)
+        out[policy] = dict(loss=loss, exact=exact, err=errs, launches=launches, ms=ms,
+                           peak_gib=(peak - held) / 2**30, before_gib=(before - held) / 2**30)
+        log(f"[remat] {policy}: DiT-XL/2 @256 (28 + 8 blocks, full width), bf16, batch "
+            f"{TRAIN_BATCH}, mask 0.5: loss {loss:.6f} "
+            + ("bit for bit with no remat (loss, every gradient, p / ema / mu / nu)" if exact
+               else f"vs no remat rel err {errs['loss']:.3e}, grad {errs['grad']:.3e}, state "
+               f"{errs['state']:.3e}") + f"; launches #1 {launches['packed_fwd']} #2 "
+            f"{launches['packed_bwd']} #7 {launches['adam']}; peak {peak / 2**30:.2f} GiB"
+            + (f" with the no-remat reference ({held / 2**30:.2f} GiB), "
+               f"{out[policy]['peak_gib']:.2f} without it" if held else "")
+            + f" (state and batch before the step {out[policy]['before_gib']:.2f}); "
+            f"{ms:.1f} ms/step (CUDA events, mean of {REMAT_TIMED_STEPS}); {smi}")
+    del ref, flats
+    free_device_memory()
+    big_batch, big_draws = parity_batch(32, REMAT_BIG_BATCH)
+    tag = f"remat full, batch {REMAT_BIG_BATCH}"
+    metrics, launches, peak, before = run(tag, "full", big_batch, big_draws)
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"{tag}: loss {loss}")
+    ms = step_ms(big_batch, big_draws)
+    out["big"] = dict(loss=loss, launches=launches, peak_gib=peak / 2**30,
+                      before_gib=before / 2**30, ms=ms, batch=REMAT_BIG_BATCH)
+    log(f"[remat] full at batch {REMAT_BIG_BATCH} (4x the released per-device batch): loss "
+        f"{loss:.6f}; launches #1 {launches['packed_fwd']} #2 {launches['packed_bwd']} #7 "
+        f"{launches['adam']}; peak {peak / 2**30:.2f} GiB (state and batch before the step "
+        f"{before / 2**30:.2f}); {ms:.1f} ms/step (CUDA events, mean of {REMAT_TIMED_STEPS}); {smi}")
+    for block in blocks:
+        block.remat = None
+    del state, opt, step, metrics
+    free_device_memory()
+    out["launches"] = total
+    return out
+
+
 def state_tensors(state) -> dict:
     """A train state's gradient and p / ema / mu / nu, per parameter (views)."""
     out = {f"grad.{k}": v for k, v in state.named(state.grads).items()}
@@ -2490,8 +2634,9 @@ def phase_parity_train_options(res: int = 32, n: int = PARITY_BATCH) -> dict:
         torch.cuda.synchronize()
         launches = read_launches()
         if not plain:
-            expect_launches("parity-train-options", launches, packed_fwd=2 * ATTN_PER_STEP,
-                            packed_bwd=2 * ATTN_PER_STEP, adam=ADAM_PER_STEP)
+            per_step = xl_blocks() + DECODER_DEPTH
+            expect_launches("parity-train-options", launches, packed_fwd=2 * per_step,
+                            packed_bwd=2 * per_step, adam=ADAM_PER_STEP)
             if state.grads.dtype != torch.bfloat16 or state.opt_state.nu.dtype != torch.bfloat16:
                 raise AssertionError("parity-train-options: the options did not take")
             fused_adam.fused_adam_ema_plain(
@@ -2602,7 +2747,8 @@ def phase_parity_train_staged(res: int = 32, n: int = PARITY_BATCH) -> dict:
     from maskdit_tpu_torch.train.state import make_train_step
 
     batch, draws = parity_batch(res, n)
-    attn = dict(packed_fwd=ATTN_PER_STEP, packed_bwd=ATTN_PER_STEP)
+    per_step = xl_blocks() + DECODER_DEPTH
+    attn = dict(packed_fwd=per_step, packed_bwd=per_step)
     fused = train_step_result(torch.float32, res, batch, draws, tag="parity-train-staged",
                               launches=dict(attn, adam=ADAM_PER_STEP))
     free_device_memory()
@@ -4420,9 +4566,12 @@ def main() -> None:
         evals = phase_eval(ckpt, vae["path"], main_png["outdir"])
         mark("eval")
         train = phase_train(vae["path"], evals["stats"])
-        parity_train = phase_parity_train()
+        with xl_depth(FLASH_DEPTH):  # a check: 4 encoder blocks since [remat] came
+            parity_train = phase_parity_train()
         profile_busy = phase_train_profile()
         mark("train (with train-eval)")
+        remat = phase_remat(smi)
+        mark("remat")
         with xl_depth(FLASH_DEPTH):
             train_options = phase_train_options(train)
             train_staged = phase_train_staged(train)
@@ -4433,8 +4582,9 @@ def main() -> None:
         scripts, gate = start_scripts(), start_worker("overfit-gate")
         curves = {v: start_worker("mu-curve", v) for v in ("fp32", "mu", "nu", "munu")}
         mesh_proc = start_mesh()
-        parity_options = phase_parity_train_options()
-        parity_staged = phase_parity_train_staged()
+        with xl_depth(FLASH_DEPTH):  # checks: 4 encoder blocks since [remat] came
+            parity_options = phase_parity_train_options()
+            parity_staged = phase_parity_train_staged()
         parity_ddp = phase_parity_ddp()
         train_ddp = phase_train_ddp()
         train_ddp_nccl = phase_train_ddp_nccl()
@@ -4446,7 +4596,8 @@ def main() -> None:
              "them the script twins, the overfit gate, mu-curve, the mesh)")
         train_512 = run_train("train-512", TRAIN_CONFIG_512, 64, dict(
             big_fwd=ATTN_PER_STEP, big_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP))
-        parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
+        with xl_depth(FLASH_DEPTH):
+            parity_train_512 = phase_parity_train("parity-train-512", 64, PARITY_BATCH_512)
         phase_train_profile("train-profile-512", 64, TRAIN_BATCH_512, 2)
         mark("train-512")
         with xl_depth(FLASH_DEPTH):
@@ -4493,7 +4644,12 @@ def main() -> None:
         f"{parity['bfloat16']:.3e}, fp32 {parity['float32']:.3e}, 512 bf16 "
         f"{parity_512['bfloat16']:.3e}, fp32 {parity_512['float32']:.3e}; training 256 "
         f"{train['images_per_s']:.2f} images/s, MFU {train['mfu']:.4f}, peak "
-        f"{train['peak_gib']:.2f} GiB; training 512 {train_512['images_per_s']:.2f} images/s, "
+        f"{train['peak_gib']:.2f} GiB; remat (batch {TRAIN_BATCH}) " + ", ".join(
+            f"{k} {v['ms']:.1f} ms/step, peak {v['peak_gib']:.2f} GiB, "
+            + ("bit for bit" if v["exact"] else f"grad err {v['err']['grad']:.3e}")
+            for k, v in remat.items() if k in REMAT_POLICIES) +
+        f", full at batch {remat['big']['batch']} {remat['big']['ms']:.1f} ms/step, peak "
+        f"{remat['big']['peak_gib']:.2f} GiB, loss {remat['big']['loss']:.4f}; training 512 {train_512['images_per_s']:.2f} images/s, "
         f"MFU {train_512['mfu']:.4f}, peak {train_512['peak_gib']:.2f} GiB; train parity "
         f"{parity_train}; train parity 512 {parity_train_512}; use_flash: model rel err "
         f"bf16 {parity_flash['bfloat16']:.3e}, fp32 {parity_flash['float32']:.3e}; training "
@@ -4556,7 +4712,7 @@ def main() -> None:
         f"{adam['shard']['bound_ms']:.4f}); chip_smoke.py took "
         f"{time.perf_counter() - t_start:.1f} s")
     bf16 = lambda rows, names: max(rows[(n, "bfloat16")]["err"] for n in names)
-    paths = (main_path, train, main_512, train_512, train_flash, main_png, evals, gate,
+    paths = (main_path, train, remat, main_512, train_512, train_flash, main_png, evals, gate,
              train_options, train_ddp, train_ddp_nccl, train_ddp_nccl["alone"],
              *finetune.values(), sample_cls, train_cls, train_staged, train_staged["nu"], aot,
              validate, mu_curve, traced, attn_bench, mesh)

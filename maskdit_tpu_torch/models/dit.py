@@ -10,8 +10,10 @@ dropped ones filled with the mask token (models/masking.py). A pad-to-max
 with attention limited to the first ``len_keep`` keys and scatters only
 those back. The model corners (a class token, external features,
 self-conditioning on the pooled encoder feature) are ``MaskDiT``'s
-options. The JAX package's ``ScannedBlocks`` and remat policies are not
-ported: they exist only to cut XLA compile time.
+options. ``remat`` rematerialises every encoder and decoder block in the
+backward under one of the JAX model's policies (models/remat.py). The JAX
+package's ``ScannedBlocks`` (``scan_blocks``) is not ported: it stacks the
+blocks into one ``lax.scan`` to cut XLA compile time, and computes the same.
 
 API as in the JAX package: ``model(x, t, y)`` returns a dict whose 'x' is
 (N, out_channels, H, W).
@@ -25,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from maskdit_tpu_torch.models import masking
+from maskdit_tpu_torch.models.remat import policy_of
 from maskdit_tpu_torch.models.layers import (
     DecoderLayer,
     DiTBlock,
@@ -76,6 +79,10 @@ class MaskDiT(nn.Module):
     ``tensor_split`` (a ``layers.TensorSplit``) builds the model of one rank
     of the mesh's tensor axis: every encoder and decoder block at its local
     heads and MLP width (``parallel/mesh.py``); the other layers whole.
+
+    ``remat`` takes the JAX values: False / 'none', True / 'full', 'dots',
+    'names', 'names_lite' (``models/remat.py``: what each keeps for the
+    backward); another raises ValueError.
     """
 
     def __init__(
@@ -98,8 +105,10 @@ class MaskDiT(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         use_flash: Optional[bool] = None,
         tensor_split: Optional[TensorSplit] = None,
+        remat=False,
     ):
         super().__init__()
+        self.remat = policy_of(remat)
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -133,7 +142,7 @@ class MaskDiT(nn.Module):
         )
         self.blocks = nn.ModuleList(
             DiTBlock(hidden_size, hidden_size, num_heads, mlp_ratio, dtype=dtype,
-                     use_flash=use_flash, split=tensor_split)
+                     use_flash=use_flash, split=tensor_split, remat=self.remat)
             for _ in range(depth)
         )
         final_hidden_size = hidden_size
@@ -148,7 +157,8 @@ class MaskDiT(nn.Module):
             )
             self.decoder_blocks = nn.ModuleList(
                 DiTBlock(DECODER_HIDDEN_SIZE, hidden_size, DECODER_NUM_HEADS,
-                         mlp_ratio, dtype=dtype, use_flash=use_flash, split=tensor_split)
+                         mlp_ratio, dtype=dtype, use_flash=use_flash, split=tensor_split,
+                         remat=self.remat)
                 for _ in range(DECODER_DEPTH)
             )
             if mae_loss_coef > 0:

@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from maskdit_tpu_torch.models import remat as remat_lib
 from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
 from maskdit_tpu_torch.ops.attention import mha
 from maskdit_tpu_torch.ops.flash_batched import packed_attention
@@ -395,24 +396,29 @@ class Attention(nn.Module):
             nn.init.xavier_uniform_(lin.weight)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, x: torch.Tensor, kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        qkv = self.qkv(copy_to_tensor_group(x, self.split))
+    def attend(self, qkv: torch.Tensor, kv_valid: Optional[torch.Tensor] = None,
+               own_checkpoint: bool = True) -> torch.Tensor:
+        """(N, L, 3D) packed qkv -> (N, L, D), before proj, by the route.
+        ``own_checkpoint`` False (a rematerialised block, which recomputes
+        them itself): the 'flash' and 'plain' routes run without the
+        layer's checkpoint."""
         hd = qkv.shape[-1] // (3 * self.num_heads)
         grad = torch.is_grad_enabled() and qkv.requires_grad
-        route = attention_route(self.num_heads, x.shape[1], hd, grad, self.use_flash,
+        route = attention_route(self.num_heads, qkv.shape[1], hd, grad, self.use_flash,
                                 kv_valid is not None)
         # looked up when called, so a caller may swap the plain versions in
         if route == "packed":
-            out = packed_attention(qkv, self.num_heads, hd ** -0.5)
-        elif route == "big":
-            out = packed_attention_big(qkv, self.num_heads, hd ** -0.5)
-        elif grad:
+            return packed_attention(qkv, self.num_heads, hd ** -0.5)
+        if route == "big":
+            return packed_attention_big(qkv, self.num_heads, hd ** -0.5)
+        if grad and own_checkpoint:
             # (attention draws no random numbers: no RNG state to restore)
-            out = checkpoint(attn_from_qkv, qkv, self.num_heads, route == "flash", kv_valid,
-                             use_reentrant=False, preserve_rng_state=False)
-        else:
-            out = attn_from_qkv(qkv, self.num_heads, route == "flash", kv_valid)
-        return self.proj(out)
+            return checkpoint(attn_from_qkv, qkv, self.num_heads, route == "flash", kv_valid,
+                              use_reentrant=False, preserve_rng_state=False)
+        return attn_from_qkv(qkv, self.num_heads, route == "flash", kv_valid)
+
+    def forward(self, x: torch.Tensor, kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.proj(self.attend(self.qkv(copy_to_tensor_group(x, self.split)), kv_valid))
 
 
 class Mlp(nn.Module):
@@ -448,25 +454,90 @@ def _ada_ln(c_emb_size: int, out: int, dtype: torch.dtype) -> nn.Sequential:
 
 class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning
-    (reference: models/maskdit.py:170-192)."""
+    (reference: models/maskdit.py:170-192).
+
+    The block is the chain of ``STAGES``, each computing one named value
+    from the block's inputs (x, c, kv_valid) and earlier values; a name is
+    the JAX block's ``checkpoint_name`` where it has one (layers.py:217-351).
+    ``remat`` (a ``models/remat.py`` policy; None: no remat) keeps only the
+    policy's values for the backward where a gradient is taken, and
+    recomputes the rest."""
+
+    STAGES = (  # (value, its inputs)
+        ("c_act", ("c",)),  # SiLU(c)
+        ("mod", ("c_act",)),  # the adaLN Linear, in its 6 chunks
+        ("h_msa", ("x", "mod")),
+        ("qkv_out", ("h_msa",)),
+        ("attn", ("qkv_out", "kv_valid")),  # attention, before proj
+        ("attn_out", ("attn",)),
+        ("x_msa", ("x", "mod", "attn_out")),
+        ("h_mlp", ("x_msa", "mod")),
+        ("fc1_out", ("h_mlp",)),
+        ("gelu", ("fc1_out",)),
+        ("mlp_out", ("gelu",)),
+        ("out", ("x_msa", "mod", "mlp_out")),
+    )
 
     def __init__(self, hidden_size: int, c_emb_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 use_flash: Optional[bool] = None, split: Optional[TensorSplit] = None):
+                 use_flash: Optional[bool] = None, split: Optional[TensorSplit] = None,
+                 remat: Optional[str] = None):
         super().__init__()
         self.attn = Attention(hidden_size, num_heads, dtype=dtype, use_flash=use_flash,
                               split=split)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype, split=split)
         self.adaLN_modulation = _ada_ln(c_emb_size, 6 * hidden_size, dtype)
+        self.remat = remat_lib.policy_of(remat)
+
+    # the stages: mod is the adaLN Linear's six chunks (shift_msa, scale_msa,
+    # gate_msa, shift_mlp, scale_mlp, gate_mlp)
+    def _c_act(self, c):
+        return F.silu(c)
+
+    def _mod(self, c_act):
+        return self.adaLN_modulation[1](c_act).chunk(6, dim=-1)
+
+    def _h_msa(self, x, mod):
+        return modulate(layer_norm_no_affine(x), mod[0], mod[1])
+
+    def _qkv_out(self, h):
+        return self.attn.qkv(copy_to_tensor_group(h, self.attn.split))
+
+    def _attn_out(self, attn):
+        return self.attn.proj(attn)
+
+    def _x_msa(self, x, mod, attn_out):
+        return x + mod[2][:, None, :] * attn_out
+
+    def _h_mlp(self, x_msa, mod):
+        return modulate(layer_norm_no_affine(x_msa), mod[3], mod[4])
+
+    def _fc1_out(self, h):
+        return self.mlp.fc1(copy_to_tensor_group(h, self.mlp.split))
+
+    def _gelu(self, fc1_out):
+        return gelu_tanh(fc1_out)
+
+    def _mlp_out(self, gelu):
+        return self.mlp.fc2(gelu)
+
+    def _out(self, x_msa, mod, mlp_out):
+        return x_msa + mod[5][:, None, :] * mlp_out
+
+    def stage(self, name: str, *inputs, own_checkpoint: bool = True):
+        """The value ``name`` of ``STAGES`` from its inputs."""
+        if name == "attn":
+            return self.attn.attend(*inputs, own_checkpoint=own_checkpoint)
+        return getattr(self, "_" + name)(*inputs)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
                 kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        (shift_msa, scale_msa, gate_msa,
-         shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
-        h = modulate(layer_norm_no_affine(x), shift_msa, scale_msa)
-        x = x + gate_msa[:, None, :] * self.attn(h, kv_valid)
-        h = modulate(layer_norm_no_affine(x), shift_mlp, scale_mlp)
-        return x + gate_mlp[:, None, :] * self.mlp(h)
+        if self.remat is not None and torch.is_grad_enabled():
+            return remat_lib.rematerialise(self, self.remat, x, c, kv_valid)
+        mod = self._mod(self._c_act(c))
+        attn = self.attn.attend(self._qkv_out(self._h_msa(x, mod)), kv_valid)
+        x = self._x_msa(x, mod, self._attn_out(attn))
+        return self._out(x, mod, self._mlp_out(self._gelu(self._fc1_out(self._h_mlp(x, mod)))))
 
 
 class DecoderLayer(nn.Module):

@@ -44,6 +44,7 @@ class EDMPrecond(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         use_flash: Optional[bool] = None,
         tensor_split=None,
+        remat=False,
     ):
         super().__init__()
         self.img_resolution = img_resolution
@@ -66,6 +67,7 @@ class EDMPrecond(nn.Module):
             dtype=dtype,
             use_flash=use_flash,
             tensor_split=tensor_split,
+            remat=remat,
         )
 
     def _coerce_labels(self, x: torch.Tensor, class_labels) -> Optional[torch.Tensor]:

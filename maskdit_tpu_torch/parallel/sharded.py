@@ -471,7 +471,19 @@ def create_sharded_state(model: nn.Module, full: dict[str, torch.Tensor],
     device, ``full`` the full model's state dict (every parameter; the same
     on every rank), whose shards become the parameters and the EMA.
     Adam's moments start at zero; the model's own initial values are
-    dropped."""
+    dropped.
+
+    A model with ``remat`` raises NotImplementedError: remat on the mesh is
+    not ported yet. A rematerialised block reruns stages of its forward in
+    its backward, after the unit's gather for the backward and, on a tensor
+    axis, with proj's and fc2's sums over the tensor group again; no test
+    holds that path to one process's step."""
+    if model.model.remat is not None:
+        raise NotImplementedError(
+            f"remat={model.model.remat!r} on the mesh is not ported yet: a rematerialised "
+            "block reruns stages of its forward inside its backward, after the FSDP unit's "
+            "gather and with the tensor group's sums again, and no test holds that to one "
+            "process's step; build the model without remat")
     named = list(model.named_parameters())
     missing = [n for n, _ in named if n not in full]
     if missing:

@@ -178,9 +178,9 @@ def test_trace_capture_on_cpu_then_report(monkeypatch, tmp_path, capsys, two_thr
     assert any(e.get("cat") == "cpu_op" for e in events)
     report = torch_trace_report.main([str(tmp_path), "1"])  # no device: no kernel events
     assert report == {"ms_per_step": 0.0, "events": 0, "categories": {}}
-    with pytest.raises(NotImplementedError, match="PROBE_REMAT=full"):
-        torch_trace_capture.main([str(tmp_path), "--device", "cpu"],
-                                 env={**env, "PROBE_REMAT": "full"})
+    out = torch_trace_capture.main([str(tmp_path / "remat"), "--device", "cpu"],
+                                   env={**env, "PROBE_REMAT": "names_lite"})
+    assert out["remat"] == "names_lite" and out["runs"] == 1
 
 
 def test_attn_bench_shapes_and_impls_equal_jax_tools():

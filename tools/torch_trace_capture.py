@@ -12,7 +12,9 @@ The environment knobs are tools/perf_probe.py's: PROBE_RES (latent
 resolution, 32 = 256 px), PROBE_BATCH (default 48), PROBE_GA (gradient
 accumulation), PROBE_AMP=1 (bf16 gradients), PROBE_ACC (the accumulator's
 dtype), PROBE_FLASH=0 (plain attention; else the attention route's auto
-choice) and PROBE_MU (the Adam first moment's dtype); PROBE_MODE=sample
+choice), PROBE_MU (the Adam first moment's dtype) and PROBE_REMAT (the
+model's activation rematerialisation: none or 0, full, dots, names,
+names_lite; models/remat.py); PROBE_MODE=sample
 traces the CFG EDM sampler instead (PROBE_STEPS, default 40; PROBE_BATCH,
 default 128 at 256 px, 32 at 512). It warms up, prints the first and the
 steady times, then traces N_STEPS (default 3) steps (N_STEPS // 3 sampler
@@ -21,12 +23,10 @@ the output directory. Read it with tools/torch_trace_report.py.
 
 Where it differs from the JAX tool: ``--device`` (default cuda; a missing
 card raises); the output directory defaults to ``build/trace_step`` in the
-checkout; PROBE_REMAT other than ``none`` raises, since rematerialisation
-policies are XLA's and are not ported (the port's attention kernels keep
-only qkv for their backward, and its plain attention runs under
-``torch.utils.checkpoint``); the weights are initialised from
-``torch.manual_seed(0)`` and the batch drawn from a torch generator seeded
-1. The model type is ``MODEL_TYPE``.
+checkout; an unknown PROBE_REMAT raises (the JAX model runs it without
+remat); the weights are initialised from ``torch.manual_seed(0)`` and the
+batch drawn from a torch generator seeded 1. The model type is
+``MODEL_TYPE``.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ MODEL_TYPE = "DiT-XL/2"
 NUM_CLASSES = 1000
 
 
-def _model(res: int, device: torch.device, use_flash=None):
+def _model(res: int, device: torch.device, use_flash=None, remat=False):
     from maskdit_tpu_torch.models import create_model
 
     torch.manual_seed(0)
@@ -53,7 +53,7 @@ def _model(res: int, device: torch.device, use_flash=None):
         model = create_model(
             "edm", img_resolution=res, img_channels=4, num_classes=NUM_CLASSES,
             model_type=MODEL_TYPE, use_decoder=True, mae_loss_coef=0.1,
-            dtype=torch.bfloat16, use_flash=use_flash,
+            dtype=torch.bfloat16, use_flash=use_flash, remat=remat,
         )
     return model.to(device)
 
@@ -64,15 +64,10 @@ def build(env, device: torch.device):
     from maskdit_tpu_torch.train.state import create_train_state, make_optimizer
 
     remat = env.get("PROBE_REMAT", "none")
-    if remat not in ("none", "0"):
-        raise NotImplementedError(
-            f"PROBE_REMAT={remat}: rematerialisation policies are XLA's and are not ported; "
-            "the port's attention kernels keep only qkv for the backward and its plain "
-            "attention runs under torch.utils.checkpoint")
     batch_size = int(env.get("PROBE_BATCH", "48"))
     res = int(env.get("PROBE_RES", "32"))  # latent res: 32 = 256 px, 64 = 512 px
     flash = False if env.get("PROBE_FLASH") == "0" else None
-    model = _model(res, device, flash)
+    model = _model(res, device, flash, remat=False if remat in ("none", "0") else remat)
     opt = make_optimizer(1e-4, global_batch_size=batch_size,
                          moment_dtype=env.get("PROBE_MU") or None)
     state = create_train_state(model, opt)
@@ -121,7 +116,7 @@ def _sample_main(out_dir: str, n_steps: int, env, device: torch.device) -> dict:
 def main(argv=None, env=None) -> dict:
     """Capture the trace; ``env`` (default os.environ) holds the knobs.
     Returns the first and steady times, the directory and the traced
-    steps."""
+    steps (and in train mode the model's remat policy, None for none)."""
     from maskdit_tpu_torch.train.state import make_train_step
     from maskdit_tpu_torch.utils.profiling import trace
 
@@ -164,7 +159,8 @@ def main(argv=None, env=None) -> dict:
             m = step(state, batch, g)
         float(m["loss"])
     print(f"trace written to {out_dir}", flush=True)
-    return dict(first_s=first, steady_ms=dt * 1e3, trace_dir=out_dir, runs=n_steps)
+    return dict(first_s=first, steady_ms=dt * 1e3, trace_dir=out_dir, runs=n_steps,
+                remat=model.model.remat)
 
 
 if __name__ == "__main__":
