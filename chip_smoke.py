@@ -112,7 +112,8 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      came at FLASH_DEPTH encoder blocks (launches scaled);
  13. data parallelism on the one card, each phase a ``torch.distributed.run``
      of this script's workers (``--worker TAG``), on DiT-XL/2 at full width
-     with 4 of its 28 encoder blocks (DDP_DEPTH): [parity-ddp] two gloo
+     with DDP_DEPTH of its 28 encoder blocks (4 until remat came to the
+     mesh, 2 since): [parity-ddp] two gloo
      ranks, one fp32 step on an injected global batch of 32: the replicas
      equal bit for bit and within [parity-train]'s fp32 bounds of one
      process's step; [train-ddp] the train CLI in two gloo ranks sharing
@@ -120,7 +121,10 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      per logged step (rank 0's), equal parameter digests; [train-ddp-nccl]
      one NCCL rank against the same 4 steps without a process group: equal
      bit for bit. These CLI runs write no checkpoint (a call may write 45
-     GiB; [train] holds the writes and the resume);
+     GiB; [train] holds the writes and the resume). Beside them, in one
+     launch of MESH_RANKS gloo ranks at the same depth, [parity-mesh] (each
+     MESH_PARITY case, remat and use_flash among them, against one
+     process's step) and [train-mesh] (the train CLI's ``--mesh``);
  14. the finetune phase (configs/finetune/*.yaml, fp32, as the released
      scripts/finetune_latent512.sh runs it: ``--ckpt_path X.pt
      --use_strict_load False``): [kernel-fp32] (with 3.) the fp32 attention
@@ -223,7 +227,11 @@ Run from the root of a checkout. Every phase runs; each raises on failure:
      each policy (every block's attention forward reruns in the backward),
      one update; peak memory and ms/step (CUDA events); then one step under
      'full' at batch 512, 4x the released per-device batch: a finite loss,
-     its launches and peak.
+     its launches and peak; [remat-512] the same per policy on train512's
+     model (full depth, batch 32: 36 + 36 blocked launches, 72 + 36 under a
+     policy) and [remat-flash] on train512-flash's (FLASH_DEPTH encoder
+     blocks, ``use_flash``: 24 + 12 flash launches with and without remat,
+     the block's recompute taking the place of the layer's checkpoint).
 
 Before each main path the launch counts are set to 0 and read just after:
 a path fails if a kernel it should run was not launched, or one it should
@@ -419,7 +427,8 @@ SR_VALUES = 1 << 20
 # state with the same draws, against the step without remat (bit for bit
 # expected, else TRAIN_PARITY_BOUND[bf16]); each policy reruns every block's
 # attention forward in the backward; then 'full' at
-# REMAT_BIG_BATCH, 4x the released per-device batch
+# REMAT_BIG_BATCH, 4x the released per-device batch; [remat-512] and
+# [remat-flash] alike on the blocked and flash routes (``phase_remat``)
 REMAT_POLICIES = ("none", "full", "dots", "names", "names_lite")
 REMAT_TIMED_STEPS = 1
 REMAT_BIG_BATCH = 4 * TRAIN_BATCH
@@ -460,10 +469,11 @@ TRAIN_OPTIONS = (
 # DDP_BATCH
 PARITY_DDP_BATCH, DDP_STEPS, DDP_BATCH = 32, 4, 64
 DDP_OVERRIDES = (f"train.max_num_steps={DDP_STEPS}",)
-# these three phases check the replicas and the all-reduce, not the model's
-# depth: they run DiT-XL/2 at full width with DDP_DEPTH of its 28 encoder
-# blocks (the 8 decoder blocks kept), for the script's time (``xl_depth``)
-DDP_DEPTH = 4
+# these three phases and the mesh's check the replicas, the collectives and
+# the shards, not the model's depth: they run DiT-XL/2 at full width with
+# DDP_DEPTH of its 28 encoder blocks (the 8 decoder blocks kept), for the
+# script's time (``xl_depth``; 4 until the mesh's remat cases came)
+DDP_DEPTH = 2
 WORKER_TIMEOUT = 300
 TRAIN_CONFIG_512 = {
     "data": {"dataset": "imagenet512-latent", "category": "webdataset", "resolution": 64,
@@ -625,15 +635,31 @@ TRAIN_PARITY_BOUND = {
 # the train CLI with --mesh MESH_TRAIN for MESH_TRAIN_STEPS steps at a
 # global batch of MESH_TRAIN_BATCH x ranks, its checkpoint resumed in this
 # process without a group
+# The cases under remat (and the one with use_flash) each follow the case of
+# the same mesh without them, which they are also held to bit for bit
+# (MESH_SAME_AS); every case times its step and reads its rank's memory at
+# the start and at the end of the backward (every unit gathered again by
+# then) and the step's peak
 MESH_RANKS = 4
-MESH_PARITY = [  # (case, res, batch, mesh, model dtype, nu dtype)
-    ("fsdp2-tensor2", 32, PARITY_BATCH, {"fsdp": 2, "tensor": 2}, torch.float32, None),
-    ("data2-fsdp2", 32, PARITY_BATCH, {"data": 2, "fsdp": 2}, torch.float32, None),
-    ("fsdp2-tensor2-512", 64, PARITY_BATCH_512, {"fsdp": 2, "tensor": 2}, torch.float32, None),
-    ("fsdp2-tensor2-nu", 32, PARITY_BATCH, {"fsdp": 2, "tensor": 2}, torch.float32, "bfloat16"),
-    ("fsdp2-tensor2-bf16-nu", 32, PARITY_BATCH, {"fsdp": 2, "tensor": 2}, torch.bfloat16,
-     "bfloat16"),
+F2T2, D2F2 = {"fsdp": 2, "tensor": 2}, {"data": 2, "fsdp": 2}
+MESH_PARITY = [  # (case, res, batch, mesh, model dtype, nu dtype, remat, use_flash)
+    ("fsdp2-tensor2", 32, PARITY_BATCH, F2T2, torch.float32, None, None, None),
+    # under 'full' the backward reruns the tensor group's sums of proj and fc2
+    ("fsdp2-tensor2-full", 32, PARITY_BATCH, F2T2, torch.float32, None, "full", None),
+    ("data2-fsdp2", 32, PARITY_BATCH, D2F2, torch.float32, None, None, None),
+    # the recompute reruns qkv's and fc1's GEMMs after the unit's gather
+    ("data2-fsdp2-names_lite", 32, PARITY_BATCH, D2F2, torch.float32, None, "names_lite",
+     None),
+    ("fsdp2-tensor2-512", 64, PARITY_BATCH_512, F2T2, torch.float32, None, None, None),
+    ("fsdp2-tensor2-512-dots", 64, PARITY_BATCH_512, F2T2, torch.float32, None, "dots", None),
+    # #5 / #6 at the mesh's 8 local heads (a route the JAX dispatch does
+    # not take at tensor > 1: ROADMAP C12)
+    ("fsdp2-tensor2-512-flash", 64, PARITY_BATCH_512, F2T2, torch.float32, None, None, True),
+    ("fsdp2-tensor2-nu", 32, PARITY_BATCH, F2T2, torch.float32, "bfloat16", None, None),
+    ("fsdp2-tensor2-bf16-nu", 32, PARITY_BATCH, F2T2, torch.bfloat16, "bfloat16", None, None),
 ]
+MESH_SAME_AS = {"fsdp2-tensor2-full": "fsdp2-tensor2", "data2-fsdp2-names_lite": "data2-fsdp2",
+                "fsdp2-tensor2-512-dots": "fsdp2-tensor2-512"}
 MESH_TRAIN, MESH_TRAIN_STEPS, MESH_TRAIN_BATCH = "data=1,fsdp=2,tensor=2", 4, 16
 # the staged update (train.fused_adam: false; plain PyTorch, kernel #7 never
 # launched): [train-staged] TRAIN_CONFIG with the override for
@@ -786,6 +812,11 @@ def kernel_counters() -> dict:
             "flash_fwd": flash.flash_fwd,
             "flash_bwd": flash.flash_bwd,
             "adam": fused_adam.fused_adam_ema}
+
+
+# the kernels' numbers in the table of PERF.md, by counter
+KERNEL_NUMBERS = {"packed_fwd": "#1", "packed_bwd": "#2", "big_fwd": "#3", "big_bwd": "#4",
+                  "flash_fwd": "#5", "flash_bwd": "#6", "adam": "#7"}
 
 
 def reset_launches() -> None:
@@ -2485,23 +2516,29 @@ def reset_parity_state_(state, seed: int) -> None:
     state.opt_state.count, state.step = 10, 0
 
 
-def phase_remat(smi: str) -> dict:
-    """[remat]: one train step of train256's model per remat policy, from one
-    state (reset_parity_state_) with parity_batch's draws: loss, gradients and
-    p / ema / mu / nu against the step without remat, the launches of #1 /
-    #2 / #7, the peak memory and ms/step (CUDA events over REMAT_TIMED_STEPS
-    more steps); then one step under 'full' at REMAT_BIG_BATCH."""
+def remat_group(tag: str, res: int, n: int, launches, smi: str, use_flash=None,
+                big_batch: int = 0) -> dict:
+    """One train step of DiT-XL/2 (at the depth ``xl_depth`` gives, full
+    width, bf16, mask 0.5) at ``res`` x ``res`` latents and batch ``n`` per
+    remat policy, from one state (reset_parity_state_) with parity_batch's
+    draws: loss, gradients and p / ema / mu / nu against the step without
+    remat (bit for bit expected, else TRAIN_PARITY_BOUND[bf16]), the
+    launches ``launches(policy)`` gives, the peak memory and ms/step (CUDA
+    events over REMAT_TIMED_STEPS more steps); with ``big_batch``, then one
+    step under 'full' at that batch."""
     from maskdit_tpu_torch.models.remat import policy_of
     from maskdit_tpu_torch.train.state import make_train_step
 
     free_device_memory()
-    state, opt = train_parity_state(torch.bfloat16, 4, 32, TRAIN_BATCH)
+    state, opt = train_parity_state(torch.bfloat16, 4, res, n, use_flash)
     step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1, ema_decay=0.9999)
     inner = state.model.model
     blocks = list(inner.blocks) + list(inner.decoder_blocks)
+    model = (f"DiT-XL/2 @{res * 8} ({len(inner.blocks)} + {len(inner.decoder_blocks)} blocks, "
+             f"full width){', use_flash' if use_flash else ''}")
     total = {name: 0 for name in kernel_counters()}
 
-    def run(tag: str, policy: str, batch, draws) -> tuple[dict, dict, float, int]:
+    def run(policy: str, batch, draws) -> tuple[dict, dict, float, int]:
         """One checked step under ``policy``: its metrics, launches, peak
         bytes and the bytes allocated before it."""
         for block in blocks:
@@ -2513,13 +2550,11 @@ def phase_remat(smi: str) -> dict:
         reset_launches()
         metrics = step(state, batch, draws=draws)
         torch.cuda.synchronize()
-        peak, launches = torch.cuda.max_memory_allocated(), read_launches()
-        for k, v in launches.items():
+        peak, counted = torch.cuda.max_memory_allocated(), read_launches()
+        for k, v in counted.items():
             total[k] += v
-        extra = 0 if policy == "none" else ATTN_PER_STEP  # the recomputed forwards
-        expect_launches(tag, launches, packed_fwd=ATTN_PER_STEP + extra,
-                        packed_bwd=ATTN_PER_STEP, adam=ADAM_PER_STEP)
-        return metrics, launches, peak, before
+        expect_launches(f"{tag} {policy}", counted, **launches(policy))
+        return metrics, counted, peak, before
 
     def step_ms(batch, draws) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2538,11 +2573,13 @@ def phase_remat(smi: str) -> dict:
             f"{name}.{k}": v for name in ("p", "ema", "mu", "nu")
             for k, v in state.named(flats[name]).items()})
 
-    batch, draws = parity_batch(32, TRAIN_BATCH)
+    def counts(launched: dict) -> str:
+        return " ".join(f"{KERNEL_NUMBERS[k]} {v}" for k, v in launched.items() if v)
+
+    batch, draws = parity_batch(res, n)
     ref, ref_bytes, out = None, 0, {}
     for policy in REMAT_POLICIES:
-        tag = f"remat {policy}"
-        metrics, launches, peak, before = run(tag, policy, batch, draws)
+        metrics, launched, peak, before = run(policy, batch, draws)
         loss = float(metrics["loss"])
         flats = {"grad": state.grads, "p": state.params, "ema": state.ema,
                  "mu": state.opt_state.mu, "nu": state.opt_state.nu}
@@ -2554,41 +2591,67 @@ def phase_remat(smi: str) -> dict:
             held = ref_bytes
             exact = loss == ref["loss"] and all(torch.equal(v, ref[k]) for k, v in flats.items())
             errs = dict(loss=0.0, grad=0.0, state=0.0) if exact else compare_steps(
-                f"remat {policy}", "vs no remat", torch.bfloat16, 32, TRAIN_BATCH,
+                f"{tag} {policy}", "vs no remat", torch.bfloat16, res, n,
                 result(loss, flats), result(ref["loss"], ref))
         ms = step_ms(batch, draws)
-        out[policy] = dict(loss=loss, exact=exact, err=errs, launches=launches, ms=ms,
+        out[policy] = dict(loss=loss, exact=exact, err=errs, launches=launched, ms=ms,
                            peak_gib=(peak - held) / 2**30, before_gib=(before - held) / 2**30)
-        log(f"[remat] {policy}: DiT-XL/2 @256 (28 + 8 blocks, full width), bf16, batch "
-            f"{TRAIN_BATCH}, mask 0.5: loss {loss:.6f} "
+        log(f"[{tag}] {policy}: {model}, bf16, batch {n}, mask 0.5: loss {loss:.6f} "
             + ("bit for bit with no remat (loss, every gradient, p / ema / mu / nu)" if exact
                else f"vs no remat rel err {errs['loss']:.3e}, grad {errs['grad']:.3e}, state "
-               f"{errs['state']:.3e}") + f"; launches #1 {launches['packed_fwd']} #2 "
-            f"{launches['packed_bwd']} #7 {launches['adam']}; peak {peak / 2**30:.2f} GiB"
+               f"{errs['state']:.3e}") + f"; launches {counts(launched)}; peak "
+            f"{peak / 2**30:.2f} GiB"
             + (f" with the no-remat reference ({held / 2**30:.2f} GiB), "
                f"{out[policy]['peak_gib']:.2f} without it" if held else "")
             + f" (state and batch before the step {out[policy]['before_gib']:.2f}); "
             f"{ms:.1f} ms/step (CUDA events, mean of {REMAT_TIMED_STEPS}); {smi}")
     del ref, flats
     free_device_memory()
-    big_batch, big_draws = parity_batch(32, REMAT_BIG_BATCH)
-    tag = f"remat full, batch {REMAT_BIG_BATCH}"
-    metrics, launches, peak, before = run(tag, "full", big_batch, big_draws)
-    loss = float(metrics["loss"])
-    if not math.isfinite(loss):
-        raise AssertionError(f"{tag}: loss {loss}")
-    ms = step_ms(big_batch, big_draws)
-    out["big"] = dict(loss=loss, launches=launches, peak_gib=peak / 2**30,
-                      before_gib=before / 2**30, ms=ms, batch=REMAT_BIG_BATCH)
-    log(f"[remat] full at batch {REMAT_BIG_BATCH} (4x the released per-device batch): loss "
-        f"{loss:.6f}; launches #1 {launches['packed_fwd']} #2 {launches['packed_bwd']} #7 "
-        f"{launches['adam']}; peak {peak / 2**30:.2f} GiB (state and batch before the step "
-        f"{before / 2**30:.2f}); {ms:.1f} ms/step (CUDA events, mean of {REMAT_TIMED_STEPS}); {smi}")
+    if big_batch:
+        big, big_draws = parity_batch(res, big_batch)
+        metrics, launched, peak, before = run("full", big, big_draws)
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"{tag} full, batch {big_batch}: loss {loss}")
+        ms = step_ms(big, big_draws)
+        out["big"] = dict(loss=loss, launches=launched, peak_gib=peak / 2**30,
+                          before_gib=before / 2**30, ms=ms, batch=big_batch)
+        log(f"[{tag}] full at batch {big_batch} ({big_batch // n}x the released per-device "
+            f"batch): loss {loss:.6f}; launches {counts(launched)}; peak {peak / 2**30:.2f} GiB "
+            f"(state and batch before the step {before / 2**30:.2f}); {ms:.1f} ms/step (CUDA "
+            f"events, mean of {REMAT_TIMED_STEPS}); {smi}")
     for block in blocks:
         block.remat = None
     del state, opt, step, metrics
     free_device_memory()
     out["launches"] = total
+    return out
+
+
+def phase_remat(smi: str) -> dict:
+    """[remat]: remat_group on train256's model at full depth, batch
+    TRAIN_BATCH, each policy one more #1 per block (the recomputed
+    attention forward), then 'full' at REMAT_BIG_BATCH; [remat-512]:
+    train512's model at full depth, batch TRAIN_BATCH_512, one more #3 per
+    block; [remat-flash]: train512-flash's model (``use_flash``) at
+    FLASH_DEPTH encoder blocks, batch TRAIN_BATCH_512, two #5 and one #6 per
+    block under every policy as without remat (the block's recompute takes
+    the place of the layer's checkpoint)."""
+    def per_step(fwd: str, bwd: str, layers: int, extra: bool):
+        return lambda policy: {fwd: layers * (2 if extra and policy != "none" else 1),
+                               bwd: layers, "adam": ADAM_PER_STEP}
+
+    out = remat_group("remat", 32, TRAIN_BATCH, per_step("packed_fwd", "packed_bwd",
+                                                        ATTN_PER_STEP, True), smi,
+                      big_batch=REMAT_BIG_BATCH)
+    out["512"] = remat_group("remat-512", 64, TRAIN_BATCH_512, per_step(
+        "big_fwd", "big_bwd", ATTN_PER_STEP, True), smi)
+    with xl_depth(FLASH_DEPTH):
+        out["flash"] = remat_group("remat-flash", 64, TRAIN_BATCH_512, lambda policy: {
+            "flash_fwd": 2 * FLASH_ATTN_PER_STEP, "flash_bwd": FLASH_ATTN_PER_STEP,
+            "adam": ADAM_PER_STEP}, smi, use_flash=True)
+    out["launches"] = {k: sum(out[g]["launches"][k] for g in ("512", "flash"))
+                       + v for k, v in out["launches"].items()}
     return out
 
 
@@ -3377,9 +3440,9 @@ def mesh_reference(case: tuple) -> tuple:
     per parameter (views of its flat buffers) and its loss, on the card."""
     from maskdit_tpu_torch.train.state import make_train_step
 
-    name, res, n, shape, dtype, nu = case
+    name, res, n, shape, dtype, nu, remat, use_flash = case
     batch, draws = parity_batch(res, n)
-    state, opt = train_parity_state(dtype, 4, res, n, nu_dtype=nu)
+    state, opt = train_parity_state(dtype, 4, res, n, use_flash, {"remat": remat}, nu_dtype=nu)
     copy = lambda flat: {k: v.detach().clone() for k, v in state.named(flat).items()}
     start = {"model": copy(state.params), "ema": copy(state.ema),
              "opt": {"count": state.opt_state.count, "mu": copy(state.opt_state.mu),
@@ -3395,15 +3458,19 @@ def mesh_reference(case: tuple) -> tuple:
     return start, ref, loss
 
 
-def mesh_case(case: tuple) -> dict:
+def mesh_case(case: tuple, held: dict) -> dict:
     """[parity-mesh] one case in one rank: this rank's sharded state from
     the reference's start, one step on its rows with the reference's draws
-    (its launches counted), then per parameter the rel-norm error of the
-    gradient and of p / ema / mu / nu from every rank's shards (each leaf's
-    sums over its replicas in the fsdp x tensor group counted once); a bf16
-    nu of an fp32 model also per element within one bf16 ulp. And this
-    rank's state on the card (allocated) against the bytes of its shards
-    by the rules."""
+    (its launches counted; above the allocation at its start, the memory
+    allocated at the backward's first gather and when the backward is
+    done, the peak up to the gradient's reduction and the step's; its
+    wall time), then per parameter
+    the rel-norm error of the gradient and of p / ema / mu / nu from every
+    rank's shards (each leaf's sums over its replicas in the fsdp x tensor
+    group counted once); a bf16 nu of an fp32 model also per element within
+    one bf16 ulp; a case of MESH_SAME_AS bit for bit with its case's shards,
+    which ``held`` keeps on the host. And this rank's state on the card
+    (allocated) against the bytes of its shards by the rules."""
     import math
 
     import torch.distributed as tdist
@@ -3413,18 +3480,19 @@ def mesh_case(case: tuple) -> dict:
                                                     make_sharded_train_step, tensor_split_of)
     from maskdit_tpu_torch.train.state import StepDraws, _rows, make_optimizer
 
-    name, res, n, shape, dtype, nu = case
+    name, res, n, shape, dtype, nu, remat, use_flash = case
     t0 = time.perf_counter()
     start, ref, ref_loss = mesh_reference(case)
     mesh = mesh_lib.create_mesh(shape)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     with torch.device("cuda"):  # initialised on the card: the shards replace its values
-        model = build_model(dtype, res, tensor_split=tensor_split_of(mesh)).cuda()
+        model = build_model(dtype, res, use_flash, tensor_split=tensor_split_of(mesh),
+                            remat=remat).cuda()
     opt = make_optimizer(1e-4, n, nu_dtype=nu)
     state = create_sharded_state(model, start["model"], opt, mesh)
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated() - before
+    held_bytes = torch.cuda.memory_allocated() - before
     per_element = 4 * 4 + (2 if nu else 4)  # params, grads, ema, mu in fp32; nu
     reckoned = sum(math.prod(leaf.shard_shape) for leaf in state.shard_layout.leaves) * per_element
     full_bytes = state.shard_layout.full_numel * per_element
@@ -3435,12 +3503,46 @@ def mesh_case(case: tuple) -> dict:
     batch, draws = parity_batch(res, n)
     rows = slice(mesh.batch_index * n // mesh.batch_count,
                  (mesh.batch_index + 1) * n // mesh.batch_count)
-    reset_launches()
-    metrics = step(state, {k: v[rows] for k, v in batch.items()},
-                   draws=StepDraws(*(_rows(d, rows) for d in draws)))
+    batch = {k: v[rows] for k, v in batch.items()}
+    draws = StepDraws(*(_rows(d, rows) for d in draws))
+    marks = {}
+    gather, end_micro = state.gather, state.end_micro
+
+    def gather_marked(unit):  # the backward's gathers run without grad mode
+        if not torch.is_grad_enabled() and "backward_start" not in marks:
+            marks["backward_start"] = torch.cuda.memory_allocated()
+        gather(unit)
+
+    def end_marked(acc_dtype):
+        marks["backward_end"] = torch.cuda.memory_allocated()
+        marks["peak_to_reduction"] = torch.cuda.max_memory_allocated()
+        marks["units_gathered"] = sum(u.full.untyped_storage().nbytes() for u in state.units)
+        end_micro(acc_dtype)
+
+    state.gather, state.end_micro = gather_marked, end_marked
+    tdist.barrier()
     torch.cuda.synchronize()
-    launches = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()  # the state, the batch, the reference
+    reset_launches()
+    t_step = time.perf_counter()
+    metrics = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t_step) * 1e3
+    launches, peak = read_launches(), torch.cuda.max_memory_allocated() - at_start
+    marks = {k: v - at_start if k != "units_gathered" else v for k, v in marks.items()}
+    del state.gather, state.end_micro
     loss = float(metrics["loss"])
+    flats = {"grad": state.grads, "p": state.params, "ema": state.ema,
+             "mu": state.opt_state.mu, "nu": state.opt_state.nu}
+    same = True
+    if name in MESH_SAME_AS:
+        base = held.pop(MESH_SAME_AS[name])
+        same = loss == base["loss"] and all(torch.equal(v.cpu(), base[k])
+                                            for k, v in flats.items())
+        del base
+    elif name in MESH_SAME_AS.values():
+        held[name] = {"loss": loss, **{k: v.cpu() for k, v in flats.items()}}
     layout = state.shard_layout
     weights = torch.tensor([1.0 / leaf.replicas for leaf in layout.leaves], dtype=torch.float64,
                            device="cuda")
@@ -3465,18 +3567,41 @@ def mesh_case(case: tuple) -> dict:
         rel = (sums[:, 0] / sums[:, 1].clamp_min(1e-60)).sqrt()
         worst = int(rel.argmax())
         errs[what] = (float(rel[worst]), layout.leaves[worst].name)
-    flags = torch.tensor([int(ulp_ok), int(nu_equal)])
+    flags = torch.tensor([int(ulp_ok), int(nu_equal), int(same)])
     tdist.all_reduce(flags, op=tdist.ReduceOp.MIN)
     out = dict(
         loss=abs(loss - ref_loss) / abs(ref_loss), grad=errs["grad"][0],
         worst_grad=errs["grad"][1],
         state=max(v[0] for k, v in errs.items() if k != "grad" and not (k == "nu" and nu)),
         nu=errs["nu"][0], nu_within_ulp=bool(flags[0]), nu_equal=bool(flags[1]),
-        launches=launches, held_bytes=held, reckoned_bytes=reckoned, full_bytes=full_bytes,
+        same_as=bool(flags[2]), launches=launches, held_bytes=held_bytes,
+        reckoned_bytes=reckoned, full_bytes=full_bytes, peak=peak, ms=ms, **marks,
         segments=int(layout.segments.shape[0]), seconds=time.perf_counter() - t0,
     )
-    del state, opt, step, model, metrics, ref
+    del state, opt, step, model, metrics, ref, flats
     free_device_memory()
+    return out
+
+
+def parity_mesh() -> dict:
+    """[parity-mesh] in one rank: the gloo probe and each MESH_PARITY case,
+    with every rank's per-rank numbers."""
+    import torch.distributed as tdist
+
+    from maskdit_tpu_torch.parallel import dist
+
+    out = {"gloo_cuda": gloo_on_cuda_tensors(), "parity": {}}
+    held = {}  # the shards of MESH_SAME_AS's cases, on the host
+    per_rank = ("launches", "held_bytes", "reckoned_bytes", "peak", "ms", "backward_start",
+                "backward_end", "peak_to_reduction", "units_gathered")
+    for case in MESH_PARITY:
+        got = mesh_case(case, held)
+        everyone = [None] * dist.process_count()
+        tdist.all_gather_object(everyone, [got[k] for k in per_rank])
+        got.update({k: [e[i] for e in everyone] for i, k in enumerate(per_rank)})
+        out["parity"][case[0]] = got
+        dist.mprint(f"[parity-mesh] {case[0]}: {got}", flush=True)
+        tdist.barrier()
     return out
 
 
@@ -3493,17 +3618,7 @@ def worker_mesh() -> dict:
 
     torch.cuda.set_device(0)
     world = dist.process_count()
-    out = {"gloo_cuda": gloo_on_cuda_tensors(), "parity": {}}
-    for case in MESH_PARITY:
-        got = mesh_case(case)
-        everyone = [None] * world
-        tdist.all_gather_object(everyone, (got["launches"], got["held_bytes"],
-                                           got["reckoned_bytes"]))
-        got["launches"], got["held_bytes"], got["reckoned_bytes"] = (
-            [e[i] for e in everyone] for i in range(3))
-        out["parity"][case[0]] = got
-        dist.mprint(f"[parity-mesh] {case[0]}: {got}", flush=True)
-        tdist.barrier()
+    out = parity_mesh()
     path = os.path.join(SCRATCH, "train-mesh-config.json")
     if dist.is_main_process():
         with open(path, "w") as f:
@@ -4309,42 +4424,51 @@ def start_mesh() -> subprocess.Popen:
     return proc
 
 
-def phase_mesh(proc: subprocess.Popen) -> dict:
-    """The mesh launch's result: each [parity-mesh] case within its bounds
-    (TRAIN_PARITY_BOUND of its model dtype; a bf16 nu of an fp32 model
-    within one bf16 ulp per element) with #1 / #2 (or #3 / #4 at 512 px) at
-    8 heads once per block and #7 once on every rank, and every rank's
-    state within 2% of its shards' bytes by the rules; [train-mesh]'s finite
-    losses and launches on every rank, then its last checkpoint resumed in
-    this process without a group: the parameters equal the run's, gathered
-    from the shards, bit for bit."""
-    from maskdit_tpu_torch.train.cli import apply_overrides
-    from maskdit_tpu_torch.train.trainer import Trainer
-
-    out = finish_worker(proc)
+def check_parity_mesh(out: dict) -> dict:
+    """[parity-mesh]'s cases from ``parity_mesh``'s result, each within its
+    bounds (see ``phase_mesh``); the launches of their checked steps, summed
+    over the ranks."""
     log(f"[parity-mesh] gloo on CUDA tensors (torch {torch.__version__}): {out['gloo_cuda']}")
-    for name, res, n, shape, dtype, nu in MESH_PARITY:
+    parity_launches = {name: 0 for name in kernel_counters()}
+    for name, res, n, shape, dtype, nu, remat, use_flash in MESH_PARITY:
         got = out["parity"][name]
         bnd = TRAIN_PARITY_BOUND[dtype]
-        per_rank = dict(adam=ADAM_PER_STEP, **{
-            f"{'big' if res == 64 else 'packed'}_{d}": DDP_ATTN_PER_STEP for d in ("fwd", "bwd")})
+        route = "flash" if use_flash else "big" if res == 64 else "packed"
+        # a recomputed attention forward per block under remat; the flash
+        # route's own checkpoint recomputes it too
+        again = 2 if remat or use_flash else 1
+        per_rank = {f"{route}_fwd": again * DDP_ATTN_PER_STEP, f"{route}_bwd": DDP_ATTN_PER_STEP,
+                    "adam": ADAM_PER_STEP}
         for rank, launches in enumerate(got["launches"]):
             expect_launches(f"parity-mesh {name} rank {rank}", launches, **per_rank)
+            for k, v in launches.items():
+                parity_launches[k] += v
         held, reckoned = got["held_bytes"], got["reckoned_bytes"]
+        gib = lambda key: [round(b / 2**30, 2) for b in got[key]]
         log(f"[parity-mesh] {name}: {MESH_RANKS} ranks on {shape}, DiT-XL/2 @{res * 8} at "
             f"{DDP_DEPTH} encoder blocks, batch {n}, {dtype_name(dtype)}, nu "
-            f"{nu or 'float32'}, vs one process: loss rel err {got['loss']:.3e} (bound "
+            f"{nu or 'float32'}, remat {remat or 'none'}"
+            f"{', use_flash' if use_flash else ''}, vs one process: loss rel err "
+            f"{got['loss']:.3e} (bound "
             f"{bnd['loss']:.0e}), max per-tensor gradient rel-norm err {got['grad']:.3e} (bound "
             f"{bnd['grad']:.0e}, worst {got['worst_grad']}), p/ema/mu"
             f"{'' if nu else '/nu'} {got['state']:.3e} (bound {bnd['state']:.0e}), nu "
             f"{got['nu']:.3e}" + (f", within one bf16 ulp {got['nu_within_ulp']}, equal "
                                   f"{got['nu_equal']}" if nu and dtype == torch.float32 else "")
+            + (f"; vs {MESH_SAME_AS[name]} (no remat) bit for bit {got['same_as']}"
+               if name in MESH_SAME_AS else "")
             + f"; state on the card per rank {[round(b / 2**20, 1) for b in held]} MiB vs the "
             f"rules' {[round(b / 2**20, 1) for b in reckoned]} MiB (unsharded "
-            f"{got['full_bytes'] / 2**20:.1f} MiB); {got['segments']} segments; "
-            f"{got['seconds']:.1f} s with its one-process step")
+            f"{got['full_bytes'] / 2**20:.1f} MiB); {got['segments']} segments; launches per "
+            f"rank {' '.join(f'{KERNEL_NUMBERS[k]} {v}' for k, v in got['launches'][0].items() if v)}"
+            f"; per rank, above the step's start: peak {gib('peak')} GiB (up to the "
+            f"gradient's reduction {gib('peak_to_reduction')}), at the backward's first gather "
+            f"{gib('backward_start')} and at its end {gib('backward_end')} GiB (unit buffers "
+            f"gathered then {gib('units_gathered')} GiB); the step "
+            f"{[round(x, 1) for x in got['ms']]} ms ({MESH_RANKS} gloo ranks sharing the card, "
+            f"beside the group's phases); {got['seconds']:.1f} s with its one-process step")
         ok = (got["loss"] <= bnd["loss"] and got["grad"] <= bnd["grad"]
-              and got["state"] <= bnd["state"]
+              and got["state"] <= bnd["state"] and got["same_as"]
               and all(abs(h - r) <= 0.02 * r for h, r in zip(held, reckoned)))
         if nu and dtype == torch.float32:
             ok = ok and got["nu_within_ulp"]
@@ -4352,6 +4476,25 @@ def phase_mesh(proc: subprocess.Popen) -> dict:
             ok = ok and got["nu"] <= bnd["state"]
         if not ok:
             raise AssertionError(f"parity-mesh {name}: {got}")
+    return parity_launches
+
+
+def phase_mesh(proc: subprocess.Popen) -> dict:
+    """The mesh launch's result: each [parity-mesh] case within its bounds
+    (TRAIN_PARITY_BOUND of its model dtype; a bf16 nu of an fp32 model
+    within one bf16 ulp per element) with #1 / #2 (or #3 / #4 at 512 px, #5
+    / #6 with use_flash) at 8 heads once per block (the forward twice under
+    remat or use_flash) and #7 once on every rank, a case of MESH_SAME_AS
+    bit for bit with its case without remat, and every rank's state within
+    2% of its shards' bytes by the rules; [train-mesh]'s finite
+    losses and launches on every rank, then its last checkpoint resumed in
+    this process without a group: the parameters equal the run's, gathered
+    from the shards, bit for bit."""
+    from maskdit_tpu_torch.train.cli import apply_overrides
+    from maskdit_tpu_torch.train.trainer import Trainer
+
+    out = finish_worker(proc)
+    parity_launches = check_parity_mesh(out)
     train = out["train"]
     expect_launches("train-mesh", {k: sum(c[k] for c in train["launches"])
                                    for k in train["launches"][0]},
@@ -4380,7 +4523,8 @@ def phase_mesh(proc: subprocess.Popen) -> dict:
         raise AssertionError(f"train-mesh: the one-process resume differs: {digest} vs "
                              f"{train['digest']}")
     shutil.rmtree(os.path.join(SCRATCH, "train-mesh"), ignore_errors=True)
-    out["launches"] = {k: sum(c[k] for c in train["launches"]) for k in train["launches"][0]}
+    out["launches"] = {k: sum(c[k] for c in train["launches"]) + parity_launches[k]
+                       for k in train["launches"][0]}
     return out
 
 
@@ -4649,7 +4793,13 @@ def main() -> None:
             + ("bit for bit" if v["exact"] else f"grad err {v['err']['grad']:.3e}")
             for k, v in remat.items() if k in REMAT_POLICIES) +
         f", full at batch {remat['big']['batch']} {remat['big']['ms']:.1f} ms/step, peak "
-        f"{remat['big']['peak_gib']:.2f} GiB, loss {remat['big']['loss']:.4f}; training 512 {train_512['images_per_s']:.2f} images/s, "
+        f"{remat['big']['peak_gib']:.2f} GiB, loss {remat['big']['loss']:.4f}; " + "; ".join(
+            f"remat {group} (batch {TRAIN_BATCH_512}) " + ", ".join(
+                f"{k} {v['ms']:.1f} ms/step, peak {v['peak_gib']:.2f} GiB, "
+                + ("bit for bit" if v["exact"] else f"grad err {v['err']['grad']:.3e}")
+                for k, v in remat[group].items() if k in REMAT_POLICIES)
+            for group in ("512", "flash")) +
+        f"; training 512 {train_512['images_per_s']:.2f} images/s, "
         f"MFU {train_512['mfu']:.4f}, peak {train_512['peak_gib']:.2f} GiB; train parity "
         f"{parity_train}; train parity 512 {parity_train_512}; use_flash: model rel err "
         f"bf16 {parity_flash['bfloat16']:.3e}, fp32 {parity_flash['float32']:.3e}; training "

@@ -39,6 +39,19 @@ more forward launch per block and train step (#1 on train256's shapes). The
 JAX grad holds likewise three ``pallas_call``s per block under each policy
 against two without. Inside a rematerialised block the plain and flash
 routes run without the layer's own checkpoint: the block recomputes them.
+
+On the mesh (parallel/sharded.py) a block is an FSDP unit whose
+parameters are views into a buffer that is freed after the block's forward
+and gathered again when the gradient reaches the block's output, which is
+``_Keep``'s: so before ``_Keep`` publishes the kept values and before any
+recompute. A saved parameter (or its cast, cast again in ``unpack``) is
+read when the backward asks for it, from the gathered buffer. The storage
+keys of ``register`` are looked up only while the block's forward runs,
+when every registered value is alive (two live storages have two
+addresses), and are dropped when it returns: a storage the allocator
+hands on later (a freed unit buffer, another block's activations) can
+match no key. The tensor group's sums of proj and fc2 save nothing, so a
+stage's save count is the same with and without a tensor axis.
 """
 
 from __future__ import annotations
@@ -126,7 +139,8 @@ class _Frame:
         self.stage, self.position = "", 0
         self.saves: dict[str, int] = {}  # tensors saved per stage in the forward
         self.dropped: set = set()  # (stage, position) of the dropped ones
-        self.storages: dict[int, tuple] = {}  # storage -> (value, index, offset)
+        # storage -> (value, index, offset), while the forward runs
+        self.storages: dict[int, tuple] = {}
         self.run: set = set()  # the stages the recompute reruns
         self.layout: list = []  # (name, is a tuple, count) of what _Keep saved
         self.values: Optional[dict] = None  # the kept and the recomputed values
@@ -189,6 +203,7 @@ class _Frame:
                                                 own_checkpoint=False)
                 self.saves[name] = self.position
                 self.register(name, values[name])
+        self.storages.clear()  # the keys serve the forward only: storages are reused after it
         kept = [n for n in values if n in self.keep]
         self.layout = [(n, isinstance(values[n], tuple), len(_tensors(values[n]))) for n in kept]
         # the recompute reruns every stage with a dropped tensor or a needed

@@ -21,6 +21,17 @@ out over ``torch.distributed`` (``parallel/mesh.py``):
     gradient reaches the block's output, for its backward. The other
     parameters (embedders, decoder and final layers) form one root unit,
     gathered for each micro-batch;
+  * a block built with ``remat`` (every JAX policy: models/remat.py) is
+    one unit as without it. Its forward hook wraps the block's output,
+    which is then remat's ``_Keep`` node, so in the backward the unit is
+    gathered again before ``_Keep`` hands the kept values to the block's
+    frame and before the first saved tensor it dropped is recomputed: the
+    recompute reads the gathered parameters (the saved parameters and
+    their casts are the unit buffer's views, read when the backward asks
+    for them). On a tensor axis the recompute of proj and fc2 (under
+    'full' only; the other policies keep their outputs) runs their sums
+    over the tensor group again, at the same point of every tensor rank's
+    backward;
   * after each micro-batch's backward the gradient is reduced in fp32: a
     reduce-scatter over fsdp for the leaves split there, a sum over fsdp for
     the others; added into the accumulator (in its dtype), then averaged
@@ -47,6 +58,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from maskdit_tpu_torch.models import remat as remat_lib
 from maskdit_tpu_torch.ops.fused_adam import FusedAdamEma, segment_index
 from maskdit_tpu_torch.parallel import mesh as mesh_lib
 from maskdit_tpu_torch.parallel.data_parallel import DataParallel
@@ -473,17 +485,17 @@ def create_sharded_state(model: nn.Module, full: dict[str, torch.Tensor],
     Adam's moments start at zero; the model's own initial values are
     dropped.
 
-    A model with ``remat`` raises NotImplementedError: remat on the mesh is
-    not ported yet. A rematerialised block reruns stages of its forward in
-    its backward, after the unit's gather for the backward and, on a tensor
-    axis, with proj's and fc2's sums over the tensor group again; no test
-    holds that path to one process's step."""
-    if model.model.remat is not None:
-        raise NotImplementedError(
-            f"remat={model.model.remat!r} on the mesh is not ported yet: a rematerialised "
-            "block reruns stages of its forward inside its backward, after the FSDP unit's "
-            "gather and with the tensor group's sums again, and no test holds that to one "
-            "process's step; build the model without remat")
+    The model may rematerialise its blocks under any policy of
+    ``models/remat.py`` (the JAX model's ``remat``): each block stays one
+    FSDP unit, gathered for its forward and again for its backward, before
+    its recompute (see the module's docstring). A block whose ``remat`` is
+    set to no policy raises ValueError, naming it: the step never runs a
+    block without the remat it was asked for."""
+    for prefix, module in _block_modules(model):
+        if module.remat is not None and module.remat not in remat_lib.POLICIES:
+            raise ValueError(f"{prefix}: remat={module.remat!r} is no policy of "
+                             f"models/remat.py (one of {', '.join(remat_lib.POLICIES)}, or "
+                             "None)")
     named = list(model.named_parameters())
     missing = [n for n, _ in named if n not in full]
     if missing:

@@ -18,7 +18,15 @@ per-tensor gradient rel-norm <= 1e-4, p / ema / mu / nu <= 1e-5):
   * ``data = world`` with ``DataParallel`` bit for bit, and the bf16 nu's
     stochastic rounding with the unsharded run's bits;
   * the checkpoint resumed on {data 4} and on one process with the run
-    that went on, and the CLI's parse, refusal and one-process resume.
+    that went on, and the CLI's parse, refusal and one-process resume;
+  * remat on the mesh (``worker.REMAT``: {fsdp 2, tensor 2} under each
+    policy, 'full' on the other meshes and over two micro-batches, 'names'
+    with every step option): bit for bit with the same mesh without remat,
+    within the bounds of one process's step under the same policy, and
+    under 'full' with the JAX step of ``create_model(remat="full")``; the
+    tensor group's sums rerun in the backward under 'full' only; each
+    block's unit is gathered for the backward before its frame publishes
+    and recomputes, and every saved tensor comes back as it was saved.
 """
 
 import json
@@ -92,10 +100,11 @@ def _jax_start(params, rng):
 
 
 def _jax_step(out_dir: str) -> dict:
-    """One JAX ``make_train_step`` step at mask 0 from a random state; its
+    """One JAX ``make_train_step`` step at mask 0 from a random state, of
+    the model without remat and of ``create_model(remat="full")``; its
     inputs (the state, batch and the step's draws) go to
-    ``OUT_DIR/jax_inputs.pt`` for the worker. Returns its result in the
-    worker's ``result`` layout."""
+    ``OUT_DIR/jax_inputs.pt`` for the worker. Returns each result in the
+    worker's ``result`` layout, by remat (None, 'full')."""
     kw = {k: v for k, v in worker.MODEL_KW.items() if k not in ("dtype", "use_flash")}
     jax_model = jax_create_model("edm", dtype=jnp.float32, use_flash=False, **kw)
     shapes = jax.eval_shape(lambda: jax_model.init(
@@ -108,13 +117,24 @@ def _jax_step(out_dir: str) -> dict:
     optimizer = jax_state.make_optimizer(1e-3, N, fused=True)
     jstate = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=params, ema_params=ema,
                                   opt_state=(adam, *optimizer.init(params)[1:]))
-    step = jax_state.make_train_step(jax_model, optimizer, mask_ratio=0.0, mae_loss_coef=0.1,
-                                     ema_decay=0.99)
     moments = rng.normal(size=(N, 2 * worker.CIN, worker.RES, worker.RES)).astype(np.float32)
     labels = np.eye(worker.K, dtype=np.float32)[rng.integers(0, worker.K, N)]
     key = jax.random.PRNGKey(71)
-    new, metrics = step(jstate, {"x": jnp.asarray(moments), "y": jnp.asarray(labels)}, key)
-    grads = jax.grad(lambda p: _jax_loss(jax_model, p, moments, labels, key))(params)
+    results = {}
+    for remat in (None, "full"):
+        model = jax_model if remat is None else jax_create_model(
+            "edm", dtype=jnp.float32, use_flash=False, remat=remat, **kw)
+        step = jax_state.make_train_step(model, optimizer, mask_ratio=0.0, mae_loss_coef=0.1,
+                                         ema_decay=0.99)
+        new, metrics = step(jstate, {"x": jnp.asarray(moments), "y": jnp.asarray(labels)}, key)
+        grads = jax.grad(lambda p, m=model: _jax_loss(m, p, moments, labels, key))(params)
+        results[remat] = {
+            "loss": torch.tensor(float(metrics["loss"])),
+            "grad_norm": torch.tensor(float(metrics["grad_norm"])),
+            "grads": state_dict_from_flax(grads), "params": state_dict_from_flax(new.params),
+            "ema": state_dict_from_flax(new.ema_params),
+            "mu": state_dict_from_flax(new.opt_state[0].mu),
+            "nu": state_dict_from_flax(new.opt_state[0].nu)}
 
     # the step's draws (maskdit_tpu/train/state.py:336-360, loss.py)
     rng_z, rng_drop, rng_loss = jax.random.split(jax.random.fold_in(key, 0), 3)
@@ -128,12 +148,7 @@ def _jax_step(out_dir: str) -> dict:
                   "drop_u": t(jax.random.uniform(rng_drop, (N, 1))),
                   "sigma": t(sigma), "noise": t(noise), "mask_info": None},
     }, os.path.join(out_dir, "jax_inputs.pt"))
-    return {"loss": torch.tensor(float(metrics["loss"])),
-            "grad_norm": torch.tensor(float(metrics["grad_norm"])),
-            "grads": state_dict_from_flax(grads),
-            "params": state_dict_from_flax(new.params), "ema": state_dict_from_flax(new.ema_params),
-            "mu": state_dict_from_flax(new.opt_state[0].mu),
-            "nu": state_dict_from_flax(new.opt_state[0].nu)}
+    return results
 
 
 def _jax_loss(jax_model, params, moments, labels, key):
@@ -267,7 +282,8 @@ def test_data_world_is_data_parallel_bit_for_bit(launched):
 def test_one_process_and_mesh_steps_match_the_jax_step(launched):
     """One process's step, with the JAX step's draws, against the JAX
     ``make_train_step``; and the {fsdp 2, tensor 2} step against both."""
-    out, jax_result = launched
+    out, jax_results = launched
+    jax_result = jax_results[None]
     inputs = torch.load(out / "jax_inputs.pt")
     state, step_fn, _ = worker.build(None, {"mask_ratio": 0.0, "fresh": True},
                                      full=inputs["model"])
@@ -320,3 +336,97 @@ def test_train_cli_mesh_parse_refusal_and_one_process_resume(launched, capsys):
     assert got["exp_dir"] == report["exp_dir"]
     assert got["step"] == 4 and np.isfinite(got["history"][-1]["loss"])
     assert "resumed from step 3" in capsys.readouterr().out
+
+
+REMAT_CASES = list(worker.REMAT_CASES)
+FSDP2_TENSOR2_POLICIES = {"fsdp2-tensor2": None, "fsdp2-tensor2-full": "full",
+                          "fsdp2-tensor2-dots": "dots", "fsdp2-tensor2-names": "names",
+                          "fsdp2-tensor2-names_lite": "names_lite"}
+BLOCKS = 4  # the tiny model's 2 encoder and 2 decoder blocks: 4 FSDP units
+
+
+@pytest.mark.parametrize("case", REMAT_CASES)
+def test_remat_on_the_mesh_equals_no_remat_bit_for_bit(launched, case):
+    """Remat on a mesh against the same mesh and options without it: the
+    same collectives in the same order, and autograd's own graph (the
+    recompute replays the forward's kernels on its shapes), so loss,
+    gradient norm and the state gathered from the shards are equal bit for
+    bit."""
+    out, _ = launched
+    got = torch.load(out / f"{case}.pt")
+    want = torch.load(out / f"{worker.REMAT_CASES[case]}.pt")
+    assert torch.equal(got["loss"], want["loss"]) and torch.equal(got["grad_norm"],
+                                                                  want["grad_norm"])
+    for key in ("grads", *STATE_KEYS):
+        for k, v in want[key].items():
+            assert torch.equal(got[key][k], v), (case, key, k)
+
+
+@pytest.mark.parametrize("case", REMAT_CASES)
+def test_remat_on_the_mesh_matches_one_process(launched, case):
+    """Each remat case against one process's step under the same policy:
+    the fp32 training bounds; with every step option, the options case's
+    own bounds (bf16 gradients and moments: the loss within 1e-5, < 0.5% of
+    the parameters more than 0.05 lr apart)."""
+    out, _ = launched
+    got = torch.load(out / f"{case}.pt")
+    options = worker.CASES[case][1]
+    want = worker.mesh_run(None, options)[0]
+    assert got["count"] == want["count"] == 4 + worker.STEPS
+    if not options.get("amp_grads"):
+        assert_steps_agree(got, want, case)
+        return
+    assert abs(float(got["loss"]) / float(want["loss"]) - 1) <= 1e-5
+    flat = lambda d: torch.cat([v.reshape(-1).float() for v in d.values()])
+    diff = (flat(got["params"]) - flat(want["params"])).abs()
+    assert float((diff > 0.05 * 1e-3).float().mean()) < 0.005
+
+
+def test_remat_full_on_the_mesh_matches_the_jax_remat_step(launched):
+    """{fsdp 2, tensor 2} under 'full' from the JAX step's state and draws,
+    against the JAX ``make_train_step`` of ``create_model(remat="full")``
+    and against the same mesh without remat."""
+    out, jax_results = launched
+    mesh = torch.load(out / "jax-fsdp2-tensor2-full.pt")
+    assert_steps_agree(mesh, jax_results["full"], "mesh under full vs JAX under full")
+    assert_steps_agree(mesh, torch.load(out / "jax-fsdp2-tensor2.pt"), "full vs none")
+
+
+def test_tensor_group_sums_rerun_under_full_only(launched):
+    """The tensor group's fp32 sums per step on {fsdp 2, tensor 2}: proj's
+    and fc2's in the forward and the sums of qkv's and fc1's input
+    gradients in the backward, 4 per block; under 'full' the recompute
+    reruns proj and fc2 (2 more per block); 'dots', 'names' and
+    'names_lite' keep their outputs, so nothing reruns. Over two
+    micro-batches, twice as many."""
+    out, _ = launched
+    sums = {}
+    for case in (*FSDP2_TENSOR2_POLICIES, "fsdp2-tensor2-accum2-full"):
+        got = torch.load(out / f"{case}.pt")
+        if "probe" in got:
+            sums[case] = got["probe"]["sums"] / worker.STEPS
+    assert sums == {"fsdp2-tensor2-full": 6 * BLOCKS, "fsdp2-tensor2-dots": 4 * BLOCKS,
+                    "fsdp2-tensor2-names": 4 * BLOCKS, "fsdp2-tensor2-names_lite": 4 * BLOCKS,
+                    "fsdp2-tensor2-accum2-full": 2 * 6 * BLOCKS}
+    assert torch.load(out / "data2-fsdp2-full.pt")["probe"]["sums"] == 0
+
+
+@pytest.mark.parametrize("case", REMAT_CASES)
+def test_each_unit_is_gathered_before_its_block_replays(launched, case):
+    """The backward order on the mesh: the gradient reaches a block's
+    output (``_GatherForBackward``, the unit's hook, after remat's
+    ``_Keep``), the unit is gathered again (it was freed after the
+    forward), then ``_Keep`` publishes the kept values, then the first
+    saved tensor the block dropped is recomputed; block by block from the
+    last, once per micro-batch. The frames hold no storage key after their
+    forward, and every saved tensor (parameters and their casts, read from
+    the gathered buffer; views of kept values; recomputed ones) comes back
+    as it was saved."""
+    out, _ = launched
+    probe = torch.load(out / f"{case}.pt")["probe"]
+    micro = worker.STEPS * worker.CASES[case][1].get("grad_accum", 1)
+    backward = [(kind, unit, kind != "gather") for unit in reversed(range(BLOCKS))
+                for kind in ("gather", "publish", "replay")]
+    assert probe["events"] == backward * micro
+    assert probe["keys"] == 0
+    assert probe["saved"] > 0 and probe["equal"] == probe["saved"]

@@ -10,7 +10,8 @@ JAX-injected step of ``OUT_DIR/jax_inputs.pt`` where the test wrote one, a
 checkpoint saved on {fsdp 2, tensor 2} and resumed on {data 4}, the
 non-strict import and ``--debug_nans`` on the mesh, and the train CLI's
 ``--mesh`` (a run, and its refusal of a product other than the process
-count). Rank 0
+count). The cases of ``REMAT`` rematerialise every block under a policy,
+recorded by ``remat_probe``. Rank 0
 writes each result (the state gathered from the shards) to
 ``OUT_DIR/<case>.pt``; ``mesh_run`` without a group is the one-process run
 they are compared with.
@@ -18,6 +19,7 @@ they are compared with.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -44,6 +46,14 @@ CASES = {
     # against today's DataParallel from its own start (bit for bit)
     "data4": ({"data": 4}, {"fresh": True}),
 }
+# the cases under remat (models/remat.py): (the case without it, the policy);
+# each runs as "<case>-<policy>"
+REMAT = [("fsdp2-tensor2", "full"), ("fsdp2-tensor2", "dots"), ("fsdp2-tensor2", "names"),
+         ("fsdp2-tensor2", "names_lite"), ("data2-fsdp2", "full"), ("data2-tensor2", "full"),
+         ("fsdp4", "full"), ("fsdp2-tensor2-accum2", "full"), ("fsdp2-tensor2-options", "names")]
+REMAT_CASES = {f"{base}-{policy}": base for base, policy in REMAT}
+CASES.update({f"{base}-{policy}": (CASES[base][0], {**CASES[base][1], "remat": policy})
+              for base, policy in REMAT})
 
 
 def start_state(full: dict) -> dict:
@@ -71,7 +81,7 @@ def build(mesh_shape: dict | None, options: dict, full: dict | None = None):
     from maskdit_tpu_torch.train.state import create_train_state, make_optimizer, make_train_step
 
     torch.manual_seed(0)
-    model = create_model("edm", **MODEL_KW)
+    model = create_model("edm", remat=options.get("remat"), **MODEL_KW)
     opt = make_optimizer(1e-3, GLOBAL_BATCH, moment_dtype=options.get("moment_dtype"),
                          nu_dtype=options.get("nu_dtype"), fused=options.get("fused", True))
     mesh = sync = None
@@ -80,7 +90,8 @@ def build(mesh_shape: dict | None, options: dict, full: dict | None = None):
         sync = DataParallel(mesh)
     full = full or {k: v.clone() for k, v in model.state_dict().items()}
     if mesh is not None and mesh.sharded:
-        local = create_model("edm", tensor_split=tensor_split_of(mesh), **MODEL_KW)
+        local = create_model("edm", tensor_split=tensor_split_of(mesh),
+                             remat=options.get("remat"), **MODEL_KW)
         state = create_sharded_state(local, full, opt, mesh)
     else:
         state = create_train_state(model, opt)
@@ -113,28 +124,107 @@ def result(state, metrics) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def remat_probe(state):
+    """What a run on the mesh does around its rematerialised blocks, into
+    the dict it yields: ``sums``, the tensor group's fp32 sums
+    (``layers._all_reduce_fp32``, forward, backward and recompute);
+    ``events``, in order, each backward gather of a block's unit, each
+    frame's ``publish`` and its recompute (``replay``, once per frame), as
+    (what, unit index, whether the unit was gathered at that moment);
+    ``keys``, the storage keys the frames still held after their forwards;
+    ``saved`` and ``equal``, the saved tensors ``unpack`` handed back and
+    how many of them equal (values, shape and dtype) what ``pack`` was
+    given."""
+    from maskdit_tpu_torch.models import layers, remat
+    from maskdit_tpu_torch.parallel.sharded import ShardedTrainState
+
+    units = {id(u.module): (i, u) for i, u in enumerate(getattr(state, "units", []))}
+    out = {"sums": 0, "events": [], "keys": 0, "saved": 0, "equal": 0}
+    reduce, gather = layers._all_reduce_fp32, ShardedTrainState.gather
+    Frame = remat._Frame
+    forward, publish, replay, pack, unpack = (Frame.forward, Frame.publish, Frame.replay,
+                                              Frame.pack, Frame.unpack)
+
+    def gathered(unit) -> bool:
+        return unit.gathered and unit.full.untyped_storage().nbytes() > 0
+
+    def counted_reduce(x, split):
+        out["sums"] += 1
+        return reduce(x, split)
+
+    def logged_gather(self, unit):
+        if unit.module is not None and not torch.is_grad_enabled():  # the backward's
+            out["events"].append(("gather", units[id(unit.module)][0], gathered(unit)))
+        gather(self, unit)
+
+    def logged(kind, fn):
+        def run(self, *args):
+            if id(self.block) in units and (kind != "replay" or not self.replayed):
+                index, unit = units[id(self.block)]
+                out["events"].append((kind, index, gathered(unit)))
+            return fn(self, *args)
+        return run
+
+    def keyed_forward(self, *args):
+        y = forward(self, *args)
+        out["keys"] += len(self.storages)
+        return y
+
+    def kept_pack(self, t):
+        return ("probe", t.detach().clone(), pack(self, t))
+
+    def checked_unpack(self, slot):
+        _, want, inner = slot
+        got = unpack(self, inner)
+        out["saved"] += 1
+        out["equal"] += int(got.dtype == want.dtype and got.shape == want.shape
+                            and torch.equal(got, want))
+        return got
+
+    patches = [(layers, "_all_reduce_fp32", counted_reduce),
+               (ShardedTrainState, "gather", logged_gather),
+               (Frame, "forward", keyed_forward), (Frame, "publish", logged("publish", publish)),
+               (Frame, "replay", logged("replay", replay)), (Frame, "pack", kept_pack),
+               (Frame, "unpack", checked_unpack)]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield out
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+
+
 def mesh_run(mesh_shape: dict | None, options: dict, steps: range = range(STEPS),
              state_and_step=None) -> tuple:
     """Train steps ``steps`` of the tiny model on the global batches, each
     step's draws seeded from (1, step) over the global batch: (``result``,
-    the state, the step, the sync)."""
+    the state, the step, the sync). Under remat the result holds
+    ``remat_probe``'s record as ``probe``."""
     from maskdit_tpu_torch.train.trainer import step_seed
 
     state, step_fn, sync = state_and_step or build(mesh_shape, options)
     generator = torch.Generator()
     metrics = None
-    for step in steps:
-        generator.manual_seed(step_seed(1, step))
-        metrics = step_fn(state, rows(global_batch(step), sync), generator)
-    return result(state, metrics), state, step_fn, sync
+    probe = remat_probe(state) if options.get("remat") else contextlib.nullcontext()
+    with probe as record:
+        for step in steps:
+            generator.manual_seed(step_seed(1, step))
+            metrics = step_fn(state, rows(global_batch(step), sync), generator)
+    out = result(state, metrics)
+    if record is not None:
+        out["probe"] = record
+    return out, state, step_fn, sync
 
 
-def jax_run(mesh_shape: dict | None, inputs: dict) -> dict:
+def jax_run(mesh_shape: dict | None, inputs: dict, remat=None) -> dict:
     """One step from the JAX test's state, batch and draws (its rows)."""
     from maskdit_tpu_torch.train.state import StepDraws
 
-    state, step_fn, sync = build(mesh_shape, {"mask_ratio": 0.0, "fresh": True},
-                                 full=inputs["model"])
+    state, step_fn, sync = build(mesh_shape, {"mask_ratio": 0.0, "fresh": True,
+                                              "remat": remat}, full=inputs["model"])
     state.load({"model": inputs["model"], "ema": inputs["ema"], "opt": inputs["opt"]})
     draws = StepDraws(**inputs["draws"])
     batch = {"x": inputs["x"], "y": inputs["y"]}
@@ -165,7 +255,9 @@ def main(out_dir: str) -> None:
     save("data4-dataparallel", {k: dp[k] for k in ("params", "ema", "mu", "nu", "loss")})
     jax_inputs = os.path.join(out_dir, "jax_inputs.pt")
     if os.path.exists(jax_inputs):
-        save("jax-fsdp2-tensor2", jax_run({"fsdp": 2, "tensor": 2}, torch.load(jax_inputs)))
+        inputs = torch.load(jax_inputs)
+        save("jax-fsdp2-tensor2", jax_run({"fsdp": 2, "tensor": 2}, inputs))
+        save("jax-fsdp2-tensor2-full", jax_run({"fsdp": 2, "tensor": 2}, inputs, "full"))
     # a checkpoint of {fsdp 2, tensor 2} after 2 steps, resumed on {data 4}
     out, state, step_fn, sync = mesh_run({"fsdp": 2, "tensor": 2}, {})
     ckpt = state.checkpoint()

@@ -20,8 +20,17 @@ squares of the masked training forward (mask 0.5, injected):
   policy saves (h_msa, qkv_out, attn_out, h_mlp, fc1_out, mlp_out; ``dots``
   every GEMM's output) and the block's inputs, nothing else; the bytes
   fall from none to names, dots, names_lite and full;
-* an unknown policy raises (the JAX model runs it without remat), and so
-  does the mesh's ``create_sharded_state``.
+* an unknown policy raises (the JAX model runs it without remat), and the
+  mesh's ``create_sharded_state`` takes every policy;
+* the blocked and flash routes: the tiny model at 64 x 64 latents (the
+  encoder at L 512 on the packed route, the decoder at L 1024 on the
+  blocked one; with ``use_flash`` both on the flash route), under every
+  policy bit for bit with no remat, with one more forward per block on
+  the packed and blocked routes, and on the flash route the same two
+  forwards per block as without remat (the block's recompute takes the
+  place of the layer's checkpoint).
+
+Remat on the mesh is held in tests/test_torch_mesh_dist.py.
 """
 
 import weakref
@@ -35,10 +44,10 @@ import torch
 from maskdit_tpu.models import create_model as jax_create_model
 from maskdit_tpu.models.masking import MaskInfo as JaxMaskInfo
 from maskdit_tpu_torch.models import create_model, remat
-from maskdit_tpu_torch.models.layers import DiTBlock
+from maskdit_tpu_torch.models.layers import DiTBlock, attention_route
 from maskdit_tpu_torch.models.masking import MaskInfo, len_keep_for
 from maskdit_tpu_torch.models.remat import policy_of
-from maskdit_tpu_torch.ops import flash_batched
+from maskdit_tpu_torch.ops import flash, flash_batched, flash_big
 from maskdit_tpu_torch.parallel.sharded import create_sharded_state
 from maskdit_tpu_torch.utils.port import state_dict_from_flax
 from tests.test_torch_model import patch_tiny_port
@@ -302,7 +311,108 @@ def test_an_unknown_policy_raises_and_the_jax_values_map():
         create_model("edm", dtype=torch.float32, remat="name_lite", **KW)
 
 
-def test_the_mesh_refuses_remat(case):
-    model = create_model("edm", dtype=torch.float32, remat="names", **KW)
-    with pytest.raises(NotImplementedError, match="remat='names' on the mesh is not ported"):
-        create_sharded_state(model, {}, None, None)
+@pytest.mark.parametrize("remat", [True, *POLICIES])
+def test_the_mesh_state_takes_every_policy(case, remat):
+    """``create_sharded_state`` builds the state of a model under each JAX
+    value (here a one-rank mesh, no process group; the steps on 4 ranks are
+    in tests/test_torch_mesh_dist.py), and refuses a block whose ``remat``
+    was set to no policy, naming it."""
+    from maskdit_tpu_torch.parallel.mesh import create_mesh
+    from maskdit_tpu_torch.train.state import make_optimizer
+
+    model = create_model("edm", dtype=torch.float32, remat=remat, **KW)
+    full = dict(model.state_dict())
+    state = create_sharded_state(model, full, make_optimizer(1e-3, N), create_mesh())
+    assert {b.remat for b in [*model.model.blocks, *model.model.decoder_blocks]} == {
+        policy_of(remat)}
+    assert len(state.units) == BLOCKS
+    model.model.blocks[1].remat = "name_lite"
+    with pytest.raises(ValueError, match="model.blocks.1: remat='name_lite' is no policy"):
+        create_sharded_state(model, full, make_optimizer(1e-3, N), create_mesh())
+
+
+ROUTE_RES = 64  # 64 x 64 latents: L 1024, the encoder keeps 512 at mask 0.5
+ROUTE_KW = {**KW, "img_resolution": ROUTE_RES}
+# the plain versions each route's wrapper calls on the CPU, by kernel
+ROUTE_PLAIN = {"packed_fwd": (flash_batched, "packed_attention_reference"),
+               "packed_bwd": (flash_batched, "packed_attention_bwd_reference"),
+               "big_fwd": (flash_big, "packed_attention_big_reference"),
+               "big_bwd": (flash_big, "packed_attention_big_bwd_reference"),
+               "flash_fwd": (flash, "flash_fwd_reference"),
+               "flash_bwd": (flash, "flash_bwd_reference")}
+ENCODER_BLOCKS = DECODER_BLOCKS = 2
+
+
+@pytest.fixture(scope="module")
+def route_case(tiny_dit_module):
+    """The tiny port at 64 x 64 latents: seeded weights and one sample's
+    inputs and mask (the smallest batch that reaches the routes)."""
+    mp = pytest.MonkeyPatch()
+    patch_tiny_port(mp)
+    rng = np.random.default_rng(5)
+    l_full = (ROUTE_RES // 2) ** 2
+    shuffle = np.argsort(rng.random((1, l_full)), axis=1).astype(np.int32)
+    restore = np.argsort(shuffle, axis=1).astype(np.int32)
+    keep = len_keep_for(l_full, 0.5)
+    model = create_model("edm", dtype=torch.float32, **ROUTE_KW)
+    weights = {k: torch.from_numpy(rng.normal(0.0, 0.05, size=tuple(v.shape))
+                                   .astype(np.float32))
+               for k, v in model.state_dict().items()}
+    yield dict(
+        weights=weights, keep=keep,
+        inputs=(rng.normal(size=(1, CIN, ROUTE_RES, ROUTE_RES)).astype(np.float32),
+                np.array([1.3], np.float32), np.eye(K, dtype=np.float32)[[2]]),
+        mask=((restore >= keep).astype(np.float32), shuffle[:, :keep], restore))
+    mp.undo()
+
+
+def route_step(route_case, policy, use_flash, monkeypatch):
+    """The tiny 64 x 64 model's loss and gradients under ``policy``, and the
+    plain versions' calls by kernel."""
+    calls = dict.fromkeys(ROUTE_PLAIN, 0)
+    for name, (module, attr) in ROUTE_PLAIN.items():
+        def counted(*args, _name=name, _fn=getattr(module, attr)):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(module, attr, counted)
+    model = create_model("edm", dtype=torch.float32, use_flash=use_flash, remat=policy,
+                         **ROUTE_KW)
+    model.load_state_dict(route_case["weights"])
+    x, sigma, y = (torch.from_numpy(a) for a in route_case["inputs"])
+    info = MaskInfo(*(torch.from_numpy(a) for a in route_case["mask"]))
+    loss = model(x, sigma, y, mask_ratio=0.5, mask_info=info, train=True)["x"].square().sum()
+    loss.backward()
+    monkeypatch.undo()
+    return loss.item(), {k: p.grad for k, p in model.named_parameters()}, calls
+
+
+@pytest.mark.parametrize("use_flash", [None, True], ids=["blocked", "flash"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_policy_on_the_blocked_and_flash_routes_equals_no_remat(route_case, policy,
+                                                                use_flash, monkeypatch):
+    """At 64 x 64 latents by default the encoder (L 512, hd 16) takes the
+    packed route and the decoder (L 1024) the blocked one: each policy
+    launches one more forward per block on both; with ``use_flash`` every
+    block takes the flash route, two forwards per block with and without
+    remat. Loss and gradients equal no remat's bit for bit."""
+    keep = route_case["keep"]
+    assert keep == 512
+    if use_flash:
+        assert {attention_route(4, l, 16, True, True) for l in (keep, 2 * keep)} == {"flash"}
+    else:
+        assert [attention_route(4, l, 16, True) for l in (keep, 2 * keep)] == ["packed", "big"]
+    loss0, grads0, calls0 = route_step(route_case, "none", use_flash, monkeypatch)
+    loss, grads, calls = route_step(route_case, policy, use_flash, monkeypatch)
+    blocks = ENCODER_BLOCKS + DECODER_BLOCKS
+    if use_flash:
+        want0 = want = dict.fromkeys(ROUTE_PLAIN, 0) | {"flash_fwd": 2 * blocks,
+                                                         "flash_bwd": blocks}
+    else:
+        want0 = dict.fromkeys(ROUTE_PLAIN, 0) | {
+            "packed_fwd": ENCODER_BLOCKS, "packed_bwd": ENCODER_BLOCKS,
+            "big_fwd": DECODER_BLOCKS, "big_bwd": DECODER_BLOCKS}
+        want = want0 | {"packed_fwd": 2 * ENCODER_BLOCKS, "big_fwd": 2 * DECODER_BLOCKS}
+    assert (calls0, calls) == (want0, want)
+    assert loss == loss0
+    for k, g in grads0.items():
+        assert torch.equal(grads[k], g), k
