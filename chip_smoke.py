@@ -638,8 +638,9 @@ TRAIN_PARITY_BOUND = {
 # The cases under remat (and the one with use_flash) each follow the case of
 # the same mesh without them, which they are also held to bit for bit
 # (MESH_SAME_AS); every case times its step and reads its rank's memory at
-# the start and at the end of the backward (every unit gathered again by
-# then) and the step's peak
+# the start and at the end of the backward (each block's unit released by
+# then, after its gradient's reduction) and the step's peak, and holds the
+# units' buffers alive at once to the root and the two largest blocks
 MESH_RANKS = 4
 F2T2, D2F2 = {"fsdp": 2, "tensor": 2}, {"data": 2, "fsdp": 2}
 MESH_PARITY = [  # (case, res, batch, mesh, model dtype, nu dtype, remat, use_flash)
@@ -3463,7 +3464,9 @@ def mesh_case(case: tuple, held: dict) -> dict:
     the reference's start, one step on its rows with the reference's draws
     (its launches counted; above the allocation at its start, the memory
     allocated at the backward's first gather and when the backward is
-    done, the peak up to the gradient's reduction and the step's; its
+    done, the peak up to the root's reduction and the step's; the most
+    bytes its units' parameter and gradient buffers held at once, at each
+    gather, reduction and release, against ``unit_bytes``' bound; its
     wall time), then per parameter
     the rel-norm error of the gradient and of p / ema / mu / nu from every
     rank's shards (each leaf's sums over its replicas in the fsdp x tensor
@@ -3505,8 +3508,9 @@ def mesh_case(case: tuple, held: dict) -> dict:
                  (mesh.batch_index + 1) * n // mesh.batch_count)
     batch = {k: v[rows] for k, v in batch.items()}
     draws = StepDraws(*(_rows(d, rows) for d in draws))
-    marks = {}
+    marks = {"units_alive": 0}
     gather, end_micro = state.gather, state.end_micro
+    nbytes = lambda t: t.untyped_storage().nbytes()
 
     def gather_marked(unit):  # the backward's gathers run without grad mode
         if not torch.is_grad_enabled() and "backward_start" not in marks:
@@ -3516,10 +3520,24 @@ def mesh_case(case: tuple, held: dict) -> dict:
     def end_marked(acc_dtype):
         marks["backward_end"] = torch.cuda.memory_allocated()
         marks["peak_to_reduction"] = torch.cuda.max_memory_allocated()
-        marks["units_gathered"] = sum(u.full.untyped_storage().nbytes() for u in state.units)
+        marks["units_gathered"] = sum(nbytes(u.full) for u in state.units)
         end_micro(acc_dtype)
 
+    def alive_marked(fn, after: bool):  # the units' buffers with storage, at each event
+        def run(unit):
+            if after:
+                fn(unit)
+            marks["units_alive"] = max(marks["units_alive"], sum(
+                nbytes(u.full) + nbytes(u.grad) for u in state.all_units))
+            if not after:
+                fn(unit)
+        return run
+
     state.gather, state.end_micro = gather_marked, end_marked
+    state.open_for_backward = alive_marked(state.open_for_backward, True)
+    state.reduce = alive_marked(state.reduce, False)
+    state.release = alive_marked(state.release, False)
+    units_bound, staging = unit_bytes(state)
     tdist.barrier()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3530,8 +3548,8 @@ def mesh_case(case: tuple, held: dict) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t_step) * 1e3
     launches, peak = read_launches(), torch.cuda.max_memory_allocated() - at_start
-    marks = {k: v - at_start if k != "units_gathered" else v for k, v in marks.items()}
-    del state.gather, state.end_micro
+    marks = {k: v if k.startswith("units_") else v - at_start for k, v in marks.items()}
+    del state.gather, state.end_micro, state.open_for_backward, state.reduce, state.release
     loss = float(metrics["loss"])
     flats = {"grad": state.grads, "p": state.params, "ema": state.ema,
              "mu": state.opt_state.mu, "nu": state.opt_state.nu}
@@ -3576,11 +3594,32 @@ def mesh_case(case: tuple, held: dict) -> dict:
         nu=errs["nu"][0], nu_within_ulp=bool(flags[0]), nu_equal=bool(flags[1]),
         same_as=bool(flags[2]), launches=launches, held_bytes=held_bytes,
         reckoned_bytes=reckoned, full_bytes=full_bytes, peak=peak, ms=ms, **marks,
+        units_bound=units_bound, staging=staging,
         segments=int(layout.segments.shape[0]), seconds=time.perf_counter() - t0,
     )
     del state, opt, step, model, metrics, ref, flats
     free_device_memory()
     return out
+
+
+def unit_bytes(state) -> tuple[int, int]:
+    """From a sharded state's layout: the bytes its units' parameter and
+    gradient buffers may hold at once in a backward (the root and the two
+    largest blocks, each twice: parameters and gradient, in the gradient's
+    dtype), and the largest unit's fp32 reduction staging (the reduce-scatter's
+    send, which holds each leaf not split over fsdp once per fsdp rank, and
+    its result)."""
+    units: dict[str, int] = {}
+    stage: dict[str, int] = {}
+    for leaf in state.shard_layout.leaves:
+        block = re.match(r"(model\.(?:decoder_)?blocks\.\d+)\.", leaf.name)
+        name = block.group(1) if block else "root"
+        units[name] = units.get(name, 0) + leaf.local_numel
+        copies = 1 if leaf.dim_f is not None else state.mesh.shape["fsdp"]
+        stage[name] = stage.get(name, 0) + copies * leaf.local_numel + leaf.shard_numel
+    root = units.pop("root")
+    size = state.root.grad.element_size()
+    return 2 * size * (root + sum(sorted(units.values())[-2:])), 4 * max(stage.values())
 
 
 def parity_mesh() -> dict:
@@ -3593,7 +3632,8 @@ def parity_mesh() -> dict:
     out = {"gloo_cuda": gloo_on_cuda_tensors(), "parity": {}}
     held = {}  # the shards of MESH_SAME_AS's cases, on the host
     per_rank = ("launches", "held_bytes", "reckoned_bytes", "peak", "ms", "backward_start",
-                "backward_end", "peak_to_reduction", "units_gathered")
+                "backward_end", "peak_to_reduction", "units_gathered", "units_alive",
+                "units_bound", "staging")
     for case in MESH_PARITY:
         got = mesh_case(case, held)
         everyone = [None] * dist.process_count()
@@ -4464,12 +4504,16 @@ def check_parity_mesh(out: dict) -> dict:
             f"; per rank, above the step's start: peak {gib('peak')} GiB (up to the "
             f"gradient's reduction {gib('peak_to_reduction')}), at the backward's first gather "
             f"{gib('backward_start')} and at its end {gib('backward_end')} GiB (unit buffers "
-            f"gathered then {gib('units_gathered')} GiB); the step "
+            f"gathered then {gib('units_gathered')} GiB); the units' parameter and gradient "
+            f"buffers alive at once at most {gib('units_alive')} GiB (bound: the root and the "
+            f"two largest blocks, twice, {gib('units_bound')} GiB); the fp32 reduction's "
+            f"staging per unit at most {gib('staging')} GiB (reckoned); the step "
             f"{[round(x, 1) for x in got['ms']]} ms ({MESH_RANKS} gloo ranks sharing the card, "
             f"beside the group's phases); {got['seconds']:.1f} s with its one-process step")
         ok = (got["loss"] <= bnd["loss"] and got["grad"] <= bnd["grad"]
               and got["state"] <= bnd["state"] and got["same_as"]
-              and all(abs(h - r) <= 0.02 * r for h, r in zip(held, reckoned)))
+              and all(abs(h - r) <= 0.02 * r for h, r in zip(held, reckoned))
+              and all(a <= b for a, b in zip(got["units_alive"], got["units_bound"])))
         if nu and dtype == torch.float32:
             ok = ok and got["nu_within_ulp"]
         elif nu:
@@ -4486,7 +4530,8 @@ def phase_mesh(proc: subprocess.Popen) -> dict:
     / #6 with use_flash) at 8 heads once per block (the forward twice under
     remat or use_flash) and #7 once on every rank, a case of MESH_SAME_AS
     bit for bit with its case without remat, and every rank's state within
-    2% of its shards' bytes by the rules; [train-mesh]'s finite
+    2% of its shards' bytes by the rules and its units' buffers within
+    ``unit_bytes``' bound at every event; [train-mesh]'s finite
     losses and launches on every rank, then its last checkpoint resumed in
     this process without a group: the parameters equal the run's, gathered
     from the shards, bit for bit."""

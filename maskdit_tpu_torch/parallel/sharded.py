@@ -32,13 +32,26 @@ out over ``torch.distributed`` (``parallel/mesh.py``):
     'full' only; the other policies keep their outputs) runs their sums
     over the tensor group again, at the same point of every tensor rank's
     backward;
-  * after each micro-batch's backward the gradient is reduced in fp32: a
-    reduce-scatter over fsdp for the leaves split there, a sum over fsdp for
-    the others; added into the accumulator (in its dtype), then averaged
-    over data x fsdp by ``DataParallel(mesh)`` at the end of the step. A
-    leaf replicated over tensor has the same gradient on every tensor rank
-    (the sums make the activations and their gradients equal), so it is
-    counted once;
+  * each unit has a gradient buffer of its own (the parameters' ``.grad``
+    are its views). A block's is allocated, zero, when the unit is
+    gathered for its backward; the root's lives through the micro-batch.
+    The block's forward hook records which of its parameters the graph of
+    its output reaches (``_params_reached``); each parameter's
+    post-accumulate-grad hook counts it off, and when the last has landed
+    (every node that reads the unit's parameters has run by then) the
+    unit's gradient is reduced and the unit released: its parameter and
+    gradient buffers freed. So a rank holds the root, the unit whose
+    backward runs and the next one, with their gradients, never the whole
+    gradient. The root is reduced at the micro-batch's end; a block whose
+    gradient is still pending then raises, naming it;
+  * a unit's gradient is reduced in fp32 in one reduce-scatter over fsdp:
+    each rank receives the sums of its slices of the leaves split there and
+    the whole sums of the others; added into the accumulator (in its
+    dtype), then averaged over data x fsdp by ``DataParallel(mesh)`` at the
+    end of the step. A leaf replicated over tensor has the same gradient on
+    every tensor rank (the sums make the activations and their gradients
+    equal), so it is counted once. Every rank runs the same graph, so the
+    units' reductions come in one order on every rank;
   * ``grad_norm`` is the norm of the whole gradient: each leaf's shard
     weighted by 1/(ranks of the fsdp x tensor group that hold it), summed
     over that group.
@@ -52,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, Optional
 
 import torch
@@ -193,20 +207,49 @@ class ShardLayout:
 
 class _Unit:
     """An FSDP unit: parameters gathered and freed together, into a buffer
-    of their own (tensor-local leaves, in the module's order)."""
+    of their own (tensor-local leaves, in the module's order), and their
+    gradient in a buffer of its own. Per micro-batch: ``expected``, the ids
+    of the parameters the block's forward graphs reach; ``pending``, those
+    still to land in its backward (None until the backward reaches the
+    block); ``reduced``, whether its gradient was reduced."""
 
-    def __init__(self, leaves: list[Leaf], params: list[nn.Parameter],
+    def __init__(self, name: str, leaves: list[Leaf], params: list[nn.Parameter],
                  module: Optional[nn.Module] = None):
-        self.leaves, self.params, self.module = leaves, params, module
+        self.name, self.leaves, self.params, self.module = name, leaves, params, module
         self.numel = sum(leaf.local_numel for leaf in leaves)
         self.full: Optional[torch.Tensor] = None
+        self.grad: Optional[torch.Tensor] = None
         self.gathered = False
+        self.ids = {id(p) for p in params}
+        self.expected: set[int] = set()
+        self.pending: Optional[set[int]] = None
+        self.reduced = False
+
+
+def _params_reached(out: torch.Tensor, inputs: tuple, unit: _Unit) -> set[int]:
+    """The ids of ``unit``'s parameters whose gradient nodes the graph of a
+    block's output reaches without passing its inputs' nodes: those that
+    take a gradient when the output does."""
+    found, todo = set(), [out.grad_fn]
+    seen = {t.grad_fn for t in inputs if isinstance(t, torch.Tensor) and t.grad_fn is not None}
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        variable = getattr(fn, "variable", None)  # AccumulateGrad: a leaf
+        if variable is not None:
+            if id(variable) in unit.ids:
+                found.add(id(variable))
+            continue
+        todo.extend(f for f, _ in fn.next_functions)
+    return found
 
 
 class _GatherForBackward(torch.autograd.Function):
     """Identity forward on a block's output; its backward, which runs when
     the gradient reaches the block and before the block's own backward,
-    gathers the block's parameters again."""
+    gathers the block's parameters again and opens its gradient."""
 
     @staticmethod
     def forward(ctx, x, state, unit):
@@ -215,7 +258,7 @@ class _GatherForBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        ctx.state.gather(ctx.unit)
+        ctx.state.open_for_backward(ctx.unit)
         return grad, None, None
 
 
@@ -224,13 +267,13 @@ class ShardedTrainState(TrainState):
     """``TrainState`` over this rank's shards (``params``, ``grads``, ``ema``
     and the moments are shard buffers; ``layout`` holds the shard shapes, so
     ``named`` gives shard views). The model's parameters are views into the
-    units' gathered buffers, their ``.grad`` views into ``full_grads``."""
+    units' gathered buffers, their ``.grad`` views into the units' gradient
+    buffers."""
 
     mesh: Any = None
     shard_layout: Optional[ShardLayout] = None
     units: list = dataclasses.field(default_factory=list)
     root: Optional[_Unit] = None
-    full_grads: Optional[torch.Tensor] = None
 
     collective = True  # checkpoint(), full_named() and the NaN check: every rank
 
@@ -276,6 +319,36 @@ class ShardedTrainState(TrainState):
         self._set_storage(unit.full, False)
         unit.gathered = False
 
+    def open_for_backward(self, unit: _Unit) -> None:
+        """The gradient has reached the block: its unit gathered again and,
+        the first time in the micro-batch, its gradient allocated, zero,
+        with every parameter its forward reached pending."""
+        if unit.reduced:
+            raise RuntimeError(f"{unit.name}: the backward reached the block again after "
+                               "its gradient was reduced")
+        self.gather(unit)
+        if unit.pending is None:
+            self._set_storage(unit.grad, True)
+            unit.grad.zero_()
+            unit.pending = set(unit.expected)
+
+    def _landed(self, unit: _Unit, p: nn.Parameter) -> None:
+        """A parameter's post-accumulate-grad hook: once the last pending
+        parameter of the unit has its gradient, reduce it and release the
+        unit."""
+        if unit.pending is None or id(p) not in unit.pending:
+            raise RuntimeError(f"{unit.name}: a parameter took a gradient that its block's "
+                               "backward did not expect")
+        unit.pending.discard(id(p))
+        if not unit.pending:
+            self.reduce(unit)
+            self.release(unit)
+
+    def release(self, unit: _Unit) -> None:
+        """The unit's parameter and gradient buffers freed."""
+        self.free(unit)
+        self._set_storage(unit.grad, False)
+
     def _install_hooks(self) -> None:
         for unit in self.units:
 
@@ -284,17 +357,25 @@ class ShardedTrainState(TrainState):
 
             def post(mod, args, out, unit=unit):
                 if torch.is_grad_enabled() and out.requires_grad:
+                    unit.expected |= _params_reached(out, args, unit)
                     out = _GatherForBackward.apply(out, self, unit)
                 self.free(unit)
                 return out
 
             unit.module.register_forward_pre_hook(pre)
             unit.module.register_forward_hook(post)
+            # weak references: the garbage collector does not see a tensor's
+            # post-accumulate-grad hooks, so a strong one to the state would
+            # keep it, the model and the unit buffers alive for good
+            state_ref, unit_ref = weakref.ref(self), weakref.ref(unit)
+            for p in unit.params:
+                p.register_post_accumulate_grad_hook(
+                    lambda p, state=state_ref, unit=unit_ref: state()._landed(unit(), p))
 
     # -- TrainState's interface -----------------------------------------------------
 
     def bind(self, grad_dtype: torch.dtype, accum_dtype: torch.dtype) -> None:
-        """The units' buffers and the full gradient in ``grad_dtype`` (the
+        """Each unit's parameter and gradient buffers in ``grad_dtype`` (the
         bf16 copy of the parameters under ``amp_grads`` is the gathered
         shards rounded once), the shard accumulator in ``accum_dtype``."""
         if self.binding == (grad_dtype, accum_dtype):
@@ -302,20 +383,17 @@ class ShardedTrainState(TrainState):
         if self.grads.dtype != accum_dtype:
             self.grads = torch.zeros_like(self.params, dtype=accum_dtype)
         device = self.params.device
-        total = sum(u.numel for u in self.all_units)
-        self.full_grads = torch.zeros(total, dtype=grad_dtype, device=device)
-        goff = 0
         for unit in self.all_units:
             unit.full = torch.empty(unit.numel, dtype=grad_dtype, device=device)
+            unit.grad = torch.empty(unit.numel, dtype=grad_dtype, device=device)
             off = 0
             for leaf, p in zip(unit.leaves, unit.params):
                 n = leaf.local_numel
                 p.data = unit.full[off:off + n].view(leaf.local_shape)
-                p.grad = self.full_grads[goff:goff + n].view(leaf.local_shape)
+                p.grad = unit.grad[off:off + n].view(leaf.local_shape)
                 off += n
-                goff += n
             self.free(unit)
-        self._set_storage(self.full_grads, False)
+            self._set_storage(unit.grad, False)
         self.binding = (grad_dtype, accum_dtype)
 
     @property
@@ -323,55 +401,62 @@ class ShardedTrainState(TrainState):
         return [self.root, *self.units]
 
     def begin_micro(self) -> None:
-        """Before a micro-batch: the root unit gathered, the full gradient
-        allocated and zero (each block gathers itself)."""
-        self._set_storage(self.full_grads, True)
-        self.full_grads.zero_()
+        """Before a micro-batch: the root unit gathered, its gradient
+        allocated and zero; every block's record cleared (each gathers
+        itself, and opens its gradient in its backward)."""
+        for unit in self.units:
+            unit.expected, unit.pending, unit.reduced = set(), None, False
+        self._set_storage(self.root.grad, True)
+        self.root.grad.zero_()
         self.gather(self.root)
 
     def end_micro(self, acc_dtype: torch.dtype) -> None:
-        """After a micro-batch's backward: its gradient reduced over fsdp in
-        fp32 into this rank's shards and added into the accumulator; every
-        unit and the full gradient freed."""
-        grads = {}
-        off = 0
+        """After a micro-batch's backward (every block reduced and released
+        in it): the root's gradient reduced, every unit released. A block
+        with a gradient still pending raises, naming it."""
+        stuck = [unit.name for unit in self.units if unit.pending]
+        if stuck:
+            raise RuntimeError(f"gradients still pending at the end of a micro-batch in "
+                               f"{', '.join(stuck)}: the backward did not reach every "
+                               "parameter their forward did")
+        self.reduce(self.root)
         for unit in self.all_units:
-            for leaf in unit.leaves:
-                grads[leaf.name] = self.full_grads[off:off + leaf.local_numel].view(
-                    leaf.local_shape)
-                off += leaf.local_numel
-        leaves = self.shard_layout.leaves
+            if unit is self.root or not unit.reduced:  # the reduced ones are released
+                self.release(unit)
+
+    def reduce(self, unit: _Unit) -> None:
+        """``unit``'s gradient reduced over fsdp in fp32 into this rank's
+        shards and added into the accumulator (in its dtype), in one
+        reduce-scatter: each rank's block of the send buffer holds its fsdp
+        slice of the leaves split there, then the whole of the others, so
+        every rank receives its slices' sums and the others' whole sums.
+        Staging sized to the unit."""
         size_f = self.mesh.shape["fsdp"]
-        red = torch.empty(self.params.shape, dtype=torch.float32, device=self.params.device)
-        out = self.shard_layout.named(red)
-        split = [leaf for leaf in leaves if leaf.dim_f is not None]
-        whole = [leaf for leaf in leaves if leaf.dim_f is None]
-        if split:
-            n = sum(leaf.shard_numel for leaf in split)
-            send = torch.empty((size_f, n), dtype=torch.float32, device=red.device)
-            pos = 0
-            for leaf in split:
-                g = grads[leaf.name].float().unflatten(leaf.dim_f, (size_f, -1))
-                send[:, pos:pos + leaf.shard_numel].view(size_f, *leaf.shard_shape).copy_(
-                    g.movedim(leaf.dim_f, 0))
-                pos += leaf.shard_numel
-            mine = torch.empty(n, dtype=torch.float32, device=red.device)
-            mesh_lib.reduce_scatter_sum(mine, send, self.mesh, "fsdp")
-            pos = 0
-            for leaf in split:
-                out[leaf.name].view(-1).copy_(mine[pos:pos + leaf.shard_numel])
-                pos += leaf.shard_numel
-        if whole:
-            flat = torch.cat([grads[leaf.name].float().reshape(-1) for leaf in whole])
-            mesh_lib.all_reduce_sum_(flat, self.mesh, "fsdp")
-            pos = 0
-            for leaf in whole:
-                out[leaf.name].view(-1).copy_(flat[pos:pos + leaf.shard_numel])
-                pos += leaf.shard_numel
-        self.grads.add_(red.to(acc_dtype))
-        for unit in self.all_units:
-            self.free(unit)
-        self._set_storage(self.full_grads, False)
+        leaves = ([leaf for leaf in unit.leaves if leaf.dim_f is not None]
+                  + [leaf for leaf in unit.leaves if leaf.dim_f is None])
+        offsets, off = {}, 0
+        for leaf in unit.leaves:
+            offsets[leaf.name] = off
+            off += leaf.local_numel
+        sizes = [leaf.shard_numel for leaf in leaves]
+        send = torch.empty((size_f, sum(sizes)), dtype=torch.float32, device=unit.grad.device)
+        pos = 0
+        for leaf, n in zip(leaves, sizes):
+            g = unit.grad[offsets[leaf.name]:offsets[leaf.name] + leaf.local_numel].view(
+                leaf.local_shape).float()
+            if leaf.dim_f is None:
+                send[:, pos:pos + n].copy_(g.reshape(1, n))
+            else:
+                send[:, pos:pos + n].view(size_f, *leaf.shard_shape).copy_(
+                    g.unflatten(leaf.dim_f, (size_f, -1)).movedim(leaf.dim_f, 0))
+            pos += n
+        out = torch.empty(pos, dtype=torch.float32, device=send.device)
+        mesh_lib.reduce_scatter_sum(out, send, self.mesh, "fsdp")
+        del send
+        acc = self.shard_layout.named(self.grads)
+        torch._foreach_add_([acc[leaf.name].view(-1) for leaf in leaves],
+                            [part.to(self.grads.dtype) for part in out.split(sizes)])
+        unit.reduced = True
 
     def grad_norm(self, grads: torch.Tensor) -> torch.Tensor:
         """The norm of the whole gradient (the mean over data is already in
@@ -517,9 +602,10 @@ def create_sharded_state(model: nn.Module, full: dict[str, torch.Tensor],
     for prefix, module in _block_modules(model):
         names = [f"{prefix}.{n}" for n, _ in module.named_parameters()]
         in_blocks.update(names)
-        units.append(_Unit([by_name[n] for n in names], [params_of[n] for n in names], module))
+        units.append(_Unit(prefix, [by_name[n] for n in names], [params_of[n] for n in names],
+                           module))
     rest = [n for n, _ in named if n not in in_blocks]
-    root = _Unit([by_name[n] for n in rest], [params_of[n] for n in rest])
+    root = _Unit("root", [by_name[n] for n in rest], [params_of[n] for n in rest])
     state = ShardedTrainState(
         step=0, model=model, params=params, grads=torch.zeros_like(params),
         ema=params.clone(), opt_state=optimizer.init(params),

@@ -29,11 +29,64 @@ import numpy as np
 import torch
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested mappings of one structure, the keys
+    in sorted order (as ``jax.tree.map`` returns dicts)."""
+    if isinstance(trees[0], Mapping):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in sorted(trees[0])}
+    return fn(*trees)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, Mapping):
+        tree = tree[sorted(tree)[0]]
+    return tree
+
+
+def stack_scan_blocks(params: Mapping) -> dict:
+    """Unrolled block layout -> the JAX ``scan_blocks`` layout (the
+    jax-free twin of maskdit_tpu/utils/port.py's): the ``blocks_0`` ..
+    ``blocks_{n-1}`` subtrees (and ``decoder_blocks_*``) become one
+    ``blocks/scan/block`` subtree whose leaves carry a leading (depth,)
+    axis (models/dit.ScannedBlocks), as numpy arrays."""
+    groups: dict[str, list] = {"blocks": [], "decoder_blocks": []}
+    new_m: dict[str, Any] = {}
+    for key, val in params["model"].items():
+        for g in groups:
+            match = re.fullmatch(rf"{g}_(\d+)", key)
+            if match:
+                groups[g].append((int(match.group(1)), val))
+                break
+        else:
+            new_m[key] = val
+    for g, items in groups.items():
+        if items:
+            trees = [t for _, t in sorted(items, key=lambda item: item[0])]
+            new_m[g] = {"scan": {"block": _tree_map(
+                lambda *leaves: np.stack([np.asarray(x) for x in leaves]), *trees)}}
+    return {**params, "model": new_m}
+
+
+def unstack_scan_blocks(params: Mapping) -> dict:
+    """The inverse of ``stack_scan_blocks``; a tree in the unrolled layout
+    comes back as it is."""
+    new_m: dict[str, Any] = {}
+    for key, val in params["model"].items():
+        if key in ("blocks", "decoder_blocks") and isinstance(val, Mapping) and "scan" in val:
+            stacked = val["scan"]["block"]
+            for i in range(np.asarray(_first_leaf(stacked)).shape[0]):
+                new_m[f"{key}_{i}"] = _tree_map(lambda x, i=i: np.asarray(x)[i], stacked)
+        else:
+            new_m[key] = val
+    return {**params, "model": new_m}
+
+
 def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
-    """The JAX EDMPrecond param tree (nested dicts of arrays) -> the port's
-    state dict, as fp32 torch tensors on the CPU."""
+    """The JAX EDMPrecond param tree (nested dicts of arrays, its blocks
+    unrolled or in the ``scan_blocks`` layout) -> the port's state dict, as
+    fp32 torch tensors on the CPU."""
     state: dict[str, np.ndarray] = {}
-    m = params["model"]
+    m = unstack_scan_blocks(params)["model"]
 
     def lin(key: str, node: Mapping) -> None:
         state[key + ".weight"] = np.asarray(node["kernel"]).T

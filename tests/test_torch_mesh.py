@@ -16,7 +16,9 @@ fp32 on the CPU:
     stochastic rounding of a bf16 nu included (and the staged update);
   * the attention route at the local head count (C10: the kernels where
     the JAX package, its packed layout split over tensor, runs plain
-    attention).
+    attention);
+  * a sharded state after a train step, once dropped, is freed by the
+    garbage collector with its model (its gradient hooks hold it weakly).
 
 The steps on the mesh, against one process and the JAX step, run under
 ``torch.distributed.run`` in tests/test_torch_mesh_dist.py.
@@ -286,3 +288,32 @@ def test_route_at_local_heads_is_named_difference_c10():
     assert jax_choice is None  # the JAX package's plain attention
     for (what, size, l, hd, backward), route in NAMED_MESH_DIFFERENCES.items():
         assert attention_route(16 // size, l, hd, backward) == route, what
+
+
+def test_a_dropped_sharded_state_is_freed_with_its_model(tiny):
+    """One train step on a sharded state of a mesh of one process (its
+    collectives the identity), then nothing else holds it: the garbage
+    collector frees the state, its buffers and the model. A tensor's
+    post-accumulate-grad hooks are no roots the collector traverses, so
+    the per-unit gradient hooks must not hold the state strongly (else
+    every case of a run keeps its state on the card)."""
+    import gc
+    import weakref
+
+    from maskdit_tpu_torch.parallel.sharded import create_sharded_state
+    from maskdit_tpu_torch.train.state import make_optimizer, make_train_step
+
+    _, full = tiny
+    model = create_model("edm", dtype=torch.float32, use_flash=False, **MODEL_KW)
+    opt = make_optimizer(1e-3, 4)
+    state = create_sharded_state(model, full, opt, mesh_lib.create_mesh({"fsdp": 1}))
+    step = make_train_step(opt, mask_ratio=0.5, mae_loss_coef=0.1)
+    rng = np.random.default_rng(3)
+    batch = {"x": torch.from_numpy(rng.normal(size=(4, 2 * CIN, RES, RES)).astype(np.float32)),
+             "y": torch.eye(K)[rng.integers(0, K, 4)]}
+    metrics = step(state, batch, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(metrics["loss"])) and all(u.reduced for u in state.units)
+    refs = [weakref.ref(x) for x in (state, state.params, state.units[0].grad, model)]
+    del state, model, step, metrics
+    gc.collect()
+    assert [r() is None for r in refs] == [True] * 4

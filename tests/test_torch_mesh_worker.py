@@ -125,14 +125,77 @@ def result(state, metrics) -> dict:
 
 
 @contextlib.contextmanager
+def unit_probe(state, events: list | None = None):
+    """What a run on the mesh does with its block units in the backward,
+    into the dict it yields: ``events``, in order, each unit's gather for
+    the backward (``open_for_backward``), its gradient's reduction and its
+    release, as (what, unit index, whether the unit was gathered at that
+    moment); ``alive``, at each of them (after the gather, before the
+    reduction and the release): (what, unit index, the indices of the block
+    units whose parameter buffer has storage, those whose gradient buffer
+    has, the bytes of each of those two sets, the root's parameter and
+    gradient bytes); ``sizes``, each block unit's bytes (of its parameter
+    buffer, and of its gradient buffer); ``total``, the bytes of every
+    unit's gradient, the whole tensor-local gradient; ``largest``, the
+    bytes of the largest gradient buffer."""
+    from maskdit_tpu_torch.parallel.sharded import ShardedTrainState
+
+    units = {id(u): i for i, u in enumerate(state.units)}
+    out = {"events": [] if events is None else events, "alive": []}
+    nbytes = lambda t: t.untyped_storage().nbytes()
+    opened, reduce, release = (ShardedTrainState.open_for_backward, ShardedTrainState.reduce,
+                               ShardedTrainState.release)
+
+    def gathered(unit) -> bool:
+        return unit.gathered and nbytes(unit.full) > 0
+
+    def alive(kind, index):
+        params = [i for i, u in enumerate(state.units) if nbytes(u.full)]
+        grads = [i for i, u in enumerate(state.units) if nbytes(u.grad)]
+        out["alive"].append((kind, index, params, grads,
+                             sum(nbytes(state.units[i].full) for i in params),
+                             sum(nbytes(state.units[i].grad) for i in grads),
+                             nbytes(state.root.full), nbytes(state.root.grad)))
+
+    def logged(kind, fn):
+        def run(self, unit):
+            index = units.get(id(unit))
+            if index is not None:
+                out["events"].append((kind, index, gathered(unit)))
+                if kind != "gather":
+                    alive(kind, index)
+            fn(self, unit)
+            if index is not None and kind == "gather":
+                alive(kind, index)
+        return run
+
+    patches = [(ShardedTrainState, "open_for_backward", logged("gather", opened)),
+               (ShardedTrainState, "reduce", logged("reduce", reduce)),
+               (ShardedTrainState, "release", logged("release", release))]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield out
+    finally:
+        ShardedTrainState.open_for_backward = opened
+        ShardedTrainState.reduce, ShardedTrainState.release = reduce, release
+    size = lambda u: u.numel * u.grad.element_size()  # in the dtype the run bound
+    out["total"] = sum(size(u) for u in state.all_units)
+    out["largest"] = max(size(u) for u in state.all_units)
+    out["sizes"] = [size(u) for u in state.units]
+
+
+@contextlib.contextmanager
 def remat_probe(state):
     """What a run on the mesh does around its rematerialised blocks, into
     the dict it yields: ``sums``, the tensor group's fp32 sums
     (``layers._all_reduce_fp32``, forward, backward and recompute);
     ``events``, in order, each backward gather of a block's unit, each
-    frame's ``publish`` and its recompute (``replay``, once per frame), as
-    (what, unit index, whether the unit was gathered at that moment);
-    ``keys``, the storage keys the frames still held after their forwards;
+    frame's ``publish`` and its recompute (``replay``, once per frame), and
+    each unit's reduction and release (``unit_probe``, whose ``alive``,
+    ``sizes``, ``total`` and ``largest`` it also holds), as (what, unit index, whether
+    the unit was gathered at that moment); ``keys``, the storage keys the
+    frames still held after their forwards;
     ``saved`` and ``equal``, the saved tensors ``unpack`` handed back and
     how many of them equal (values, shape and dtype) what ``pack`` was
     given."""
@@ -141,7 +204,7 @@ def remat_probe(state):
 
     units = {id(u.module): (i, u) for i, u in enumerate(getattr(state, "units", []))}
     out = {"sums": 0, "events": [], "keys": 0, "saved": 0, "equal": 0}
-    reduce, gather = layers._all_reduce_fp32, ShardedTrainState.gather
+    reduce = layers._all_reduce_fp32
     Frame = remat._Frame
     forward, publish, replay, pack, unpack = (Frame.forward, Frame.publish, Frame.replay,
                                               Frame.pack, Frame.unpack)
@@ -152,11 +215,6 @@ def remat_probe(state):
     def counted_reduce(x, split):
         out["sums"] += 1
         return reduce(x, split)
-
-    def logged_gather(self, unit):
-        if unit.module is not None and not torch.is_grad_enabled():  # the backward's
-            out["events"].append(("gather", units[id(unit.module)][0], gathered(unit)))
-        gather(self, unit)
 
     def logged(kind, fn):
         def run(self, *args):
@@ -183,7 +241,6 @@ def remat_probe(state):
         return got
 
     patches = [(layers, "_all_reduce_fp32", counted_reduce),
-               (ShardedTrainState, "gather", logged_gather),
                (Frame, "forward", keyed_forward), (Frame, "publish", logged("publish", publish)),
                (Frame, "replay", logged("replay", replay)), (Frame, "pack", kept_pack),
                (Frame, "unpack", checked_unpack)]
@@ -191,7 +248,12 @@ def remat_probe(state):
     for obj, name, fn in patches:
         setattr(obj, name, fn)
     try:
-        yield out
+        if not isinstance(state, ShardedTrainState):  # one process: no units
+            yield out
+            return
+        with unit_probe(state, out["events"]) as record:
+            yield out
+        out.update({k: record[k] for k in ("alive", "sizes", "total", "largest")})
     finally:
         for obj, name, fn in originals:
             setattr(obj, name, fn)
@@ -202,20 +264,26 @@ def mesh_run(mesh_shape: dict | None, options: dict, steps: range = range(STEPS)
     """Train steps ``steps`` of the tiny model on the global batches, each
     step's draws seeded from (1, step) over the global batch: (``result``,
     the state, the step, the sync). Under remat the result holds
-    ``remat_probe``'s record as ``probe``."""
+    ``remat_probe``'s record as ``probe``; on a sharded mesh without remat,
+    ``unit_probe``'s as ``units``."""
+    from maskdit_tpu_torch.parallel.sharded import ShardedTrainState
     from maskdit_tpu_torch.train.trainer import step_seed
 
     state, step_fn, sync = state_and_step or build(mesh_shape, options)
     generator = torch.Generator()
     metrics = None
-    probe = remat_probe(state) if options.get("remat") else contextlib.nullcontext()
+    key, probe = None, contextlib.nullcontext()
+    if options.get("remat"):
+        key, probe = "probe", remat_probe(state)
+    elif isinstance(state, ShardedTrainState):
+        key, probe = "units", unit_probe(state)
     with probe as record:
         for step in steps:
             generator.manual_seed(step_seed(1, step))
             metrics = step_fn(state, rows(global_batch(step), sync), generator)
     out = result(state, metrics)
-    if record is not None:
-        out["probe"] = record
+    if key is not None:
+        out[key] = record
     return out, state, step_fn, sync
 
 
@@ -234,6 +302,25 @@ def jax_run(mesh_shape: dict | None, inputs: dict, remat=None) -> dict:
         batch = {k: v[sl] for k, v in batch.items()}
         draws = StepDraws(*(None if d is None else d[sl] for d in draws))
     return result(state, step_fn(state, batch, draws=draws))
+
+
+def pending_error(mesh_shape: dict) -> str | None:
+    """A backward that takes only the root unit's gradients (``inputs=``)
+    passes every block without landing its parameters' gradients: the
+    micro-batch's end raises (its message, or None)."""
+    state, _, sync = build(mesh_shape, {})
+    model = state.model
+    state.bind(torch.float32, torch.float32)
+    state.begin_micro()
+    batch = rows(global_batch(0), sync)
+    sigma = torch.linspace(0.5, 2.0, batch["x"].shape[0])
+    loss = model(batch["x"][:, :CIN], sigma, batch["y"], train=True)["x"].square().mean()
+    loss.backward(inputs=state.root.params)
+    try:
+        state.end_micro(torch.float32)
+    except RuntimeError as err:
+        return str(err)
+    return None
 
 
 def main(out_dir: str) -> None:
@@ -285,7 +372,8 @@ def main(out_dir: str) -> None:
         nan_error = str(err)
     everyone = [None] * dist.process_count()
     torch.distributed.all_gather_object(everyone, nan_error)
-    save("import-and-nans", {"missing": missing, "nan_errors": everyone})
+    save("import-and-nans", {"missing": missing, "nan_errors": everyone,
+                             "pending": pending_error({"fsdp": 2, "tensor": 2})})
     # the CLI: a product other than the world is refused, then a run
     from maskdit_tpu_torch.train.cli import main as cli
 

@@ -1,4 +1,5 @@
-"""scripts/torch_fid_parity_gate.sh and scripts/torch_smoke_pipeline.sh.
+"""scripts/torch_fid_parity_gate.sh, scripts/torch_smoke_pipeline.sh and the
+twins of the five launch scripts (``LAUNCH``).
 
 Always: both parse (``bash -n``), name each of their stages' commands on the
 port's CLIs and nothing of the JAX package or jax, run from their checkout
@@ -8,7 +9,9 @@ nothing), and the pipeline's JSON copy of configs/train/synthetic-smoke.yaml
 (for a machine without PyYAML) equals the YAML. The two whole runs with
 DEVICE=cpu take 40-105 s each here, more than these tests' budget, so they
 are marked ``slow``, as the JAX gate's run is (tests/test_fid_gate.py);
-chip_smoke.py runs both on the card.
+chip_smoke.py runs both on the card. Each launch twin parses and runs its
+JAX script's commands on the port's CLIs, with the same config path and
+flags.
 """
 
 import json
@@ -16,6 +19,8 @@ import os
 import re
 import subprocess
 import sys
+
+import shlex
 
 import pytest
 import yaml
@@ -106,3 +111,38 @@ def test_smoke_pipeline_runs_on_cpu(tmp_path):
     assert sorted(p.name for p in (root / "samples").glob("*.png")) == [
         f"{i:06d}.png" for i in range(8)]
     assert "FID: " in out
+
+
+# the five launch scripts: each twin runs the port's CLI where its JAX
+# script runs the JAX one (``python3 <cli>.py``)
+LAUNCH = ["train_latent256", "train_latent512", "prepare_latent256", "prepare_latent512",
+          "finetune_latent512"]
+
+
+def _commands(path: str) -> list[tuple[str, list[str]]]:
+    """Each CLI command of a script (lines joined at their continuations):
+    the CLI's module name and its arguments."""
+    text = open(path).read().replace("\\\n", " ")
+    out = []
+    for line in text.splitlines():
+        words = shlex.split(line, comments=True)
+        if len(words) >= 2 and words[0] == "python3" and words[1].endswith(".py"):
+            out.append((words[1][:-3], words[2:]))
+        elif len(words) >= 3 and words[0] == "$PYTHON" and words[1] == "-m":
+            out.append((words[2], words[3:]))
+    return out
+
+
+@pytest.mark.parametrize("name", LAUNCH)
+def test_launch_twin_runs_the_jax_scripts_commands_on_the_port(name):
+    ours = os.path.join(ROOT, "scripts", f"torch_{name}.sh")
+    subprocess.run(["bash", "-n", ours], check=True)
+    text = open(ours).read()
+    assert "maskdit_tpu." not in text and "jax" not in text.lower()
+    assert 'cd "$(dirname "$0")/.."' in text and 'PYTHON="${PYTHON:-python3}"' in text
+    theirs = _commands(os.path.join(ROOT, "scripts", f"{name}.sh"))
+    got = _commands(ours)
+    assert theirs and [(f"maskdit_tpu_torch.{cli}", args) for cli, args in theirs] == got
+    for _, args in got:
+        if "--config" in args:
+            assert os.path.exists(os.path.join(ROOT, args[args.index("--config") + 1]))

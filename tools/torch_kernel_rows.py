@@ -24,6 +24,11 @@ plain version with kernel, plain and SDPA times and the bound, as
   fp32
      ``chip_smoke.phase_fp32_kernels``: #1-#4 in fp32 at the finetunes'
      shapes, at the class token's lengths and over the head dims;
+  mesh
+     #1 / #2 in fp32 at ``MESH_SHAPES``' 256-px shapes, #3 / #4 and #5 / #6
+     at its 512-px ones: one rank's attention in ``[parity-mesh]`` (8 of
+     the 16 heads at tensor 2, the case's rows per (data, fsdp)
+     coordinate);
   finetune512-flash
      ``[train-finetune512-flash]``: the 512-px finetune with
      ``model.use_flash=true`` through the checkout's train CLI, at full
@@ -45,6 +50,12 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS = ("1", "2", "3", "4", "5", "6")
+# [parity-mesh]'s per-rank attention (fp32, tensor 2): 256 px at batch 8 over
+# two (data, fsdp) coordinates, 512 px at batch 4
+MESH_SHAPES = {"256": [("mesh_parity_encoder", 4, 128, 8, 72),
+                       ("mesh_parity_decoder", 4, 256, 8, 32)],
+               "512": [("mesh_parity_512_encoder", 2, 512, 8, 72),
+                       ("mesh_parity_512_decoder", 2, 1024, 8, 32)]}
 
 
 def load_smoke():
@@ -86,11 +97,36 @@ def flash_rows(smoke, flash, key: str) -> None:
         smoke.free_device_memory()
 
 
+def mesh_rows(smoke, flash, flash_batched, flash_big) -> None:
+    import torch
+
+    fp32 = (torch.float32,)
+    smoke.attention_fwd_rows("kernel-mesh", MESH_SHAPES["256"], flash_batched.packed_attention,
+                             flash_batched.packed_attention_reference, seed=8, iters=50,
+                             variant=flash_batched.fwd_kernel, dtypes=fp32)
+    smoke.attention_bwd_rows("kernel-mesh", MESH_SHAPES["256"],
+                             flash_batched.packed_attention_bwd,
+                             flash_batched.packed_attention_bwd_reference, seed=9, iters=20,
+                             dtypes=fp32)
+    smoke.attention_fwd_rows("kernel-mesh", MESH_SHAPES["512"], flash_big.packed_attention_big,
+                             flash_big.packed_attention_big_reference, seed=10, iters=20,
+                             variant=smoke.blocked_variant, dtypes=fp32)
+    smoke.attention_bwd_rows("kernel-mesh", MESH_SHAPES["512"],
+                             flash_big.packed_attention_big_bwd,
+                             flash_big.packed_attention_big_bwd_reference, seed=11, iters=10,
+                             dtypes=fp32, variant=smoke.blocked_variant)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for name, n, l, h, hd in MESH_SHAPES["512"]:
+        smoke.flash_fwd_row(name, n, l, h, hd, torch.float32, g, 10)
+        smoke.flash_bwd_row(name, n, l, h, hd, torch.float32, g, 5)
+        smoke.free_device_memory()
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     root = os.path.abspath(argv[0] if argv else ".")
     items = argv[1:] or list(ROWS)
-    unknown = set(items) - {*ROWS, "fp32", "finetune512-flash"}
+    unknown = set(items) - {*ROWS, "fp32", "mesh", "finetune512-flash"}
     if unknown:
         raise SystemExit(f"torch_kernel_rows: unknown items {sorted(unknown)}")
     os.chdir(root)
@@ -123,6 +159,8 @@ def main(argv: list[str] | None = None) -> None:
             flash_rows(smoke, flash, item)
         elif item == "fp32":
             smoke.phase_fp32_kernels()
+        elif item == "mesh":
+            mesh_rows(smoke, flash, flash_batched, flash_big)
         else:
             os.makedirs(smoke.SCRATCH, exist_ok=True)
             try:
