@@ -1,0 +1,7 @@
+"""mfu.sample: the sampler's share of the bf16 peak (%), from the window's images/s."""
+
+from portbench import readers
+
+
+def read(view):
+    return readers.mfu(view, "sample_images_per_s")
